@@ -18,6 +18,15 @@ Phases, one JSON line each (``{"phase": ...}``):
                against a float64 oracle computed on the card from the
                gathered join; ridge (closed form and BGD) against ridge on
                the oracle's covar.
+  5. trees   — a ``DecisionTree`` regression fit with the reference's
+               defaults on the same tables, fused then unfused, driven level
+               by level through the stepping API: launch counters, the N of
+               each level, and every level's statistics held against a
+               float64 oracle computed on the card from the gathered join;
+               the chosen splits' gains, the root count and the training
+               RMSE (the tree walked over the gathered rows on the card).
+  6. forest  — a 4-tree ``RandomForest`` (depth 3, up to 32 nodes a pass),
+               fused: wall time, launches, training RMSE.
 
 Then the ``kernels`` summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -61,6 +70,22 @@ THETA_TOL = 2e-2
 #: rows of the kernel-vs-plain checks: about one main-path row block, and
 #: not a multiple of any block or chunk size
 KERNEL_ROWS = 1_000_003
+#: frontier nodes of the tree kernels' cases: the last level of the depth-4
+#: tree (1, 2, 4, 8, 16 nodes)
+TREE_NODES = 16
+#: |stat − oracle| ≤ STAT_TOL · Σ|terms| per tree statistic (Σcond, Σcond·|y|,
+#: Σcond·y²): the engine sums in float32, per row block, in a varying order
+STAT_TOL = 1e-4
+#: a chosen split's gain under the oracle's statistics is within this
+#: (relative) of the best gain at its node: float32 statistics may swap
+#: near-equal candidates, never pick a clearly worse one
+GAIN_TOL = 1e-4
+#: the root count against the fact rows: bucket counts above 2^24 (the
+#: zipf-heavy location holds about a quarter of the rows) round once each
+#: in the float32 accumulator of a step
+ROOT_N_TOL = 1e-5
+#: a tree or forest learns: training RMSE ≤ this × the label's std
+RMSE_RATIO = 0.8
 
 
 def emit(phase: str, **fields) -> None:
@@ -161,9 +186,10 @@ def kernel_phase(args, plan_specs, rates):
     n = KERNEL_ROWS
     results = {}
 
-    # -- fused_scan_block at the fact step's and the Items step's specs
+    # -- fused_scan_block at the covar plan's fact and Items steps, and at
+    # the tree plan's fact step for TREE_NODES frontier nodes
     fused_cases = []
-    for label in ("fact", "items"):
+    for label in ("fact", "items", "tree_fact"):
         specs = plan_specs[label]
         codes, fpay = random_inputs(specs, n, gen)
         got = ops.fused_scan_block(codes, fpay, specs)
@@ -234,6 +260,35 @@ def kernel_phase(args, plan_specs, rates):
                 **bound(n * 12 + D * 12, int(ok.sum()) * 5, bw, flops))
     emit("kernel", name="tree_hist", **case)
     results["tree_hist"] = [case]
+    del codes, y, cond, got, want, abs_want, sid, pay
+
+    # -- tree_hist_batched at the tree plan's sku histogram (unfused path)
+    hs = max((s for s in plan_specs["tree_fact"] if s.kind == "hist"),
+             key=lambda s: s.n_segments)
+    D, N = hs.n_segments, hs.n_cond
+    spill = max(1, D // 25)
+    codes = torch.randint(-spill, D + spill, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    y = torch.randn((n,), generator=gen, device="cuda")
+    cond = (torch.rand((n, N), generator=gen, device="cuda") < 0.5).float()
+    got = ops.tree_hist_batched(codes, y, cond, D)
+    want = ref.tree_hist_batched_ref(codes, y, cond, D)
+    abs_want = ref.tree_hist_batched_ref(codes, y.abs(), cond, D)
+    max_abs, max_rel = compare([got], [want], [abs_want], "tree_hist_batched")
+    ok = (codes >= 0) & (codes < D)
+    sid = torch.where(ok, codes, torch.zeros_like(codes)).long()
+    yk = torch.stack([torch.ones_like(y), y, y * y], 1)
+    pay = ((cond[:, :, None] * yk[:, None, :]).reshape(n, 3 * N)
+           * ok[:, None].float())
+    lib_out = torch.zeros((D, 3 * N), device="cuda")
+    case = dict(case="tree_fact", n=n, n_buckets=D, n_nodes=N,
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                ms=cuda_ms(lambda: ops.tree_hist_batched(codes, y, cond, D)),
+                plain_ms=cuda_ms(lambda: ref.tree_hist_batched_ref(codes, y, cond, D)),
+                library_ms=cuda_ms(lambda: lib_out.index_add_(0, sid, pay)),
+                **bound(n * (8 + 4 * N) + D * 3 * N * 4,
+                        int(ok.sum()) * 3 * N * 2, bw, flops))
+    emit("kernel", name="tree_hist_batched", **case)
+    results["tree_hist_batched"] = [case]
     return results
 
 
@@ -245,40 +300,56 @@ def bound(nbytes: int, n_ops: int, bw: float, flops: float):
 
 # ---------------------------------------------------------------- main path
 
-def oracle_covar(ds, data, layout, chunk: int = 1 << 22):
-    """float64 XᵀX of the gathered join, on the card.  Every Retailer
-    dimension row is addressed by a dense key of the fact row: Weather by
-    date·n_locn + locn, Location by locn, Census by Location.zip[locn],
-    Items by sku."""
+class FactJoin:
+    """The Retailer join gathered on the card, a chunk of fact rows at a
+    time.  Every dimension row is addressed by a dense key of the fact row:
+    Weather by date·n_locn + locn, Location by locn, Census by
+    Location.zip[locn], Items by sku."""
+
+    def __init__(self, data, chunk: int = 1 << 22):
+        import torch
+
+        self.rel = {name: data.relation(name).columns for name in data.relations}
+        inv, wea, loc, cen, itm = (self.rel[r] for r in ("Inventory", "Weather", "Location", "Census", "Items"))
+        self.n_locn = loc["locn"].shape[0]
+        ar = lambda t: torch.arange(t.shape[0], device=t.device, dtype=t.dtype)
+        check(bool((wea["date"].long() * self.n_locn + wea["locn"].long() == ar(wea["date"]).long()).all())
+              and bool((loc["locn"] == ar(loc["locn"])).all())
+              and bool((cen["zip"] == ar(cen["zip"])).all())
+              and bool((itm["sku"] == ar(itm["sku"])).all()),
+              "oracle: dimension tables are not densely keyed")
+        self.home = {a: r for r, cols in (("Weather", wea), ("Location", loc), ("Census", cen), ("Items", itm))
+                     for a in cols}
+        self.n = inv["date"].shape[0]
+        self.chunk = chunk
+
+    def chunks(self):
+        """Yields ``(rows, col)`` per chunk: ``col(attr)`` is the attribute's
+        column over the chunk's joined rows."""
+        inv, loc = self.rel["Inventory"], self.rel["Location"]
+        for s in range(0, self.n, self.chunk):
+            e = min(self.n, s + self.chunk)
+            locn = inv["locn"][s:e].long()
+            rows = {"Weather": inv["date"][s:e].long() * self.n_locn + locn,
+                    "Location": locn, "Census": loc["zip"].long()[locn],
+                    "Items": inv["sku"][s:e].long()}
+
+            def col(a, s=s, e=e, rows=rows):
+                if a in inv:
+                    return inv[a][s:e]
+                return self.rel[self.home[a]][a][rows[self.home[a]]]
+
+            yield e - s, col
+
+
+def oracle_covar(join, layout):
+    """float64 XᵀX of the gathered join, on the card."""
     import torch
 
-    rel = {name: data.relation(name).columns for name in data.relations}
-    inv, wea, loc, cen, itm = (rel[r] for r in ("Inventory", "Weather", "Location", "Census", "Items"))
-    n_locn = loc["locn"].shape[0]
-    ar = lambda t: torch.arange(t.shape[0], device=t.device, dtype=t.dtype)
-    check(bool((wea["date"].long() * n_locn + wea["locn"].long() == ar(wea["date"]).long()).all())
-          and bool((loc["locn"] == ar(loc["locn"])).all())
-          and bool((cen["zip"] == ar(cen["zip"])).all())
-          and bool((itm["sku"] == ar(itm["sku"])).all()),
-          "oracle: dimension tables are not densely keyed")
-    home = {a: r for r, cols in (("Weather", wea), ("Location", loc), ("Census", cen), ("Items", itm))
-            for a in cols}
-    n = inv["date"].shape[0]
     p = layout.p
     G = torch.zeros((p, p), dtype=torch.float64, device="cuda")
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
-        locn = inv["locn"][s:e].long()
-        rows = {"Weather": inv["date"][s:e].long() * n_locn + locn,
-                "Location": locn, "Census": loc["zip"].long()[locn],
-                "Items": inv["sku"][s:e].long()}
-
-        def col(a):
-            if a in inv:
-                return inv[a][s:e]
-            return rel[home[a]][a][rows[home[a]]]
-
-        X = torch.zeros((e - s, p), dtype=torch.float64, device="cuda")
+    for m, col in join.chunks():
+        X = torch.zeros((m, p), dtype=torch.float64, device="cuda")
         X[:, 0] = 1.0
         for a in layout.cont:
             X[:, layout.cont_idx(a)] = col(a).double()
@@ -286,7 +357,7 @@ def oracle_covar(ds, data, layout, chunk: int = 1 << 22):
             X.scatter_(1, (layout.cat_offsets[a] + col(a).long())[:, None], 1.0)
         X[:, layout.label_idx] = col(layout.label).double()
         G += X.T @ X
-    return G.cpu().numpy(), float(n)
+    return G.cpu().numpy(), float(join.n)
 
 
 def device_breakdown(fn, top: int = 8):
@@ -323,22 +394,18 @@ def scaled_err(C, G):
     return float((np.abs(C - G) / d).max())
 
 
-def main_phase(args, rates):
-    import numpy as np
+def load_data(args):
+    """Retailer at ``args.scale`` on the card: ``(dataset, session)``."""
     import torch
 
     from repro_torch.api import ExecutionConfig, connect
     from repro_torch.data import datasets as TD
-    from repro_torch.kernels import ops
-    from repro_torch.ml import ridge
-    from repro_torch.ml.covar import compute_covar
 
     t0 = time.perf_counter()
     ds = TD.make("retailer", scale=args.scale, seed=args.seed)
     gen_s = time.perf_counter() - t0
-    cfg = ExecutionConfig(block_size=args.block_size)
     t0 = time.perf_counter()
-    db = connect(ds, config=cfg, device="cuda")
+    db = connect(ds, config=ExecutionConfig(block_size=args.block_size), device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     sizes = db.sizes()
@@ -346,7 +413,20 @@ def main_phase(args, rates):
          block_size=args.block_size, generate_s=gen_s, to_device_s=load_s,
          reduced=None if args.scale >= 1400 else
          f"scale {args.scale} instead of 1400 (fact rows {sizes[ds.fact]} of 84,000,000)")
+    return ds, db
 
+
+def main_phase(ds, db, join):
+    import numpy as np
+    import torch
+
+    from repro_torch.api import connect
+    from repro_torch.kernels import ops
+    from repro_torch.ml import ridge
+    from repro_torch.ml.covar import compute_covar
+
+    cfg = db.config
+    sizes = db.sizes()
     runs = {}
     for label, fuse in (("fused", True), ("unfused", False)):
         sess = connect(ds.schema, data=db.data, edges=ds.edges,
@@ -366,7 +446,7 @@ def main_phase(args, rates):
         del out
         emit(f"main.{label}.profile", **device_breakdown(lambda: batch(sess.data)))
         stats = batch.stats
-        n_blocks = sum(-(-sizes[st.rel] // min(args.block_size, sizes[st.rel]))
+        n_blocks = sum(-(-sizes[st.rel] // min(cfg.block_size, sizes[st.rel]))
                        for st in batch.schedule.steps)
         runs[label] = dict(C=C, N=N, layout=layout, launches=launches)
         emit(f"main.{label}", wall_s=wall, warm_wall_s=warm, launches=launches,
@@ -392,7 +472,7 @@ def main_phase(args, rates):
     layout = runs["fused"]["layout"]
     C, N = runs["fused"]["C"], runs["fused"]["N"]
     t0 = time.perf_counter()
-    G, n_o = oracle_covar(ds, db.data, layout)
+    G, n_o = oracle_covar(join, layout)
     oracle_s = time.perf_counter() - t0
     err_fused = scaled_err(C, G)
     err_unfused = scaled_err(runs["unfused"]["C"], G)
@@ -436,20 +516,231 @@ def main_phase(args, rates):
             "tree_hist": runs["unfused"]["launches"]["tree_hist"]}
 
 
+# ---------------------------------------------------------------- trees
+
+def oracle_level(join, features, label, masks):
+    """float64 tree statistics of one level from the gathered join, on the
+    card: ``(stats, scale)`` per feature, each (N, D, 3) — stats are
+    [Σcond, Σcond·y, Σcond·y²] per bucket and frontier node with
+    cond_j = Π_g mask_j,g[code_g], scale the same sums of |terms|."""
+    import numpy as np
+    import torch
+
+    N = len(masks)
+    M = {f.attr: torch.tensor(np.stack([m[f.attr] for m in masks]), dtype=torch.float64,
+                              device="cuda") for f in features}
+    acc = {f.attr: torch.zeros((f.domain, 4 * N), dtype=torch.float64, device="cuda")
+           for f in features}
+    for m, col in join.chunks():
+        codes = {f.attr: col(f.attr).long() for f in features}
+        cond = torch.ones((m, N), dtype=torch.float64, device="cuda")
+        for f in features:
+            cond *= M[f.attr][:, codes[f.attr]].T
+        y = col(label).double()[:, None]
+        pay = torch.stack([cond, cond * y, cond * y * y, cond * y.abs()], 2).reshape(m, 4 * N)
+        for f in features:
+            acc[f.attr].index_add_(0, codes[f.attr], pay)
+    out = {}
+    for f in features:
+        a = acc[f.attr].view(f.domain, N, 4).permute(1, 0, 2).cpu().numpy()
+        out[f.attr] = (a[..., :3], a[..., [0, 3, 2]])
+    return out
+
+
+def walk_sse(join, trees, features, label):
+    """Σ (y − mean over trees of the tree's prediction)² over the gathered
+    join, each tree walked on the card; and Σy, Σy², n for the label's
+    spread."""
+    import torch
+
+    fidx = {f.attr: i for i, f in enumerate(features)}
+    dev = dict(device="cuda")
+    walkers = []
+    for t in trees:
+        nd = t.nodes
+        walkers.append(dict(
+            feat=torch.tensor([fidx[n.feature] if n.feature else 0 for n in nd], **dev),
+            thr=torch.tensor([n.threshold for n in nd], **dev),
+            ordered=torch.tensor([n.kind == "ordered" for n in nd], **dev),
+            leaf=torch.tensor([n.is_leaf for n in nd], **dev),
+            left=torch.tensor([n.left for n in nd], **dev),
+            right=torch.tensor([n.right for n in nd], **dev),
+            pred=torch.tensor([n.prediction for n in nd], dtype=torch.float64, **dev),
+            depth=t.max_depth))
+    sse = sy = syy = 0.0
+    for m, col in join.chunks():
+        codes = torch.stack([col(f.attr).long() for f in features], 1)
+        y = col(label).double()
+        p = torch.zeros(m, dtype=torch.float64, **dev)
+        for w in walkers:
+            idx = torch.zeros(m, dtype=torch.long, **dev)
+            for _ in range(w["depth"]):
+                c = codes.gather(1, w["feat"][idx][:, None])[:, 0]
+                go_left = torch.where(w["ordered"][idx], c <= w["thr"][idx], c == w["thr"][idx])
+                nxt = torch.where(go_left, w["left"][idx], w["right"][idx])
+                idx = torch.where(w["leaf"][idx], idx, nxt)
+            p += w["pred"][idx]
+        p /= len(walkers)
+        sse += float(((y - p) ** 2).sum())
+        sy += float(y.sum())
+        syy += float((y * y).sum())
+    return sse, sy, syy
+
+
+def rmse_and_std(join, trees, features, label):
+    sse, sy, syy = walk_sse(join, trees, features, label)
+    n = join.n
+    return math.sqrt(sse / n), math.sqrt(max(syy / n - (sy / n) ** 2, 0.0))
+
+
+def tree_phase(ds, db, join, n_fact: int):
+    """A depth-4 regression tree (the reference's defaults), fused then
+    unfused, level by level through the stepping API; each level's
+    statistics against the float64 oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import connect
+    from repro_torch.kernels import ops
+    from repro_torch.ml.trees import DecisionTree, split_stats, stack_mask_params
+
+    launches = {}
+    for label, fuse, sites in (("fused", True, 9), ("unfused", False, 19)):
+        sess = connect(ds.schema, data=db.data, edges=ds.edges,
+                       config=db.config.replace(fuse_kernels=fuse))
+        t0 = time.perf_counter()
+        dt = DecisionTree(ds, database=sess)
+        compile_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        levels = []
+        t0 = time.perf_counter()
+        dt.init_fit()
+        while dt.growing:
+            masks = dt.frontier_masks()
+            stats = split_stats(dt.view.run_batched(stack_mask_params(dt.features, masks)),
+                                dt.features)
+            levels.append((masks, stats))
+            dt.advance(stats)
+        wall = time.perf_counter() - t0
+        launches[label] = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        last = stack_mask_params(dt.features, levels[-1][0])
+        prof = device_breakdown(lambda: dt.view.run_batched(last))
+        stats_ = dt.batch.stats
+        level_n = [len(m) for m, _ in levels]
+
+        t0 = time.perf_counter()
+        oracles = [oracle_level(join, dt.features, ds.label, m) for m, _ in levels]
+        oracle_s = time.perf_counter() - t0
+        worst_stat = 0.0
+        for d, ((_, stats), orc) in enumerate(zip(levels, oracles)):
+            for f in dt.features:
+                o, sc = orc[f.attr]
+                err = np.abs(stats[f.attr] - o)
+                check(bool((err <= STAT_TOL * sc).all()),
+                      f"trees.{label}: level {d} {f.attr} statistics off the oracle "
+                      f"by {float((err / np.maximum(sc, 1e-300)).max()):.3e} of Σ|terms|")
+                worst_stat = max(worst_stat, float((err / np.maximum(sc, 1e-300)).max()))
+        worst_gain, n_splits = 0.0, 0
+        for d, orc in enumerate(oracles):
+            ids = [n.node_id for n in dt.nodes if n.depth == d]
+            check(len(ids) == level_n[d], f"trees.{label}: level {d} has {level_n[d]} "
+                  f"frontier nodes but the tree {len(ids)}")
+            for i, nid in enumerate(ids):
+                node = dt.nodes[nid]
+                if node.is_leaf:
+                    continue
+                gains = {f.attr: dt.split_gains(orc[f.attr][0][i], f.kind) for f in dt.features}
+                best = max(float(g.max()) for g in gains.values())
+                chosen = float(gains[node.feature][node.threshold])
+                rel = (best - chosen) / abs(best)
+                check(math.isfinite(chosen) and rel <= GAIN_TOL,
+                      f"trees.{label}: node {nid} splits on {node.feature}<={node.threshold} "
+                      f"with oracle gain {chosen} against the best {best}")
+                worst_gain = max(worst_gain, rel)
+                n_splits += 1
+        rmse, std = rmse_and_std(join, [dt], dt.features, ds.label)
+        root_n = dt.nodes[0].n
+        emit(f"trees.{label}", fit_s=wall, compile_s=compile_s, levels=level_n,
+             dispatches=dt.batch.n_dispatches, launches=launches[label],
+             static_launches=stats_.n_kernel_launches, scan_steps=stats_.n_scan_steps,
+             summary=stats_.summary(), peak_mem_gb=peak, n_nodes=len(dt.nodes),
+             n_splits=n_splits, root_n=root_n, rmse=rmse, label_std=std,
+             max_stat_err_over_abs=worst_stat, worst_gain_rel=worst_gain,
+             oracle_s=oracle_s, tol=dict(stat=STAT_TOL, gain=GAIN_TOL,
+                                         root_n=ROOT_N_TOL, rmse_ratio=RMSE_RATIO),
+             splits=[[n.feature, n.threshold] for n in dt.nodes if not n.is_leaf])
+        emit(f"trees.{label}.profile", n_nodes=level_n[-1], **prof)
+        check(stats_.n_kernel_launches == sites,
+              f"trees.{label}: static launches {stats_.n_kernel_launches} != {sites}")
+        check(dt.batch.n_dispatches == len(levels) + 1,
+              f"trees.{label}: {dt.batch.n_dispatches} passes for {len(levels)} levels "
+              "and the profiled one")
+        check(abs(root_n - n_fact) <= ROOT_N_TOL * n_fact,
+              f"trees.{label}: root count {root_n} is not {n_fact} fact rows")
+        check(all(n.n > 0 for n in dt.nodes), f"trees.{label}: a node holds no rows")
+        check(n_splits > 0, f"trees.{label}: the tree did not split")
+        check(rmse <= RMSE_RATIO * std, f"trees.{label}: RMSE {rmse} vs label std {std}")
+        got = launches[label]
+        if fuse:
+            check(got["fused_scan_block"] > 0 and got["seg_aggregate"] == 0
+                  and got["tree_hist"] == 0 and got["tree_hist_batched"] == 0,
+                  f"trees.fused launches {got}")
+        else:
+            check(got["tree_hist_batched"] > 0 and got["seg_aggregate"] > 0
+                  and got["fused_scan_block"] == 0, f"trees.unfused launches {got}")
+        del dt, sess, levels, oracles
+    return launches
+
+
+def forest_phase(ds, db, join, seed: int):
+    """A 4-tree random forest of depth 3 (up to 32 frontier nodes a pass),
+    fused."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.ml.forest import RandomForest
+
+    t0 = time.perf_counter()
+    rf = RandomForest(ds, n_trees=4, max_depth=3, seed=seed, database=db)
+    compile_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rf.fit()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rmse, std = rmse_and_std(join, rf.trees, rf.features, ds.label)
+    emit("forest", fit_s=wall, compile_s=compile_s, dispatches=rf.batch.n_dispatches,
+         launches=launches, peak_mem_gb=peak, rmse=rmse, label_std=std,
+         n_nodes=[len(t.nodes) for t in rf.trees],
+         subsets=[sorted(map(str, t.allowed_attrs)) for t in rf.trees])
+    check(launches["fused_scan_block"] > 0
+          and sum(launches.values()) == launches["fused_scan_block"],
+          f"forest launches {launches}")
+    check(rmse <= RMSE_RATIO * std, f"forest: RMSE {rmse} vs label std {std}")
+
+
 def plan_specs_for(scale: float, block_size: int):
     """The fused specs of the covar plan's fact step and of its Items step
-    with the histogram view, compiled at this run's relation sizes."""
+    with the histogram view, and of the tree plan's fact step for
+    TREE_NODES frontier nodes, compiled at this run's relation sizes."""
     from repro_torch.core.engine import Engine
     from repro_torch.core.lowering.cuda import fused_layout
     from repro_torch.data import datasets as TD
     from repro_torch.ml.covar import covar_queries
+    from repro_torch.ml.trees import build_tree_features, tree_queries
 
     dims = TD.make("retailer", scale=min(scale, 4.0))   # dimension tables
     sizes = {r: len(next(iter(c.values()))) for r, c in dims.tables.items()}
     sizes[dims.fact] = int(60_000 * scale)
+    eng = Engine(dims.schema, edges=dims.edges, sizes=sizes)
     qs, _ = covar_queries(dims)
-    batch = Engine(dims.schema, edges=dims.edges, sizes=sizes)._compile(
-        qs, block_size=block_size)
+    batch = eng._compile(qs, block_size=block_size)
     out = {}
     for step, prog in zip(batch.schedule.steps, batch.plan.step_programs):
         specs, _ = fused_layout(prog)
@@ -457,6 +748,12 @@ def plan_specs_for(scale: float, block_size: int):
             out["fact"] = specs
         elif any(sp.kind == "hist" for sp in specs):
             out["items"] = specs
+    tqs = tree_queries(build_tree_features(dims, None, None), "regression",
+                       dims.label, 0)
+    tree = eng._compile(tqs, block_size=block_size)
+    for step, prog in zip(tree.schedule.steps, tree.plan.step_programs):
+        if step.rel == dims.fact:
+            out["tree_fact"], _ = fused_layout(prog, TREE_NODES)
     return out
 
 
@@ -514,17 +811,24 @@ def main() -> int:
         specs = plan_specs_for(args.scale, args.block_size)
         kern = kernel_phase(args, specs, rates)
 
-        # 4. main path
-        launches = main_phase(args, rates)
+        # 4. main path: covar -> ridge
+        ds, db = load_data(args)
+        join = FactJoin(db.data)
+        launches = main_phase(ds, db, join)
+
+        # 5.-6. the tree path: a decision tree fused and unfused, a forest
+        tree_launches = tree_phase(ds, db, join, db.sizes()[ds.fact])
+        launches["tree_hist_batched"] = tree_launches["unfused"]["tree_hist_batched"]
+        forest_phase(ds, db, join, args.seed)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    from repro_torch.kernels import ops
-
     sources = {"fused_scan_block": ("fused_scan.cu", "src/repro/kernels/fused_scan.py:168"),
                "seg_aggregate": ("seg_aggregate.cu", "src/repro/kernels/seg_aggregate.py:39"),
-               "tree_hist": ("tree_hist.cu", "src/repro/kernels/tree_hist.py:51")}
+               "tree_hist": ("tree_hist.cu", "src/repro/kernels/tree_hist.py:51"),
+               "tree_hist_batched": ("tree_hist_batched.cu",
+                                     "src/repro/kernels/tree_hist.py:99")}
     summary = []
     for kname, cases in kern.items():
         main_case = cases[0]

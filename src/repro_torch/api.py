@@ -4,6 +4,7 @@ counterpart of ``repro/api.py`` (batch subset).
     import repro_torch
     db = repro_torch.connect(dataset)              # relations on the card
     out = db.views(queries).run()                  # {name: dense tensor}
+    outs = db.views(queries).run_batched(params)   # N param settings at once
 
 Entry points run on the card unless the caller asks for the CPU
 (``connect(..., device="cpu")``): without a CUDA device and without that
@@ -74,6 +75,16 @@ class ViewHandle:
         ``{name: dense tensor}`` on the session's device.  Launches are
         asynchronous: reading a result synchronises."""
         return self.compiled(self._database.data, params)
+
+    def run_batched(self, params: Params,
+                    n_nodes: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Evaluate ``N`` settings of the batch's ``Param(batched=True)``
+        params in one pass (``CompiledBatch.run_batched``): each batched
+        param carries a leading axis of size ``N``, and batched outputs come
+        back as ``(N, *group_dims, n_aggs)``.  Numpy params move to the
+        session's device once per call."""
+        return self.compiled.run_batched(self._database.data, params,
+                                         n_nodes=n_nodes)
 
 
 class Database:

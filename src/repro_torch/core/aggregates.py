@@ -26,9 +26,12 @@ Params = Mapping[str, object]
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """Reference to a runtime parameter (dynamic UDAF input).  ``batched``
-    declares a leading param-batch (node) axis; the port does not run such
-    plans yet."""
+    """Reference to a runtime parameter (dynamic UDAF input).
+
+    ``batched=True`` declares that the runtime value carries a leading
+    param-batch (node) axis of size ``N``; the lowering then threads that
+    axis through payloads and accumulators (``CompiledBatch.run_batched``).
+    """
 
     name: str
     batched: bool = False
@@ -125,7 +128,11 @@ _OPS: Dict[str, Callable] = {
 @dataclasses.dataclass(frozen=True)
 class Delta(Term):
     """Kronecker delta 1[X op t] — selection conditions / decision-tree nodes.
-    ``threshold`` is a Python scalar or an unbatched :class:`Param`."""
+
+    ``threshold`` may be a Python scalar (static) or a :class:`Param`
+    (dynamic: resolved from the runtime params dict).  A batched param's
+    ``(N,)`` thresholds give an ``(N, *x.shape)`` result, node axis first.
+    """
 
     attr: str
     op: str
@@ -139,8 +146,14 @@ class Delta(Term):
         return frozenset([self.attr])
 
     def evaluate(self, env: Env, params: Params) -> torch.Tensor:
-        return _OPS[self.op](env[self.attr],
-                             _resolve(self.threshold, params)).to(torch.float32)
+        t = _resolve(self.threshold, params)
+        x = env[self.attr]
+        if isinstance(self.threshold, Param) and self.threshold.batched:
+            # (N,) thresholds -> (N, 1, ..., 1): node axis leads, row/frame
+            # axes of x broadcast from the right
+            t = torch.as_tensor(t, device=x.device)
+            t = t.reshape(t.shape + (1,) * x.dim())
+        return _OPS[self.op](x, t).to(torch.float32)
 
     def params(self) -> Tuple[Param, ...]:
         return (self.threshold,) if isinstance(self.threshold, Param) else ()
@@ -154,9 +167,12 @@ class Lambda(Term):
     """Generic UDAF over one or more attributes: f(X_a, X_b, ...).
 
     ``fn`` receives broadcastable torch tensors in ``attr_order`` and the
-    params dict.  ``tag`` provides structural identity (callables do not hash
-    stably across sessions); ``invertible`` is carried for key equality with
-    the reference."""
+    params dict.  If any of ``param_refs`` is ``batched``, ``fn`` returns
+    its result with the node axis leading (``params[p][..., x]`` turns an
+    ``(N, D)`` lookup table into an ``(N, *x.shape)`` output).  ``tag``
+    provides structural identity (callables do not hash stably across
+    sessions); ``invertible`` is carried for key equality with the
+    reference."""
 
     attr_order: Tuple[str, ...]
     fn: Callable

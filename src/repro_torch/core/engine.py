@@ -7,6 +7,7 @@ The public entry point is the session facade (``repro_torch.connect`` →
     eng = Engine(schema, sizes=db.sizes())
     batch = eng._compile(queries)             # layers 1-6
     results = batch(db)                       # {query name: dense tensor}
+    results = batch.run_batched(db, params)   # N parameter settings at once
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import roots as roots_mod
@@ -62,8 +64,11 @@ class CompiledBatch:
         self.config = config
         self.roots = roots
         self.plan = ExecutablePlan(schema, tree, result, groups, config)
-        #: bound runners keyed by relation sizes
+        #: bound runners keyed by relation sizes (and node-axis size)
         self._runners = {}
+        #: passes run (``__call__`` + ``run_batched``); a frontier-batched
+        #: tree fit makes one per tree level
+        self.n_dispatches = 0
 
     @property
     def stats(self) -> BatchStats:
@@ -87,13 +92,75 @@ class CompiledBatch:
         """The fused scan schedule this batch executes."""
         return self.plan.schedule
 
-    def __call__(self, db, params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
-        params = dict(params or {})
-        key = tuple(sorted(db.sizes().items()))
+    def _runner(self, db, n_nodes: Optional[int]):
+        key = (n_nodes, tuple(sorted(db.sizes().items())))
         if key not in self._runners:
-            self._runners[key] = self.plan.bind(db.sizes())
+            self._runners[key] = self.plan.bind(db.sizes(), n_nodes=n_nodes)
+        return self._runners[key]
+
+    def __call__(self, db, params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
+        params = _params_on(params, db)
         cols = {name: dict(rel.columns) for name, rel in db.relations.items()}
-        return self._runners[key](cols, params)
+        run = self._runner(db, None)
+        self.n_dispatches += 1
+        return run(cols, params)
+
+    @property
+    def batched_params(self):
+        """Names of the batch's ``Param(batched=True)`` declarations."""
+        return self.plan.batched_params
+
+    def run_batched(self, db, params: Params, n_nodes: Optional[int] = None,
+                    pad_to_pow2: bool = True) -> Dict[str, torch.Tensor]:
+        """Evaluate ``N`` parameter settings of the compiled batch in one
+        pass over the relations.
+
+        Every batched param in ``params`` carries a leading axis of size
+        ``N`` (read off the first batched param when ``n_nodes`` is
+        omitted); batched query outputs come back as ``(N, *group_dims,
+        n_aggs)``.  The scan schedule is the N=1 one: one pass over each
+        relation serves all ``N`` nodes.
+
+        ``pad_to_pow2`` (default) rounds the node axis up to the next power
+        of two with zeroed param rows, sliced off the outputs, as the
+        reference does; the kernels' launch plans are then cached for at
+        most ``log2`` distinct widths."""
+        if not self.plan.batched_params:
+            raise ValueError("batch was compiled without batched params; "
+                             "declare Param(..., batched=True) terms first")
+        params = _params_on(params, db)
+        if n_nodes is None:
+            n_nodes = int(params[sorted(self.plan.batched_params)[0]].shape[0])
+        n_run = n_nodes
+        if pad_to_pow2:
+            n_run = 1 << (n_nodes - 1).bit_length()
+        if n_run != n_nodes:
+            for name in self.plan.batched_params:
+                v = params[name]
+                params[name] = torch.cat(
+                    [v, v.new_zeros((n_run - n_nodes,) + tuple(v.shape[1:]))])
+        cols = {name: dict(rel.columns) for name, rel in db.relations.items()}
+        run = self._runner(db, n_run)
+        self.n_dispatches += 1
+        out = run(cols, params)
+        if n_run != n_nodes:
+            batched_vids = self.plan.batched_vids
+            out = {q: (v[:n_nodes]
+                       if self.result.outputs[q].vid in batched_vids else v)
+                   for q, v in out.items()}
+        return out
+
+
+def _params_on(params: Optional[Params], db) -> Dict[str, object]:
+    """The params with every array (numpy or torch) on the relations'
+    device, moved once per call; Python scalars stay on the host."""
+    device = next(iter(next(iter(db.relations.values())).columns.values())).device
+    out = {}
+    for k, v in (params or {}).items():
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            v = torch.as_tensor(v, device=device)
+        out[k] = v
+    return out
 
 
 class Engine:

@@ -1,16 +1,21 @@
 """Lowering primitives over the group-program IR, in torch; counterpart of
-``repro/core/lowering/common.py`` (batch subset: no row weights, offsets or
-param-batch axis).
+``repro/core/lowering/common.py`` (batch subset: no row weights or offsets).
 
 Payload construction — gathers of incoming views, term evaluation in the
 product's axis frame, marginalization of extra axes, validity masking — is
 what every backend shares; only the reduction differs.  ``B`` is the rows
 of one block.
+
+Param-batch (node) axis: batched products and views carry an extra
+*leading* node axis of size ``N`` before the row axis, so tensors are
+``(N, B, *frame)``.  Non-batched factors stay ``(B, *frame)`` and broadcast
+against batched ones from the right; the static ``batched`` flags of the IR
+decide where the axis exists.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -49,7 +54,8 @@ def block_validity(blk_i: int, B: int, n_valid: int,
 def align(x: torch.Tensor, src_axes: Tuple[str, ...],
           dst_axes: Tuple[str, ...], lead: int = 1) -> torch.Tensor:
     """Map (*lead, *src_dims) onto (*lead, *dst positions) with singleton axes
-    elsewhere.  All src axes must appear in dst."""
+    elsewhere.  All src axes must appear in dst; ``lead`` counts the leading
+    non-frame axes kept in place (row axis, or node and row axes)."""
     present = [a for a in dst_axes if a in src_axes]
     if tuple(present) != tuple(src_axes):
         perm = list(range(lead)) + [lead + src_axes.index(a) for a in present]
@@ -78,12 +84,21 @@ def gather_children(gathers: Tuple[GatherSpec, ...], cols: Cols,
                     n_rows: int) -> Dict[int, torch.Tensor]:
     """Per child view: the (B, *rest_dims) slice each row sees — the paper's
     'lookup into incoming views', shared by all aggregates of the step.
-    Broadcasts are ``expand`` views: never written in place."""
+    Batched children ((N, ...) tensors) gather past their node axis, giving
+    (N, B, *rest_dims) slices.  Broadcasts are ``expand`` views: never
+    written in place."""
     out: Dict[int, torch.Tensor] = {}
     for gs in gathers:
         arr = arrays[gs.vid]
-        if gs.gather:
-            out[gs.vid] = arr[tuple(cols[a].long() for a in gs.gather)]
+        idx = tuple(cols[a].long() for a in gs.gather)
+        if gs.batched:
+            if idx:
+                out[gs.vid] = arr[(slice(None),) + idx]
+            else:
+                out[gs.vid] = arr[:, None].expand(
+                    (arr.shape[0], n_rows) + tuple(arr.shape[1:]))
+        elif idx:
+            out[gs.vid] = arr[idx]
         else:
             out[gs.vid] = arr.expand((n_rows,) + tuple(arr.shape))
     return out
@@ -92,12 +107,13 @@ def gather_children(gathers: Tuple[GatherSpec, ...], cols: Cols,
 def product_payload(pp: ProductProgram, cols: Cols,
                     gathered: Mapping[int, torch.Tensor], params: Params,
                     n_rows: int, device: torch.device) -> torch.Tensor:
-    """(B, *kept_axis_dims) contribution of one product, extra axes summed."""
+    """(B, *kept_axis_dims) contribution of one product, extra axes summed;
+    (N, B, *kept) when the product is batched."""
     n_frame = len(pp.axes)
     acc = None
     for ref in pp.child_refs:
-        x = gathered[ref.vid][..., ref.col]        # (B, *rest_dims)
-        x = align(x, ref.rest, pp.axes)
+        x = gathered[ref.vid][..., ref.col]        # (N?, B, *rest_dims)
+        x = align(x, ref.rest, pp.axes, lead=2 if ref.batched else 1)
         acc = x if acc is None else acc * x
     for ta in pp.local_terms:
         env = {}
@@ -107,7 +123,10 @@ def product_payload(pp: ProductProgram, cols: Cols,
             dom = torch.arange(d, dtype=torch.int32, device=device)
             env[a] = align(dom[None, :], (a,), pp.axes)
         x = ta.term.evaluate(env, params).to(torch.float32)
-        if x.dim() == 0 and x.device.type == "cpu":
+        if ta.batched:
+            if x.dim() == 1:       # (N,) per-node scalar -> (N, 1, ..., 1)
+                x = x.reshape(x.shape + (1,) * (1 + n_frame))
+        elif x.dim() == 0 and x.device.type == "cpu":
             # a host scalar (constant, scalar param): no copy to the device
             x = torch.full((n_rows,) + (1,) * n_frame, float(x),
                            device=device)
@@ -117,9 +136,10 @@ def product_payload(pp: ProductProgram, cols: Cols,
     if acc is None:  # pure count: Π over empty set = 1
         acc = torch.ones((n_rows,) + (1,) * n_frame, dtype=torch.float32,
                          device=device)
+    lead = acc.dim() - n_frame  # 1, or 2 when the node axis is present
     if n_frame > pp.n_keep:  # marginalize the non-output axes
-        acc = acc.expand((n_rows,) + pp.axis_dims)
-        acc = acc.sum(dim=tuple(range(1 + pp.n_keep, 1 + n_frame)))
+        acc = acc.expand(acc.shape[:lead - 1] + (n_rows,) + pp.axis_dims)
+        acc = acc.sum(dim=tuple(range(lead + pp.n_keep, lead + n_frame)))
     return acc
 
 
@@ -135,10 +155,16 @@ def col_payload(cp: ColProgram, cols: Cols,
 
 def view_payload(vp: ViewProgram, cols: Cols,
                  gathered: Mapping[int, torch.Tensor], params: Params,
-                 valid: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """(B, *pulled_dims, n_aggs) contributions of a row block to view vp.
-    Columns with no products contribute zeros."""
+                 valid: torch.Tensor, n_rows: int,
+                 n_nodes: Optional[int] = None) -> torch.Tensor:
+    """(B, *pulled_dims, n_aggs) contributions of a row block to view vp —
+    (N, B, *pulled_dims, n_aggs) for batched views.  Columns with no
+    products contribute zeros."""
     target = (n_rows,) + vp.pulled_dims
+    if vp.batched:
+        if n_nodes is None:
+            raise ValueError(f"view {vp.vid} is batched but n_nodes is unset")
+        target = (n_nodes,) + target
     out_cols = []
     for cp in vp.cols:
         if cp.products:
@@ -151,6 +177,9 @@ def view_payload(vp: ViewProgram, cols: Cols,
 
 
 def finalize(vp: ViewProgram, acc: torch.Tensor) -> torch.Tensor:
-    """Unflatten the segment axis and transpose to canonical group-by order."""
-    arr = acc.reshape(vp.out_dims + (vp.n_aggs,))
-    return arr.permute(vp.out_perm)
+    """Unflatten the segment axis and transpose to canonical group-by order;
+    a leading node axis (batched views) stays in place."""
+    lead = acc.dim() - len(vp.acc_shape)
+    arr = acc.reshape(acc.shape[:lead] + vp.out_dims + (vp.n_aggs,))
+    return arr.permute(tuple(range(lead))
+                       + tuple(lead + p for p in vp.out_perm))

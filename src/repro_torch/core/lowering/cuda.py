@@ -11,13 +11,19 @@ goes to ONE ``fused_scan_block`` launch per row block, packed exactly as the
 reference packs it (bucket specs first, then hist specs; one ``[1, y, y²]``
 triple per distinct y attribute, shared by the hist views on it).  The
 unfused path launches one ``seg_aggregate`` per bucket and one
-``tree_hist`` per hist view.  On CPU tensors the kernel wrappers run their
-plain versions, which keeps this backend testable everywhere.
+``tree_hist`` per hist view (``tree_hist_batched`` for a batched one).  On
+CPU tensors the kernel wrappers run their plain versions, which keeps this
+backend testable everywhere.
+
+Param-batch (node) axis: batched views fold the ``N`` nodes into the
+kernels' column axis — bucket columns are ``[node, pulled…, agg]`` and
+batched hist columns ``[node, stat]`` — so one launch still serves the
+whole frontier.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -40,39 +46,43 @@ def step_split(prog: StepProgram):
     return hist_views, sorted(bucket_map.items())
 
 
-def flat_width(vp: ViewProgram) -> int:
-    w = vp.n_aggs
+def flat_width(vp: ViewProgram, n_nodes: Optional[int] = None) -> int:
+    """Kernel columns of a bucket view: batched views fold the node axis
+    into the aggregate columns."""
+    w = vp.n_aggs * (n_nodes if vp.batched else 1)
     for d in vp.pulled_dims:
         w *= d
     return w
 
 
-def fused_layout(prog: StepProgram):
+def fused_layout(prog: StepProgram, n_nodes: Optional[int] = None):
     """The static packing of a step's fused launch: ``(specs, yk_offs)``
-    with bucket specs first, then one hist spec per hist view, and the
-    payload offset of the ``[1, y, y²]`` triple of each y attribute."""
+    with bucket specs first, then one hist spec per hist view (``n_cond =
+    N`` when batched), and the payload offset of the ``[1, y, y²]`` triple
+    of each y attribute."""
     hist_views, buckets = step_split(prog)
     specs: List[ops.ReduceSpec] = []
     c, off = 0, 0
     for key, vps in buckets:
-        w = sum(flat_width(vp) for vp in vps)
+        w = sum(flat_width(vp, n_nodes) for vp in vps)
         n_seg = vps[0].seg.n_segments if key else 1
         specs.append(ops.ReduceSpec("seg", c, n_seg, w, off))
         c += 1
         off += w
     cond_slots = []
-    for _ in hist_views:
-        cond_slots.append((c, off))
+    for vp in hist_views:
+        nc = n_nodes if vp.batched else 1
+        cond_slots.append((c, off, nc))
         c += 1
-        off += 1
+        off += nc
     yk_offs: Dict[str, int] = {}
     for vp in hist_views:
         if vp.hist.y_attr not in yk_offs:
             yk_offs[vp.hist.y_attr] = off
             off += 3
-    for (ci, po), vp in zip(cond_slots, hist_views):
-        specs.append(ops.ReduceSpec("hist", ci, vp.hist.n_buckets, 3, po,
-                                    n_cond=1, yk_off=yk_offs[vp.hist.y_attr]))
+    for (ci, po, nc), vp in zip(cond_slots, hist_views):
+        specs.append(ops.ReduceSpec("hist", ci, vp.hist.n_buckets, nc * 3, po,
+                                    n_cond=nc, yk_off=yk_offs[vp.hist.y_attr]))
     return tuple(specs), yk_offs
 
 
@@ -92,7 +102,7 @@ class CudaBackend:
 
     def run_step(self, prog: StepProgram, rel_cols: Mapping[str, torch.Tensor],
                  arrays: Dict[int, torch.Tensor], params: Params, *,
-                 n_valid: int, config) -> None:
+                 n_valid: int, config, n_nodes: Optional[int] = None) -> None:
         cols_blocked, n_blocks, B, _ = common.block_columns(
             rel_cols, config.block_size)
         device = next(iter(rel_cols.values())).device
@@ -107,14 +117,22 @@ class CudaBackend:
                                                   arrays, B)
                 yield blk_cols, gathered, valid
 
+        def flat_payload(vp, blk_cols, gathered, valid):
+            p = common.view_payload(vp, blk_cols, gathered, params, valid, B,
+                                    n_nodes)
+            if vp.batched:   # (N, B, *pulled, n_aggs) -> (B, N·pulled·n_aggs)
+                p = p.movedim(0, 1)
+            return p.reshape(B, -1)
+
         def bucket_payload(vps, blk_cols, gathered, valid):
-            return torch.cat(
-                [common.view_payload(vp, blk_cols, gathered, params, valid,
-                                     B).reshape(B, -1) for vp in vps], dim=1)
+            return torch.cat([flat_payload(vp, blk_cols, gathered, valid)
+                              for vp in vps], dim=1)
 
         def hist_cond(vp, blk_cols, gathered, valid):
-            return common.col_payload(vp.hist.cond, blk_cols, gathered,
+            """(B, 1) mask, or (B, N) node masks of a batched hist view."""
+            cond = common.col_payload(vp.hist.cond, blk_cols, gathered,
                                       params, B, device) * valid
+            return cond.t() if vp.batched else cond[:, None]
 
         def bucket_codes(key, vps, blk_cols):
             if key:
@@ -122,7 +140,7 @@ class CudaBackend:
             return torch.zeros((B,), dtype=torch.int32, device=device)
 
         if config.fuse_kernels and (hist_views or buckets):
-            specs, yk_offs = fused_layout(prog)
+            specs, yk_offs = fused_layout(prog, n_nodes)
             accs = [torch.zeros((sp.n_segments, sp.width), dtype=torch.float32,
                                 device=device) for sp in specs]
             for blk_cols, gathered, valid in blocks():
@@ -133,8 +151,7 @@ class CudaBackend:
                                                    valid))
                 for vp in hist_views:
                     code_cols.append(blk_cols[vp.hist.code_attr].to(torch.int32))
-                    pay_cols.append(hist_cond(vp, blk_cols, gathered,
-                                              valid)[:, None])
+                    pay_cols.append(hist_cond(vp, blk_cols, gathered, valid))
                 for ya in yk_offs:
                     y = blk_cols[ya].to(torch.float32)
                     pay_cols.append(torch.stack([torch.ones_like(y), y, y * y],
@@ -144,21 +161,31 @@ class CudaBackend:
                 for acc, out in zip(accs, outs):
                     acc += out
             bucket_accs = accs[:len(buckets)]
-            hist_accs = accs[len(buckets):]
+            hist_accs = []
+            for vp, acc in zip(hist_views, accs[len(buckets):]):
+                if vp.batched:   # columns [node j, stat k] -> (N, D, 3)
+                    acc = acc.view(vp.hist.n_buckets, n_nodes, 3).permute(
+                        1, 0, 2)
+                hist_accs.append(acc)
         else:
-            hist_accs = [torch.zeros((vp.hist.n_buckets, 3), dtype=torch.float32,
-                                     device=device) for vp in hist_views]
+            hist_accs = [torch.zeros(
+                ((n_nodes,) if vp.batched else ()) + (vp.hist.n_buckets, 3),
+                dtype=torch.float32, device=device) for vp in hist_views]
             bucket_accs = [torch.zeros(
                 (vps[0].seg.n_segments if key else 1,
-                 sum(flat_width(vp) for vp in vps)), dtype=torch.float32,
-                device=device) for key, vps in buckets]
+                 sum(flat_width(vp, n_nodes) for vp in vps)),
+                dtype=torch.float32, device=device) for key, vps in buckets]
             for blk_cols, gathered, valid in blocks():
                 for vp, acc in zip(hist_views, hist_accs):
-                    acc += ops.tree_hist(
-                        blk_cols[vp.hist.code_attr].to(torch.int32),
-                        blk_cols[vp.hist.y_attr].to(torch.float32),
-                        hist_cond(vp, blk_cols, gathered, valid),
-                        vp.hist.n_buckets)
+                    codes = blk_cols[vp.hist.code_attr].to(torch.int32)
+                    y = blk_cols[vp.hist.y_attr].to(torch.float32)
+                    cond = hist_cond(vp, blk_cols, gathered, valid)
+                    if vp.batched:
+                        acc += ops.tree_hist_batched(
+                            codes, y, cond.contiguous(), vp.hist.n_buckets)
+                    else:
+                        acc += ops.tree_hist(codes, y, cond[:, 0],
+                                             vp.hist.n_buckets)
                 for (key, vps), acc in zip(buckets, bucket_accs):
                     acc += ops.seg_aggregate(
                         bucket_codes(key, vps, blk_cols),
@@ -170,11 +197,14 @@ class CudaBackend:
         for (key, vps), out in zip(buckets, bucket_accs):
             o = 0
             for vp in vps:
-                w = flat_width(vp)
+                w = flat_width(vp, n_nodes)
                 n_seg = vp.seg.n_segments if vp.seg is not None else 1
-                acc = out[:, o:o + w].reshape((n_seg,) + vp.pulled_dims
+                lead = (n_nodes,) if vp.batched else ()
+                acc = out[:, o:o + w].reshape((n_seg,) + lead + vp.pulled_dims
                                               + (vp.n_aggs,))
                 if vp.seg is None:
                     acc = acc[0]
+                elif vp.batched:
+                    acc = acc.movedim(1, 0)   # node axis back in front
                 arrays[vp.vid] = common.finalize(vp, acc)
                 o += w

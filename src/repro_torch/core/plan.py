@@ -1,6 +1,6 @@
 """Executable plan: IR build -> shared-scan schedule -> backend lowering;
 counterpart of ``repro/core/plan.py`` (batch subset: no autotune, no plan
-verifier, no sharded psum, no param-batch axis).
+verifier, no sharded psum, no ``bind_arrays``).
 
   * ``ir.py`` compiles each view group into a typed :class:`GroupProgram`;
   * ``schedule.py`` fuses same-relation, dependency-independent groups into
@@ -19,7 +19,8 @@ import torch
 from repro_torch.core.aggregates import Params
 from repro_torch.core.groups import ViewGroup
 from repro_torch.core.ir import (StepProgram, batched_param_names,
-                                 build_programs, fuse_programs)
+                                 build_programs, compute_batched_vids,
+                                 fuse_programs)
 from repro_torch.core.jointree import JoinTree
 from repro_torch.core.lowering import get_backend
 from repro_torch.core.pushdown import PushdownResult
@@ -66,6 +67,8 @@ class ExecutablePlan:
             fuse_programs([self.programs[gid] for gid in step.gids])
             for step in self.schedule.steps]
         self.backend = get_backend(self.config.backend)
+        # param-batch (node) axis bookkeeping
+        self.batched_vids = compute_batched_vids(result.views)
         self.batched_params = batched_param_names(result.views)
 
     def n_kernel_launches(self) -> int:
@@ -74,28 +77,32 @@ class ExecutablePlan:
         return sum(self.backend.count_launches(prog, self.config)
                    for prog in self.step_programs)
 
-    def bind(self, n_rows: Dict[str, int]):
+    def bind(self, n_rows: Dict[str, int], n_nodes: Optional[int] = None):
         """Returns fn(columns, params) -> {query: tensor} for relations of
-        ``n_rows`` rows."""
-        if self.batched_params:
+        ``n_rows`` rows.  ``n_nodes`` is the param-batch (node) axis size —
+        required iff the plan has batched params, in which case each batched
+        param carries a leading axis of that size and batched query outputs
+        gain a leading node axis."""
+        if self.batched_params and n_nodes is None:
             raise ValueError(
                 f"plan has batched params {sorted(self.batched_params)}; "
-                "the param-batch axis is not ported yet")
+                "bind with n_nodes (use CompiledBatch.run_batched)")
         n_rows = dict(n_rows)
 
         def run(columns: Columns, params: Params):
             return self.extract_outputs(
-                self._run_steps(columns, params, n_rows))
+                self._run_steps(columns, params, n_rows, n_nodes))
 
         return run
 
     def _run_steps(self, columns: Columns, params: Params,
-                   n_rows: Dict[str, int]) -> Dict[int, torch.Tensor]:
+                   n_rows: Dict[str, int],
+                   n_nodes: Optional[int]) -> Dict[int, torch.Tensor]:
         arrays: Dict[int, torch.Tensor] = {}
         for step, prog in zip(self.schedule.steps, self.step_programs):
             self.backend.run_step(prog, columns[step.rel], arrays, params,
                                   n_valid=n_rows[step.rel],
-                                  config=self.config)
+                                  config=self.config, n_nodes=n_nodes)
         return arrays
 
     def extract_outputs(self, arrays: Mapping[int, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -105,8 +112,13 @@ class ExecutablePlan:
         for qname, qo in self.result.outputs.items():
             arr = arrays[qo.vid]
             cols = arr[..., list(qo.cols)]
-            perm = [qo.canonical_group_by.index(a) for a in qo.query.group_by]
-            out[qname] = cols.permute(perm + [len(qo.query.group_by)])
+            # canonical axis order -> user group-by order; a leading node
+            # axis (batched outputs) stays in front
+            lead = 1 if qo.vid in self.batched_vids else 0
+            perm = [qo.canonical_group_by.index(a) + lead
+                    for a in qo.query.group_by]
+            perm = list(range(lead)) + perm + [lead + len(qo.query.group_by)]
+            out[qname] = cols.permute(perm)
         return out
 
 

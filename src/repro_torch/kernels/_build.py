@@ -114,6 +114,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_scan_block.argtypes = [P, I64, I64, P, I64] + tail
     lib.seg_aggregate.argtypes = [P, I64, P, I64] + tail
     lib.tree_hist.argtypes = [P, P, P, I64] + tail
-    for fn in (lib.fused_scan_block, lib.seg_aggregate, lib.tree_hist):
+    lib.tree_hist_batched.argtypes = [P, P, P, I64, I64] + tail
+    for fn in (lib.fused_scan_block, lib.seg_aggregate, lib.tree_hist,
+               lib.tree_hist_batched):
         fn.restype = ctypes.c_int
     return lib

@@ -21,7 +21,7 @@ extern "C" int fused_scan_block(const int* codes, int64_t n,
                                 int smem_bytes, float* scratch, float* out,
                                 void* stream) {
   scan_reduce::Inputs in{codes, code_stride, fpay, pay_stride, nullptr,
-                         nullptr, n};
+                         nullptr, 0, n};
   return (int)scan_reduce::launch(in, items, n_items, n_chunks, max_size,
                                   smem_bytes, scratch, out,
                                   (cudaStream_t)stream);

@@ -1,12 +1,13 @@
-// Keyed segment reduction shared by the three scan kernels of the port
-// (fused_scan.cu, seg_aggregate.cu, tree_hist.cu).
+// Keyed segment reduction shared by the four scan kernels of the port
+// (fused_scan.cu, seg_aggregate.cu, tree_hist.cu, tree_hist_batched.cu).
 //
 // Every kernel computes, for one or more reductions r,
 //     out_r[s, c] = sum over rows n with code_r[n] == s of pay_r[n, c]
 // where a code outside [0, S_r) contributes nothing.  pay_r is a slice of a
 // packed float payload (SEG), the outer product cond (x) [1, y, y^2] formed
-// from payload columns (HIST), or the same product from separate y and cond
-// vectors (VEC_HIST).
+// from payload columns (HIST), or the same product from a y vector and a
+// cond vector (VEC_HIST) or a row-major (n, N) cond matrix, one column per
+// tree node (MAT_HIST: output column c is cond[:, c / 3] * [1, y, y^2][c % 3]).
 //
 // What bounds it on an H100: the bytes of codes and payload read from HBM
 // (each row is read once per column tile) and the shared-memory atomic adds
@@ -47,7 +48,7 @@
 
 namespace scan_reduce {
 
-enum Kind : int64_t { SEG = 0, HIST = 1, VEC_HIST = 2 };
+enum Kind : int64_t { SEG = 0, HIST = 1, VEC_HIST = 2, MAT_HIST = 3 };
 
 // One work item is N_FIELDS int64 values, written by the Python wrapper.
 enum Field {
@@ -71,8 +72,9 @@ struct Inputs {
   int64_t code_stride;
   const float* fpay;      // (n, pay_stride) float32, row-major (SEG, HIST)
   int64_t pay_stride;
-  const float* y;         // (n,) VEC_HIST only
-  const float* cond;      // (n,) VEC_HIST only
+  const float* y;         // (n,) VEC_HIST and MAT_HIST
+  const float* cond;      // (n, cond_stride) VEC_HIST (stride 1), MAT_HIST
+  int64_t cond_stride;
   int64_t n;
 };
 
@@ -107,6 +109,8 @@ partial_kernel(Inputs in, const int64_t* __restrict__ items,
   } else if (kind == HIST) {
     a_off = d[F_PAY_OFF] + c / 3;
     b_off = d[F_YK_OFF] + c % 3;
+  } else {  // VEC_HIST, MAT_HIST: the node column of cond
+    a_off = c / 3;
   }
   const int k = c % 3;
 
@@ -123,7 +127,7 @@ partial_kernel(Inputs in, const int64_t* __restrict__ items,
         const float* row = in.fpay + r * in.pay_stride;
         v = row[a_off] * row[b_off];
       } else {
-        const float cnd = in.cond[r];
+        const float cnd = in.cond[r * in.cond_stride + a_off];
         const float y = in.y[r];
         v = k == 0 ? cnd : (k == 1 ? cnd * y : cnd * y * y);
       }

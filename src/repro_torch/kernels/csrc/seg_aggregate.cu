@@ -15,7 +15,7 @@ extern "C" int seg_aggregate(const int* seg, int64_t n, const float* payload,
                              int64_t width, const int64_t* items, int n_items,
                              int n_chunks, int64_t max_size, int smem_bytes,
                              float* scratch, float* out, void* stream) {
-  scan_reduce::Inputs in{seg, 1, payload, width, nullptr, nullptr, n};
+  scan_reduce::Inputs in{seg, 1, payload, width, nullptr, nullptr, 0, n};
   return (int)scan_reduce::launch(in, items, n_items, n_chunks, max_size,
                                   smem_bytes, scratch, out,
                                   (cudaStream_t)stream);

@@ -16,7 +16,7 @@ extern "C" int tree_hist(const int* codes, const float* y, const float* cond,
                          int64_t n, const int64_t* items, int n_items,
                          int n_chunks, int64_t max_size, int smem_bytes,
                          float* scratch, float* out, void* stream) {
-  scan_reduce::Inputs in{codes, 1, nullptr, 0, y, cond, n};
+  scan_reduce::Inputs in{codes, 1, nullptr, 0, y, cond, 1, n};
   return (int)scan_reduce::launch(in, items, n_items, n_chunks, max_size,
                                   smem_bytes, scratch, out,
                                   (cudaStream_t)stream);

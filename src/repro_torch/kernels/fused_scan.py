@@ -42,7 +42,7 @@ SCRATCH_FLOATS = 1 << 21
 #: card and keeps its fact-row counts per chunk (about 2.2M at 84M fact
 #: rows) below 2^24, where float32 adds of integers are exact
 MIN_CHUNK_ROWS = 32
-KIND_CODES = {"seg": 0, "hist": 1, "vec_hist": 2}
+KIND_CODES = {"seg": 0, "hist": 1, "vec_hist": 2, "mat_hist": 3}
 N_FIELDS = 12
 
 

@@ -17,13 +17,14 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_scan import ReduceSpec, fused_scan_block_cuda
 from repro_torch.kernels.seg_aggregate import seg_aggregate_cuda
-from repro_torch.kernels.tree_hist import tree_hist_cuda
+from repro_torch.kernels.tree_hist import (tree_hist_batched_cuda,
+                                           tree_hist_cuda)
 
 __all__ = ["LAUNCHES", "ReduceSpec", "fused_scan_block", "reset_launches",
-           "seg_aggregate", "tree_hist"]
+           "seg_aggregate", "tree_hist", "tree_hist_batched"]
 
 LAUNCHES: Dict[str, int] = {"fused_scan_block": 0, "seg_aggregate": 0,
-                            "tree_hist": 0}
+                            "tree_hist": 0, "tree_hist_batched": 0}
 
 
 def reset_launches() -> None:
@@ -69,4 +70,15 @@ def tree_hist(codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
         return ref.tree_hist_ref(codes, y, cond, n_buckets)
     out = tree_hist_cuda(codes, y, cond, n_buckets)
     LAUNCHES["tree_hist"] += 1
+    return out
+
+
+def tree_hist_batched(codes: torch.Tensor, y: torch.Tensor,
+                      cond: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Per-node, per-bucket ``[count, Σy, Σy²]``: ``cond`` is (n, N), one
+    mask column per frontier node; returns (N, n_buckets, 3)."""
+    if not _on_cuda(codes):
+        return ref.tree_hist_batched_ref(codes, y, cond, n_buckets)
+    out = tree_hist_batched_cuda(codes, y, cond, n_buckets)
+    LAUNCHES["tree_hist_batched"] += 1
     return out

@@ -24,6 +24,16 @@ def tree_hist_ref(codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
     return seg_aggregate_ref(codes, payload, n_buckets)
 
 
+def tree_hist_batched_ref(codes: torch.Tensor, y: torch.Tensor,
+                          cond: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """cond (n, N) node-mask columns -> (N, n_buckets, 3)."""
+    n, n_cond = cond.shape
+    yk = torch.stack([torch.ones_like(y), y, y * y], dim=1)
+    payload = (cond[:, :, None] * yk[:, None, :]).reshape(n, n_cond * 3)
+    out = seg_aggregate_ref(codes, payload, n_buckets)
+    return out.view(n_buckets, n_cond, 3).permute(1, 0, 2)
+
+
 def fused_scan_block_ref(codes: torch.Tensor, fpay: torch.Tensor, specs):
     """Each :class:`ReduceSpec` is a seg-sum of its payload slice (hist
     payloads formed as cond⊗yk)."""

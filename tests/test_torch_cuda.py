@@ -17,6 +17,7 @@ from repro_torch.api import ExecutionConfig, connect
 from repro_torch.data import datasets as TD
 from repro_torch.kernels import ops, ref
 from repro_torch.ml.covar import compute_covar
+from repro_torch.ml.trees import DecisionTree
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -61,6 +62,25 @@ def test_kernels_match_plain(cuda_device, n):
                                ref.tree_hist_ref(code, y, cond, 6), **TOL)
 
 
+@pytest.mark.parametrize("n", [1, 517, 70001, 1_000_003])
+def test_tree_hist_batched_matches_plain(cuda_device, n):
+    """The unfused tree path's kernel at the fact step's sku histogram
+    (D = 480, N = 16), with codes up to 20 outside the domain."""
+    rng = np.random.default_rng(n)
+    d, n_nodes = 480, 16
+    codes = torch.from_numpy(rng.integers(-20, d + 20, n).astype(np.int32))
+    y = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    cond = torch.from_numpy((rng.random((n, n_nodes)) < 0.5).astype(np.float32))
+    codes, y, cond = (t.to(cuda_device) for t in (codes, y, cond))
+    got = ops.tree_hist_batched(codes, y, cond, d)
+    want = ref.tree_hist_batched_ref(codes, y, cond, d)
+    assert tuple(got.shape) == (n_nodes, d, 3)
+    scale = ref.tree_hist_batched_ref(codes, y.abs(), cond, d)
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+    ok = (codes >= 0) & (codes < d)
+    torch.testing.assert_close(got[:, :, 0].sum(1), cond[ok].sum(0))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     codes, fpay, specs = _case(64)
     c = torch.from_numpy(codes).to(cuda_device)
@@ -71,6 +91,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         ops.seg_aggregate(c[:, 0], f[:, :5].contiguous(), 13)
     with pytest.raises(ValueError, match="does not fit"):
         ops.seg_aggregate(c[:, 0].contiguous(), f, 60000)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.tree_hist_batched(c[:, 2].contiguous(), f[:, 13].contiguous(),
+                              f[:, 8:12].t().contiguous().t(), 6)
 
 
 def test_integer_sums_are_exact_past_2_24(cuda_device):
@@ -106,3 +129,31 @@ def test_covar_on_card_matches_cpu(cuda_device, fuse_kernels):
         assert launched["fused_scan_block"] > 0
     else:
         assert launched["seg_aggregate"] > 0 and launched["tree_hist"] > 0
+
+
+@pytest.mark.parametrize("fuse_kernels", [True, False])
+def test_tree_fit_on_card_matches_cpu(cuda_device, fuse_kernels):
+    """A frontier-batched regression tree over Retailer (30,000 fact rows):
+    the levels' statistics on the card agree with the CPU's, and the card
+    run went through the tree kernels."""
+    ds = TD.make("retailer", scale=0.5)
+    cfg = ExecutionConfig(block_size=4096, fuse_kernels=fuse_kernels)
+    kw = dict(max_depth=3, min_instances=500, max_nodes=15)
+    ops.reset_launches()
+    card = DecisionTree(ds, database=connect(ds, config=cfg,
+                                             device=cuda_device), **kw).fit()
+    launched = dict(ops.LAUNCHES)
+    host = DecisionTree(ds, database=connect(ds, config=cfg, device="cpu"),
+                        **kw).fit()
+    assert [(n.feature, n.threshold) for n in card.nodes] == \
+        [(n.feature, n.threshold) for n in host.nodes]
+    np.testing.assert_allclose([n.n for n in card.nodes],
+                               [n.n for n in host.nodes], rtol=1e-5)
+    np.testing.assert_allclose([n.prediction for n in card.nodes],
+                               [n.prediction for n in host.nodes], rtol=1e-4)
+    if fuse_kernels:
+        assert launched["fused_scan_block"] > 0
+        assert launched["tree_hist_batched"] == 0
+    else:
+        assert launched["tree_hist_batched"] > 0
+        assert launched["fused_scan_block"] == 0

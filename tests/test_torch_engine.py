@@ -133,10 +133,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         import sys
         import repro_torch
         from repro_torch.data import datasets
-        from repro_torch.ml import covar, ridge
+        from repro_torch.ml import covar, forest, ridge, trees
         ds = datasets.make("retailer", scale=0.02)
         C, N, layout, _ = covar.compute_covar(ds, device="cpu")
         ridge.closed_form(C, N, layout)
+        db = repro_torch.connect(ds, device="cpu")
+        dt = trees.DecisionTree(ds, max_depth=2, min_instances=50,
+                                database=db).fit()
+        assert dt.n_split_nodes() > 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

@@ -123,8 +123,10 @@ def test_cpu_tensors_run_plain_versions_uncounted():
     ops.seg_aggregate(torch.zeros(4, dtype=torch.int32), torch.ones(4, 2), 3)
     ops.tree_hist(torch.zeros(4, dtype=torch.int32), torch.ones(4),
                   torch.ones(4), 3)
+    ops.tree_hist_batched(torch.zeros(4, dtype=torch.int32), torch.ones(4),
+                          torch.ones(4, 2), 3)
     assert ops.LAUNCHES == {"fused_scan_block": 0, "seg_aggregate": 0,
-                            "tree_hist": 0}
+                            "tree_hist": 0, "tree_hist_batched": 0}
 
 
 @pytest.mark.parametrize("n_segments,width", [(4960, 99), (12000, 1),
