@@ -18,15 +18,33 @@ Phases, one JSON line each (``{"phase": ...}``):
                against a float64 oracle computed on the card from the
                gathered join; ridge (closed form and BGD) against ridge on
                the oracle's covar.
-  5. trees   — a ``DecisionTree`` regression fit with the reference's
+  5. fused_covar — ``make_fused_covar`` over the same session: one
+               ``covar_xtx`` launch per block of fact rows; the covar
+               against the main phase's float64 oracle (N and C[0, 0]
+               exact), ridge on it, a profile and peak memory.
+  6. trees   — a ``DecisionTree`` regression fit with the reference's
                defaults on the same tables, fused then unfused, driven level
                by level through the stepping API: launch counters, the N of
                each level, and every level's statistics held against a
                float64 oracle computed on the card from the gathered join;
                the chosen splits' gains, the root count and the training
                RMSE (the tree walked over the gathered rows on the card).
-  6. forest  — a 4-tree ``RandomForest`` (depth 3, up to 32 nodes a pass),
+  7. forest  — a 4-tree ``RandomForest`` (depth 3, up to 32 nodes a pass),
                fused: wall time, launches, training RMSE.
+  8. chowliu — ``chow_liu`` over the eight categorical features with
+               ``multi_root`` on and off: counts, MI and the learned tree
+               against an int64 ``bincount`` oracle of the gathered join.
+  9. cubes   — ``cube_via_engine`` and ``cube_rollup`` over three dimensions
+               of three relations with two measures, per cell against a
+               float64 ``index_add_`` oracle.
+ 10. polyreg — degree-2 polynomial regression over the eight continuous
+               features (540 aggregates in one query): C and b against a
+               float64 design-matrix oracle, the fit's training RMSE.
+ 11. moments — ``feature_moments`` against float64 sums, and
+               ``expert_load_aggregate`` against ``bincount``.
+
+Every phase sets the kernels' launch counters to 0 before it runs its path
+and reads them after.
 
 Then the ``kernels`` summary line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -70,6 +88,9 @@ THETA_TOL = 2e-2
 #: rows of the kernel-vs-plain checks: about one main-path row block, and
 #: not a multiple of any block or chunk size
 KERNEL_ROWS = 1_000_003
+#: feature columns of the covar_xtx cases: the fused covar path's p over
+#: Retailer (the main path) and over Favorita
+XTX_WIDTHS = (70, 142)
 #: frontier nodes of the tree kernels' cases: the last level of the depth-4
 #: tree (1, 2, 4, 8, 16 nodes)
 TREE_NODES = 16
@@ -86,10 +107,20 @@ GAIN_TOL = 1e-4
 ROOT_N_TOL = 1e-5
 #: a tree or forest learns: training RMSE ≤ this × the label's std
 RMSE_RATIO = 0.8
+#: polyreg: the training RMSE of θ (on the oracle's statistics) against the
+#: oracle θ's, relative.  θ itself is not held to a bound: 45 monomials of 8
+#: features that take 30 to 4,960 distinct values are nearly collinear, and
+#: only λ = 1e-3 on the scaled features separates them
+POLY_RMSE_TOL = 1e-4
+
+
+T_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 class CheckFailed(Exception):
@@ -289,6 +320,28 @@ def kernel_phase(args, plan_specs, rates):
                         int(ok.sum()) * 3 * N * 2, bw, flops))
     emit("kernel", name="tree_hist_batched", **case)
     results["tree_hist_batched"] = [case]
+    del codes, y, cond, got, want, abs_want, sid, pay, yk
+
+    # -- covar_xtx at the fused covar path's blocks: Retailer's p = 70 and
+    # Favorita's p = 142 feature columns, w 0/1
+    xtx_cases = []
+    for f in XTX_WIDTHS:
+        x = torch.randn((n, f), generator=gen, device="cuda")
+        w = (torch.rand((n,), generator=gen, device="cuda") < 0.9).float()
+        got = ops.covar_xtx(x, w)
+        want = ref.covar_xtx_ref(x, w)
+        abs_want = ref.covar_xtx_ref(x.abs(), w)
+        max_abs, max_rel = compare([got], [want], [abs_want], f"covar_xtx[{f}]")
+        check(torch.equal(got, got.t()), f"covar_xtx[{f}]: not symmetric")
+        case = dict(case=f"p{f}", n=n, f=f, max_abs_err=max_abs, max_rel_err=max_rel,
+                    ms=cuda_ms(lambda: ops.covar_xtx(x, w)),
+                    plain_ms=cuda_ms(lambda: ref.covar_xtx_ref(x, w)),
+                    library_ms=cuda_ms(lambda: torch.mm(x.t(), x * w[:, None])),
+                    **bound((n * f + n + f * f) * 4, n * f * (f + 1), bw, flops))
+        emit("kernel", name="covar_xtx", **case)
+        xtx_cases.append(case)
+        del x, w, got, want, abs_want
+    results["covar_xtx"] = xtx_cases
     return results
 
 
@@ -369,11 +422,12 @@ def device_breakdown(fn, top: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -383,7 +437,7 @@ def device_breakdown(fn, top: int = 8):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(profiled_wall_ms=wall * 1e3, device_busy_ms=busy,
                 idle_share=1 - busy / (wall * 1e3) if wall > 0 else None,
-                n_kernel_names=len(by_name),
+                n_kernel_names=len(by_name), trace_read_s=time.perf_counter() - t0,
                 top=[[k, v] for k, v in ranked])
 
 
@@ -422,7 +476,6 @@ def main_phase(ds, db, join):
 
     from repro_torch.api import connect
     from repro_torch.kernels import ops
-    from repro_torch.ml import ridge
     from repro_torch.ml.covar import compute_covar
 
     cfg = db.config
@@ -485,6 +538,21 @@ def main_phase(ds, db, join):
     check(err_unfused <= COVAR_TOL, f"unfused covar vs oracle {err_unfused:.3e} > {COVAR_TOL}")
     check(err_pair <= COVAR_TOL, f"unfused vs fused covar {err_pair:.3e} > {COVAR_TOL}")
 
+    ridge_checks("main.ridge", C, N, layout, G, n_o)
+    # each kernel's launches on the path that runs it
+    launches = {"fused_scan_block": runs["fused"]["launches"]["fused_scan_block"],
+                "seg_aggregate": runs["unfused"]["launches"]["seg_aggregate"],
+                "tree_hist": runs["unfused"]["launches"]["tree_hist"]}
+    return launches, dict(G=G, n=n_o, layout=layout, C=C)
+
+
+def ridge_checks(phase: str, C, N, layout, G, n_o):
+    """Ridge (closed form and BGD) on ``C`` against ridge on the oracle's
+    covar ``G``: training RMSE (evaluated on ``G``) and θ."""
+    import numpy as np
+
+    from repro_torch.ml import ridge
+
     def fit_rmse(theta):
         t = np.append(theta, -1.0)
         return math.sqrt(max(float(t @ G @ t) / n_o, 0.0))
@@ -500,20 +568,16 @@ def main_phase(ds, db, join):
     bgd_rmse_err = abs(fit_rmse(res.theta) / fit_rmse(res_o.theta) - 1)
     label_std = float(np.sqrt(G[layout.label_idx, layout.label_idx] / n_o
                               - (G[0, layout.label_idx] / n_o) ** 2))
-    emit("main.ridge", rmse_oracle=r_o, label_std=label_std,
+    emit(phase, rmse_oracle=r_o, label_std=label_std,
          closed_form_theta_rel=theta_err, closed_form_rmse_rel=rmse_err,
          bgd_theta_rel=bgd_err, bgd_rmse_rel=bgd_rmse_err,
          bgd_iterations=res.iterations, bgd_s=bgd_s,
          theta_tol=THETA_TOL, rmse_tol=RMSE_TOL)
-    check(r_o < 0.8 * label_std, f"ridge does not learn: rmse {r_o} vs std {label_std}")
-    check(theta_err <= THETA_TOL, f"closed-form θ vs oracle {theta_err:.3e} > {THETA_TOL}")
-    check(bgd_err <= THETA_TOL, f"BGD θ vs oracle {bgd_err:.3e} > {THETA_TOL}")
-    check(rmse_err <= RMSE_TOL, f"closed-form RMSE vs oracle {rmse_err:.3e} > {RMSE_TOL}")
-    check(bgd_rmse_err <= RMSE_TOL, f"BGD RMSE vs oracle {bgd_rmse_err:.3e} > {RMSE_TOL}")
-    # each kernel's launches on the path that runs it
-    return {"fused_scan_block": runs["fused"]["launches"]["fused_scan_block"],
-            "seg_aggregate": runs["unfused"]["launches"]["seg_aggregate"],
-            "tree_hist": runs["unfused"]["launches"]["tree_hist"]}
+    check(r_o < 0.8 * label_std, f"{phase}: ridge does not learn: rmse {r_o} vs std {label_std}")
+    check(theta_err <= THETA_TOL, f"{phase}: closed-form θ vs oracle {theta_err:.3e} > {THETA_TOL}")
+    check(bgd_err <= THETA_TOL, f"{phase}: BGD θ vs oracle {bgd_err:.3e} > {THETA_TOL}")
+    check(rmse_err <= RMSE_TOL, f"{phase}: closed-form RMSE vs oracle {rmse_err:.3e} > {RMSE_TOL}")
+    check(bgd_rmse_err <= RMSE_TOL, f"{phase}: BGD RMSE vs oracle {bgd_rmse_err:.3e} > {RMSE_TOL}")
 
 
 # ---------------------------------------------------------------- trees
@@ -725,6 +789,335 @@ def forest_phase(ds, db, join, seed: int):
     check(rmse <= RMSE_RATIO * std, f"forest: RMSE {rmse} vs label std {std}")
 
 
+# ---------------------------------------------------------------- batch workloads
+
+def fused_covar_phase(ds, db, orc):
+    """``make_fused_covar`` over the session's relations: one ``covar_xtx``
+    launch per block of fact rows; the covar against the main phase's
+    float64 oracle, then ridge on it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.ml.covar_fused import make_fused_covar
+
+    n = db.sizes()[ds.fact]
+    block = db.config.block_size
+    t0 = time.perf_counter()
+    fn, layout = make_fused_covar(ds, block_size=block, database=db)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = device_breakdown(fn)
+    C = out.cpu().numpy().astype(np.float64)
+    N = float(n)
+    err = scaled_err(C, orc["G"])
+    err_engine = scaled_err(C, orc["C"])
+    n_blocks = -(-n // block)
+    emit("fused_covar", setup_s=setup_s, cold_wall_s=cold, warm_wall_s=warm,
+         launches=launches, blocks=n_blocks, block_size=block, p=layout.p,
+         peak_mem_gb=peak, vs_oracle=err, vs_engine=err_engine, tol=COVAR_TOL,
+         N=N, C00=float(C[0, 0]))
+    emit("fused_covar.profile", **prof)
+    check(layout.p == orc["layout"].p, f"fused_covar: p = {layout.p}, engine {orc['layout'].p}")
+    check(np.isfinite(C).all() and C.shape == (layout.p, layout.p),
+          f"fused_covar: covar not finite or of shape {C.shape}")
+    check(bool((C == C.T).all()), "fused_covar: covar not symmetric")
+    check(N == orc["n"] == n, f"fused_covar: N={N} is not {n} fact rows")
+    check(C[0, 0] == float(np.float32(n)), f"fused_covar: C[0, 0] = {C[0, 0]} is not {n}")
+    check(err <= COVAR_TOL, f"fused_covar vs oracle {err:.3e} > {COVAR_TOL}")
+    check(launches["covar_xtx"] == n_blocks
+          and sum(launches.values()) == launches["covar_xtx"],
+          f"fused_covar launches {launches}, expected {n_blocks} covar_xtx")
+    ridge_checks("fused_covar.ridge", C, N, layout, orc["G"], orc["n"])
+    return launches["covar_xtx"]
+
+
+def max_spanning_weight(mi, edges_idx=None):
+    """Total MI of Kruskal's maximum spanning tree over ``mi`` (or of the
+    given edges)."""
+    n = mi.shape[0]
+    if edges_idx is None:
+        parent = list(range(n))
+
+        def find(x):
+            while parent[x] != x:
+                x = parent[x]
+            return x
+
+        edges_idx = []
+        for _, i, j in sorted(((mi[i, j], i, j) for i in range(n)
+                               for j in range(i + 1, n)), reverse=True):
+            ri, rj = find(i), find(j)
+            if ri != rj:
+                parent[ri] = rj
+                edges_idx.append((i, j))
+    return float(sum(mi[i, j] for i, j in edges_idx))
+
+
+def chowliu_phase(ds, db, join):
+    """Chow-Liu over the eight categorical features, multi-root and single
+    root: pairwise counts, MI and the learned tree against an int64 oracle
+    of the gathered join."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import connect
+    from repro_torch.kernels import ops
+    from repro_torch.ml.chowliu import chow_liu, mi_queries, mutual_information
+
+    attrs = list(ds.features_cat)
+    dom = {a: ds.schema.domain(a) for a in attrs}
+    pairs = [(a, b) for i, a in enumerate(attrs) for b in attrs[i + 1:]]
+    t0 = time.perf_counter()
+    cnt = {p: torch.zeros(dom[p[0]] * dom[p[1]], dtype=torch.int64, device="cuda")
+           for p in pairs}
+    for _, col in join.chunks():
+        codes = {a: col(a).long() for a in attrs}
+        for a, b in pairs:
+            cnt[(a, b)] += torch.bincount(codes[a] * dom[b] + codes[b],
+                                          minlength=dom[a] * dom[b])
+    joint_o = {p: c.view(dom[p[0]], dom[p[1]]).cpu().numpy() for p, c in cnt.items()}
+    marg_o = {a: (joint_o[pairs[0]].sum(1) if a == attrs[0] else
+                  joint_o[(attrs[0], a)].sum(0)) for a in attrs}
+    total = float(join.n)
+    n_a = len(attrs)
+    mi_o = np.zeros((n_a, n_a))
+    for i, a in enumerate(attrs):
+        for j in range(i + 1, n_a):
+            b = attrs[j]
+            mi_o[i, j] = mi_o[j, i] = mutual_information(
+                joint_o[(a, b)].astype(np.float64), marg_o[a], marg_o[b], total)
+    best = max_spanning_weight(mi_o)
+    oracle_s = time.perf_counter() - t0
+
+    emit("chowliu.oracle", oracle_s=oracle_s, mi_max=float(mi_o.max()), tree_mi=best)
+    del cnt
+
+    launches = {}
+    for label, multi in (("multi_root", True), ("single_root", False)):
+        sess = db if multi else connect(ds.schema, data=db.data, edges=ds.edges,
+                                        config=db.config.replace(multi_root=False))
+        # the batch's counts against the oracle's
+        view = sess.views(mi_queries(attrs))
+        stats = view.stats
+        out = {k: v.cpu().numpy().astype(np.float64) for k, v in view.run().items()}
+        worst_count = abs(out["mi_total"][0] - total)
+        for a, b in pairs:
+            worst_count = max(worst_count, float(np.abs(
+                out[f"mi_p_{a}_{b}"][..., 0] - joint_o[(a, b)]).max()))
+        for a in attrs:
+            worst_count = max(worst_count, float(np.abs(
+                out[f"mi_m_{a}"][..., 0] - marg_o[a]).max()))
+        check(worst_count <= ROOT_N_TOL * total,
+              f"chowliu.{label}: a count is {worst_count} off the oracle (> {ROOT_N_TOL} N)")
+        del out, view
+        t0 = time.perf_counter()
+        chow_liu(ds, database=sess)
+        cold = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = chow_liu(ds, database=sess)
+        warm = time.perf_counter() - t0
+        launches[label] = dict(ops.LAUNCHES)
+        mi_err = float(np.abs(res.mi - mi_o).max())
+        idx = {a: i for i, a in enumerate(attrs)}
+        got = max_spanning_weight(mi_o, [(idx[a], idx[b]) for a, b in res.edges])
+        emit(f"chowliu.{label}", cold_wall_s=cold, warm_wall_s=warm,
+             launches=launches[label], roots=sorted(set(stats.roots.values())),
+             summary=stats.summary(), n_aggregates=res.n_aggregates,
+             max_count_err=worst_count, count_tol=ROOT_N_TOL * total,
+             max_mi_err=mi_err, tree_mi=got, tree_mi_rel_gap=(best - got) / best,
+             edges=[list(e) for e in res.edges])
+        check(mi_err <= 1e-5 * float(mi_o.max()),
+              f"chowliu.{label}: MI {mi_err:.3e} off the oracle (> 1e-5 of the largest)")
+        check(len(res.edges) == n_a - 1 and got >= (1 - 1e-5) * best,
+              f"chowliu.{label}: tree MI {got} against the oracle's best {best}")
+        check(launches[label]["fused_scan_block"] > 0
+              and sum(launches[label].values()) == launches[label]["fused_scan_block"],
+              f"chowliu.{label} launches {launches[label]}")
+        check(multi or len(set(stats.roots.values())) == 1,
+              f"chowliu.{label}: roots {stats.roots}")
+    return launches
+
+
+def cubes_phase(ds, db, join):
+    """A data cube over three categorical dimensions of three relations with
+    two measures (the fact label and a Weather attribute), through the
+    engine and through roll-up, against a float64 oracle."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.ml.cubes import cube_name, cube_rollup, cube_via_engine
+
+    dims = ["rain", "rgn_cd", "category"]
+    meas = ["inventoryunits", "maxtemp"]
+    dom = [ds.schema.domain(d) for d in dims]
+    size = int(np.prod(dom))
+    fin = torch.zeros((size, 2 * len(meas)), dtype=torch.float64, device="cuda")
+    for _, col in join.chunks():
+        flat = col(dims[0]).long()
+        for d, k in zip(dims[1:], dom[1:]):
+            flat = flat * k + col(d).long()
+        vals = torch.stack([col(m).double() for m in meas], 1)
+        fin.index_add_(0, flat, torch.cat([vals, vals.abs()], 1))
+    fin = fin.view(*dom, 2 * len(meas)).cpu().numpy()
+    oracle = {}
+    for r in range(len(dims) + 1):
+        for sub in itertools.combinations(dims, r):
+            axes = tuple(i for i, d in enumerate(dims) if d not in sub)
+            oracle[cube_name(sub)] = fin.sum(axis=axes) if axes else fin
+
+    out = {}
+    for label, fn in (("engine", cube_via_engine), ("rollup", cube_rollup)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        cells = fn(ds, dims, meas, database=db)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        worst = 0.0
+        check(set(cells) == set(oracle), f"cubes.{label}: cells {sorted(cells)}")
+        for k, o in oracle.items():
+            err = np.abs(cells[k] - o[..., :2])
+            worst = max(worst, float((err / np.maximum(o[..., 2:], 1e-300)).max()))
+            check(bool((err <= STAT_TOL * o[..., 2:]).all()),
+                  f"cubes.{label}: cell {k} off the oracle by more than {STAT_TOL} of Σ|terms|")
+        emit(f"cubes.{label}", wall_s=wall, launches=launches, n_cells=len(cells),
+             max_err_over_abs=worst, tol=STAT_TOL)
+        check(launches["fused_scan_block"] > 0, f"cubes.{label} launches {launches}")
+        out[label] = launches
+    return out
+
+
+def polyreg_phase(ds, db, join):
+    """Degree-2 polynomial regression over the eight continuous features (45
+    design columns, 540 aggregates in one query): C and b against a float64
+    design-matrix oracle, and the fit's training RMSE on the oracle's
+    statistics against the oracle θ's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.ml.polyreg import compute_poly_covar, fit_polyreg, solve_polyreg
+
+    # one pass under the profiler (its wall includes the profiler's own
+    # cost), then the fit's wall: compile, one pass, the solve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = {}
+    prof = device_breakdown(lambda: run.update(out=compute_poly_covar(ds, database=db)))
+    C, b, N, layout, batch = run["out"]
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    theta, _, _ = fit_polyreg(ds, database=db)
+    fit_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    p = len(layout.features)
+    G = torch.zeros((p + 1, p + 1), dtype=torch.float64, device="cuda")
+    for m, col in join.chunks():
+        cols = {a: col(a).double() for a in {a for f in layout.features for a, _ in f}}
+        X = torch.empty((m, p + 1), dtype=torch.float64, device="cuda")
+        for i, f in enumerate(layout.features):
+            X[:, i] = 1.0
+            for a, pw in f:
+                X[:, i] *= cols[a] ** pw
+        X[:, p] = col(layout.label).double()
+        G += X.T @ X
+    G = G.cpu().numpy()
+    oracle_s = time.perf_counter() - t0
+    n = float(join.n)
+    Go, bo, syy = G[:p, :p], G[:p, p], G[p, p]
+    err_C = scaled_err(C, Go)
+    err_b = float((np.abs(b - bo) / np.sqrt(np.diag(Go) * syy)).max())
+    theta_o = solve_polyreg(Go, bo, n)
+
+    def fit_rmse(t):
+        return math.sqrt(max(float(t @ Go @ t - 2 * t @ bo + syy) / n, 0.0))
+
+    r, r_o = fit_rmse(theta), fit_rmse(theta_o)
+    std = math.sqrt(max(syy / n - (bo[0] / n) ** 2, 0.0))   # feature 0 is the constant
+    emit("polyreg", fit_s=fit_s,
+         launches=launches, summary=batch.stats.summary(),
+         n_dedup_hits=batch.result.stats.n_dedup_hits, n_features=p,
+         peak_mem_gb=peak, C_vs_oracle=err_C, b_vs_oracle=err_b, tol=COVAR_TOL,
+         rmse=r, rmse_oracle=r_o, rmse_rel=abs(r / r_o - 1), label_std=std,
+         theta_rel=float(np.linalg.norm(theta - theta_o) / np.linalg.norm(theta_o)),
+         oracle_s=oracle_s)
+    emit("polyreg.profile", **prof)
+    check(N == n, f"polyreg: N={N} is not {n} fact rows")
+    check(err_C <= COVAR_TOL, f"polyreg: C vs oracle {err_C:.3e} > {COVAR_TOL}")
+    check(err_b <= COVAR_TOL, f"polyreg: b vs oracle {err_b:.3e} > {COVAR_TOL}")
+    check(abs(r / r_o - 1) <= POLY_RMSE_TOL,
+          f"polyreg: RMSE {r} against the oracle θ's {r_o}")
+    check(r_o < std, f"polyreg does not learn: RMSE {r_o} vs std {std}")
+    check(launches["fused_scan_block"] > 0
+          and sum(launches.values()) == launches["fused_scan_block"],
+          f"polyreg launches {launches}")
+    return launches
+
+
+def moments_phase(ds, db, join, seed: int):
+    """``feature_moments`` of the eight continuous features against float64
+    sums over the gathered join, and ``expert_load_aggregate`` against
+    ``bincount``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.statistics import expert_load_aggregate, feature_moments
+    from repro_torch.kernels import ops
+
+    attrs = list(ds.features_cont)
+    acc = torch.zeros((len(attrs), 3), dtype=torch.float64, device="cuda")
+    for _, col in join.chunks():
+        x = torch.stack([col(a).double() for a in attrs], 1)
+        acc += torch.stack([x.sum(0), x.abs().sum(0), (x * x).sum(0)], 1)
+    acc = acc.cpu().numpy() / join.n
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got = feature_moments(ds, database=db)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    worst_mean = worst_var = 0.0
+    for i, a in enumerate(attrs):
+        mean_o, abs_o, sq_o = acc[i]
+        var_o = sq_o - mean_o * mean_o
+        worst_mean = max(worst_mean, abs(got[a]["mean"] - mean_o) / abs_o)
+        worst_var = max(worst_var, abs(got[a]["var"] - var_o) / sq_o)
+        check(got[a]["count"] == join.n, f"moments: {a} count {got[a]['count']}")
+    emit("moments", wall_s=wall, launches=launches, max_mean_err_over_abs=worst_mean,
+         max_var_err_over_sq=worst_var, tol=STAT_TOL)
+    # mean within STAT_TOL of E|x|; var = E[x²] − mean², within 3·STAT_TOL of E[x²]
+    check(worst_mean <= STAT_TOL and worst_var <= 3 * STAT_TOL,
+          f"moments off the oracle: mean {worst_mean:.3e}, var {worst_var:.3e}")
+    check(launches["fused_scan_block"] > 0, f"moments launches {launches}")
+
+    ids = np.random.default_rng(seed).integers(0, 64, 1_000_003)
+    load = expert_load_aggregate(ids, 64, device="cuda")
+    check(np.array_equal(load, np.bincount(ids, minlength=64)),
+          "expert_load_aggregate differs from bincount")
+    return launches
+
+
 def plan_specs_for(scale: float, block_size: int):
     """The fused specs of the covar plan's fact step and of its Items step
     with the histogram view, and of the tree plan's fact step for
@@ -814,12 +1207,22 @@ def main() -> int:
         # 4. main path: covar -> ridge
         ds, db = load_data(args)
         join = FactJoin(db.data)
-        launches = main_phase(ds, db, join)
+        launches, orc = main_phase(ds, db, join)
 
-        # 5.-6. the tree path: a decision tree fused and unfused, a forest
+        # 5. the gathered-XᵀX covar path, against the main phase's oracle
+        launches["covar_xtx"] = fused_covar_phase(ds, db, orc)
+        del orc
+
+        # 6.-7. the tree path: a decision tree fused and unfused, a forest
         tree_launches = tree_phase(ds, db, join, db.sizes()[ds.fact])
         launches["tree_hist_batched"] = tree_launches["unfused"]["tree_hist_batched"]
         forest_phase(ds, db, join, args.seed)
+
+        # 8.-11. the batch workloads on the engine
+        chowliu_phase(ds, db, join)
+        cubes_phase(ds, db, join)
+        polyreg_phase(ds, db, join)
+        moments_phase(ds, db, join, args.seed)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -828,7 +1231,8 @@ def main() -> int:
                "seg_aggregate": ("seg_aggregate.cu", "src/repro/kernels/seg_aggregate.py:39"),
                "tree_hist": ("tree_hist.cu", "src/repro/kernels/tree_hist.py:51"),
                "tree_hist_batched": ("tree_hist_batched.cu",
-                                     "src/repro/kernels/tree_hist.py:99")}
+                                     "src/repro/kernels/tree_hist.py:99"),
+               "covar_xtx": ("covar_xtx.cu", "src/repro/kernels/covar_xtx.py:41")}
     summary = []
     for kname, cases in kern.items():
         main_case = cases[0]

@@ -36,11 +36,14 @@ class ExecutionConfig:
     ``backend`` selects the lowering path ("cuda": the hand-written
     kernels); ``fuse_kernels`` collapses each step's reductions into ONE
     fused launch per row block (off: one launch per reduction, the
-    comparison baseline); ``block_size`` is the rows per launch."""
+    comparison baseline); ``block_size`` is the rows per launch;
+    ``multi_root`` enables the paper's find-roots layer (off: every query
+    of a batch is rooted at one relation, the paper's ablation)."""
 
     backend: str = "cuda"
     block_size: int = 1 << 20
     fuse_kernels: bool = True
+    multi_root: bool = True
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -55,7 +58,8 @@ class ExecutionConfig:
     def compile_kwargs(self) -> Dict[str, object]:
         """The compile-stage subset, as `Engine._compile` keywords."""
         return dict(block_size=self.block_size, backend=self.backend,
-                    fuse_kernels=self.fuse_kernels)
+                    fuse_kernels=self.fuse_kernels,
+                    multi_root=self.multi_root)
 
 
 class ViewHandle:

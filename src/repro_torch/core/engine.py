@@ -179,12 +179,17 @@ class Engine:
 
     def _compile(self, queries: Sequence[Query], *,
                  block_size: int = 1 << 20, backend: str = "cuda",
-                 fuse_kernels: bool = True) -> CompiledBatch:
-        """Compile a query batch: multi-root pushdown and shared-scan fusion
-        as in the reference's defaults; ``fuse_kernels`` gives one fused
-        launch per step and row block; ``block_size`` is the rows per
+                 fuse_kernels: bool = True,
+                 multi_root: bool = True) -> CompiledBatch:
+        """Compile a query batch: multi-root pushdown (``multi_root=False``:
+        every query at the one root of ``roots.single_root``) and shared-scan
+        fusion as in the reference's defaults; ``fuse_kernels`` gives one
+        fused launch per step and row block; ``block_size`` is the rows per
         launch."""
-        roots = roots_mod.find_roots(self.tree, queries, self.sizes)
+        if multi_root:
+            roots = roots_mod.find_roots(self.tree, queries, self.sizes)
+        else:
+            roots = roots_mod.single_root(self.tree, queries, self.sizes)
         result = push_down(self.tree, queries, roots)
         groups = group_views(result)
         cfg = PlanConfig(block_size=block_size, backend=backend,

@@ -115,7 +115,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.seg_aggregate.argtypes = [P, I64, P, I64] + tail
     lib.tree_hist.argtypes = [P, P, P, I64] + tail
     lib.tree_hist_batched.argtypes = [P, P, P, I64, I64] + tail
+    lib.covar_xtx.argtypes = [P, P, I64, I, I64, I, P, P, P]
+    lib.covar_xtx_blocks_per_sm.argtypes = []
+    lib.covar_xtx_blocks_per_sm.restype = ctypes.c_int
     for fn in (lib.fused_scan_block, lib.seg_aggregate, lib.tree_hist,
-               lib.tree_hist_batched):
+               lib.tree_hist_batched, lib.covar_xtx):
         fn.restype = ctypes.c_int
     return lib

@@ -16,8 +16,11 @@
 // memory while the widest accumulator on the main path is 1.96 MB
 // (4960 x 99 floats), so the design is:
 //
-//   * a work item is one (reduction, column tile) pair, the tile sized so
-//     that S_r * tile floats fit the shared-memory budget;
+//   * a work item is one (reduction, segment range, column tile), the tile
+//     sized so that the range's segments * tile floats fit the
+//     shared-memory budget.  A reduction has one segment range unless one
+//     column of all its segments does not fit (more than 58,112 segments);
+//     then each range re-reads the rows and skips codes outside it;
 //   * grid = (work item, row chunk).  Each item has its own chunk count:
 //     few for wide accumulators, whose partial tiles are costly to write,
 //     and up to one per 4096 rows for narrow ones, which keeps the rows
@@ -54,16 +57,17 @@ enum Kind : int64_t { SEG = 0, HIST = 1, VEC_HIST = 2, MAT_HIST = 3 };
 enum Field {
   F_KIND = 0,     // Kind
   F_CODE_COL,     // column of the codes matrix holding this reduction's code
-  F_NSEG,         // S_r
+  F_NSEG,         // segments of this item's range of the reduction
   F_WIDTH,        // output width of the reduction
   F_PAY_OFF,      // SEG: first payload column; HIST: first cond column
   F_YK_OFF,       // HIST: first of the three [1, y, y^2] columns
   F_COL0,         // first output column of this tile
   F_TILE,         // columns in this tile
   F_OUT_OFF,      // offset of the reduction's (S_r, width) output
-  F_SCRATCH_OFF,  // offset of this item's (n_chunks, S_r, tile) partials
+  F_SCRATCH_OFF,  // offset of this item's (n_chunks, F_NSEG, tile) partials
   F_NCHUNKS,      // row chunks of this item (blocks past it exit at once)
   F_CHUNK_ROWS,   // rows per chunk of this item
+  F_SEG0,         // first segment of this item's range
   N_FIELDS
 };
 
@@ -90,6 +94,7 @@ partial_kernel(Inputs in, const int64_t* __restrict__ items,
   const int64_t rows_per_chunk = d[F_CHUNK_ROWS];
   const int64_t kind = d[F_KIND];
   const int S = (int)d[F_NSEG];
+  const int64_t seg0 = d[F_SEG0];
   const int tile = (int)d[F_TILE];
   const int64_t size = (int64_t)S * tile;
 
@@ -118,8 +123,8 @@ partial_kernel(Inputs in, const int64_t* __restrict__ items,
   const int64_t r1 = r0 + rows_per_chunk < in.n ? r0 + rows_per_chunk : in.n;
   if (slot < slots) {
     for (int64_t r = r0 + slot; r < r1; r += slots) {
-      const int code = in.codes[r * in.code_stride + code_col];
-      if ((unsigned)code >= (unsigned)S) continue;
+      const int64_t code = in.codes[r * in.code_stride + code_col] - seg0;
+      if ((uint64_t)code >= (uint64_t)S) continue;
       float v;
       if (kind == SEG) {
         v = in.fpay[r * in.pay_stride + a_off];
@@ -131,7 +136,7 @@ partial_kernel(Inputs in, const int64_t* __restrict__ items,
         const float y = in.y[r];
         v = k == 0 ? cnd : (k == 1 ? cnd * y : cnd * y * y);
       }
-      atomicAdd(&acc[(int64_t)code * tile + j], v);
+      atomicAdd(&acc[code * tile + j], v);
     }
   }
   __syncthreads();
@@ -149,6 +154,7 @@ combine_kernel(const int64_t* __restrict__ items,
   const int64_t size = d[F_NSEG] * tile;
   const int64_t width = d[F_WIDTH];
   const int64_t col0 = d[F_COL0];
+  const int64_t seg0 = d[F_SEG0];
   const float* src = scratch + d[F_SCRATCH_OFF];
   float* dst = out + d[F_OUT_OFF];
   for (int64_t i = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; i < size;
@@ -156,7 +162,7 @@ combine_kernel(const int64_t* __restrict__ items,
     double s = 0.0;
     for (int64_t ch = 0; ch < n_chunks; ++ch) s += src[ch * size + i];
     const int64_t seg = i / tile;
-    dst[seg * width + col0 + (i - seg * tile)] = (float)s;
+    dst[(seg0 + seg) * width + col0 + (i - seg * tile)] = (float)s;
   }
 }
 

@@ -11,8 +11,9 @@ Inputs are packed by the lowering backend exactly as for the TPU kernel:
 
 Each :class:`ReduceSpec` says which slice belongs to which reduction.  The
 device code (``csrc/scan_reduce.cuh``) splits every reduction into column
-tiles that fit shared memory; :func:`launch_plan` lays those work items out
-and this module's launch function runs them.  Codes outside
+tiles that fit shared memory, and a reduction over more segments than one
+shared-memory column holds into segment ranges; :func:`launch_plan` lays
+those work items out and this module's launch function runs them.  Codes outside
 ``[0, n_segments)`` contribute nothing, so the last, ragged row block needs
 no padding rows.
 """
@@ -43,7 +44,9 @@ SCRATCH_FLOATS = 1 << 21
 #: rows) below 2^24, where float32 adds of integers are exact
 MIN_CHUNK_ROWS = 32
 KIND_CODES = {"seg": 0, "hist": 1, "vec_hist": 2, "mat_hist": 3}
-N_FIELDS = 12
+N_FIELDS = 13
+#: most segments one column of a block's shared-memory tile holds
+MAX_TILE_SEGMENTS = SMEM_BYTES // 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +89,17 @@ class LaunchPlan:
         return off + s * w
 
 
+def segment_ranges(n_segments: int):
+    """``(first segment, segments)`` ranges of one reduction, of about equal
+    size, each small enough that one of its columns fits a block's shared
+    memory.  A reduction over more segments (a single-root batch may group
+    a view by a product of domains) is cut into ranges, and each range
+    re-reads the rows, skipping the codes outside it."""
+    k = max(1, -(-n_segments // MAX_TILE_SEGMENTS))
+    per = -(-n_segments // k)
+    return [(s0, min(per, n_segments - s0)) for s0 in range(0, n_segments, per)]
+
+
 def column_tiles(n_segments: int, width: int):
     """``(first column, columns)`` tiles of one reduction, each sized so
     that its ``n_segments × columns`` float32 accumulator fits a block's
@@ -107,9 +121,10 @@ def launch_plan(specs: Tuple[ReduceSpec, ...], kinds: Tuple[str, ...],
     items tensor is copied to the device once per (specs, n)."""
     rows, outputs, off = [], [], 0
     for sp, kind in zip(specs, kinds):
-        for c0, t in column_tiles(sp.n_segments, sp.width):
-            rows.append([KIND_CODES[kind], sp.code_col, sp.n_segments,
-                         sp.width, sp.pay_off, sp.yk_off, c0, t, off, 0, 0, 0])
+        for s0, ns in segment_ranges(sp.n_segments):
+            for c0, t in column_tiles(ns, sp.width):
+                rows.append([KIND_CODES[kind], sp.code_col, ns, sp.width,
+                             sp.pay_off, sp.yk_off, c0, t, off, 0, 0, 0, s0])
         outputs.append((off, sp.n_segments, sp.width))
         off += sp.n_segments * sp.width
     # chunks per item: one per CHUNK_ROWS rows while its partial tiles stay

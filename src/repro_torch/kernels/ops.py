@@ -10,21 +10,23 @@ kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.covar_xtx import covar_xtx_cuda
 from repro_torch.kernels.fused_scan import ReduceSpec, fused_scan_block_cuda
 from repro_torch.kernels.seg_aggregate import seg_aggregate_cuda
 from repro_torch.kernels.tree_hist import (tree_hist_batched_cuda,
                                            tree_hist_cuda)
 
-__all__ = ["LAUNCHES", "ReduceSpec", "fused_scan_block", "reset_launches",
-           "seg_aggregate", "tree_hist", "tree_hist_batched"]
+__all__ = ["LAUNCHES", "ReduceSpec", "covar_xtx", "fused_scan_block",
+           "reset_launches", "seg_aggregate", "tree_hist", "tree_hist_batched"]
 
-LAUNCHES: Dict[str, int] = {"fused_scan_block": 0, "seg_aggregate": 0,
-                            "tree_hist": 0, "tree_hist_batched": 0}
+LAUNCHES: Dict[str, int] = {"covar_xtx": 0, "fused_scan_block": 0,
+                            "seg_aggregate": 0, "tree_hist": 0,
+                            "tree_hist_batched": 0}
 
 
 def reset_launches() -> None:
@@ -38,6 +40,22 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def covar_xtx(x: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C = Xᵀ·diag(w)·X``: the (F, F) float32 ``C[f, g] = Σ_n w[n]·x[n, f]·
+    x[n, g]`` for ``x`` (n, F) of any float dtype (cast to float32) and ``w``
+    (n,) or ``None`` (ones).  Any ``n`` and ``F``: the reference's
+    ``block_rows``, ``interpret`` and ``feature_align`` pad for the TPU's
+    tiles and have no counterpart here."""
+    x = x.to(torch.float32)
+    w = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+         if w is None else w.to(torch.float32))
+    if not _on_cuda(x):
+        return ref.covar_xtx_ref(x, w)
+    out = covar_xtx_cuda(x, w)
+    LAUNCHES["covar_xtx"] += 1
+    return out
 
 
 def fused_scan_block(codes: torch.Tensor, fpay: torch.Tensor,

@@ -7,6 +7,11 @@ from __future__ import annotations
 import torch
 
 
+def covar_xtx_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("nf,n,ng->fg", x.to(torch.float32),
+                        w.to(torch.float32), x.to(torch.float32))
+
+
 def seg_aggregate_ref(seg: torch.Tensor, payload: torch.Tensor,
                       n_segments: int) -> torch.Tensor:
     # out-of-range segment ids must contribute nowhere (padding convention)

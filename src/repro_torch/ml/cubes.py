@@ -1,0 +1,86 @@
+"""Data cubes (paper §2, eq. (6)): 2^k group-by aggregates, v measures each;
+counterpart of ``repro/ml/cubes.py`` (batch part).
+
+Two evaluation paths:
+  * ``cube_via_engine`` — all 2^k subset queries as one LMFAO batch (the
+    paper's path; view merging shares the per-edge count views across cells);
+  * ``cube_rollup`` — beyond-paper: compute only the finest cell with the
+    engine, then roll coarser cells up the lattice by marginalizing axes
+    (classic Harinarayan-style reuse, exact for SUM measures).
+Tests assert the paths agree.  The reference's third path, the incremental
+``StreamingCube``, needs view maintenance, which the port does not have yet.
+
+Both thread the session's :class:`~repro_torch.api.ExecutionConfig`:
+``backend``/``block_size``/``multi_root`` select the execution path, or an
+open ``database`` session is reused (its config and device win).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.api import Database, ExecutionConfig, connect
+from repro_torch.core.aggregates import query, sum_of
+from repro_torch.data.datasets import Dataset
+
+
+def cube_name(subset: Sequence[str]) -> str:
+    return "cube_" + ("_".join(subset) if subset else "ALL")
+
+
+def cube_queries(dims: Sequence[str], measures: Sequence[str]):
+    qs = []
+    for r in range(len(dims) + 1):
+        for subset in itertools.combinations(dims, r):
+            qs.append(query(cube_name(subset), list(subset),
+                            [sum_of(m) for m in measures]))
+    return qs
+
+
+def _session(ds: Dataset, database: Optional[Database],
+             config: Optional[ExecutionConfig], multi_root: bool,
+             block_size: int, backend: str, device) -> Database:
+    if database is not None:
+        return database
+    return connect(ds, config=config or ExecutionConfig(
+        multi_root=multi_root, block_size=block_size, backend=backend),
+        device=device)
+
+
+def _run(db: Database, qs) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy().astype(np.float64)
+            for k, v in db.views(qs).run().items()}
+
+
+def cube_via_engine(ds: Dataset, dims: Sequence[str], measures: Sequence[str],
+                    multi_root: bool = True, block_size: int = 1 << 20,
+                    backend: str = "cuda",
+                    config: Optional[ExecutionConfig] = None,
+                    database: Optional[Database] = None,
+                    device="cuda") -> Dict[str, np.ndarray]:
+    return _run(_session(ds, database, config, multi_root, block_size,
+                         backend, device), cube_queries(dims, measures))
+
+
+def cube_rollup(ds: Dataset, dims: Sequence[str], measures: Sequence[str],
+                block_size: int = 1 << 20, backend: str = "cuda",
+                config: Optional[ExecutionConfig] = None,
+                database: Optional[Database] = None,
+                device="cuda") -> Dict[str, np.ndarray]:
+    """Only the finest cell runs on the engine (the reference runs the
+    whole cube batch and keeps its finest cell: the same numbers)."""
+    name = cube_name(dims)
+    db = _session(ds, database, config, True, block_size, backend, device)
+    finest = _run(db, [query(name, list(dims),
+                             [sum_of(m) for m in measures])])[name]
+    out: Dict[str, np.ndarray] = {}
+    for r in range(len(dims) + 1):
+        for subset in itertools.combinations(dims, r):
+            axes = tuple(i for i, d in enumerate(dims) if d not in subset)
+            arr = finest.sum(axis=axes) if axes else finest
+            # finest axes order == dims order; subset keeps relative order
+            out[cube_name(subset)] = arr
+    return out

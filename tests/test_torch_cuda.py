@@ -17,6 +17,7 @@ from repro_torch.api import ExecutionConfig, connect
 from repro_torch.data import datasets as TD
 from repro_torch.kernels import ops, ref
 from repro_torch.ml.covar import compute_covar
+from repro_torch.ml.covar_fused import make_fused_covar
 from repro_torch.ml.trees import DecisionTree
 
 pytestmark = pytest.mark.cuda
@@ -81,6 +82,51 @@ def test_tree_hist_batched_matches_plain(cuda_device, n):
     torch.testing.assert_close(got[:, :, 0].sum(1), cond[ok].sum(0))
 
 
+@pytest.mark.parametrize("f", [1, 7, 64, 70, 142])
+@pytest.mark.parametrize("n", [0, 1, 517, 70001, 1_000_003])
+def test_covar_xtx_matches_plain(cuda_device, n, f):
+    """Row counts that are no multiple of a chunk or a staged row step,
+    widths on and off the 32-wide tiles, and a 0/1 w with zeros (the
+    validity of padded rows in the reference): within 1e-4 of the plain
+    version's Σ|terms| per entry, exactly symmetric."""
+    rng = np.random.default_rng(n + f)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.random(n) < 0.8).astype(np.float32)).to(cuda_device)
+    ops.reset_launches()
+    got = ops.covar_xtx(x, w)
+    assert ops.LAUNCHES["covar_xtx"] == 1
+    want = ref.covar_xtx_ref(x, w)
+    scale = ref.covar_xtx_ref(x.abs(), w)
+    assert tuple(got.shape) == (f, f)
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+    assert torch.equal(got, got.t())
+    if n == 0:
+        assert not bool(got.any())
+
+
+def test_covar_xtx_is_bit_reproducible(cuda_device):
+    """No atomics: chunks combine in a fixed order, so two launches give the
+    same bits; a 0/1 column's count is exact past 2^24."""
+    rng = np.random.default_rng(5)
+    n = 20_000_003
+    x = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda_device)
+    x[:, 0] = 1.0
+    a, b = ops.covar_xtx(x), ops.covar_xtx(x)
+    assert torch.equal(a, b)
+    assert float(a[0, 0]) == float(np.float32(n))
+
+
+def test_covar_xtx_takes_half_inputs(cuda_device):
+    """float16 x is cast to float32 as the reference's wrapper does."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(70001, 70)).astype(np.float16)).to(cuda_device)
+    got = ops.covar_xtx(x)
+    ones = torch.ones(x.shape[0], device=cuda_device)
+    want = ref.covar_xtx_ref(x, ones)
+    assert bool(((got - want).abs()
+                 <= 1e-4 * ref.covar_xtx_ref(x.abs(), ones) + 1e-6).all())
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     codes, fpay, specs = _case(64)
     c = torch.from_numpy(codes).to(cuda_device)
@@ -89,11 +135,29 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         ops.fused_scan_block(c.long(), f, specs)
     with pytest.raises(ValueError, match="contiguous"):
         ops.seg_aggregate(c[:, 0], f[:, :5].contiguous(), 13)
-    with pytest.raises(ValueError, match="does not fit"):
-        ops.seg_aggregate(c[:, 0].contiguous(), f, 60000)
     with pytest.raises(ValueError, match="contiguous"):
         ops.tree_hist_batched(c[:, 2].contiguous(), f[:, 13].contiguous(),
                               f[:, 8:12].t().contiguous().t(), 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.covar_xtx(f[:, :5])
+    with pytest.raises(ValueError, match="same rows"):
+        ops.covar_xtx(f, f[:10, 0].contiguous())
+
+
+@pytest.mark.parametrize("n_segments", [60000, 120000])
+def test_wide_reductions_split_into_segment_ranges(cuda_device, n_segments):
+    """More segments than one shared-memory column holds (58,112): the
+    kernels cut the reduction into segment ranges, as a single-root batch
+    needs (Retailer's sku × category × subcategory view: 120,000)."""
+    rng = np.random.default_rng(n_segments)
+    n = 300_007
+    seg = torch.from_numpy(rng.integers(-5, n_segments + 5, n).astype(np.int32)).to(cuda_device)
+    pay = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda_device)
+    torch.testing.assert_close(ops.seg_aggregate(seg, pay, n_segments),
+                               ref.seg_aggregate_ref(seg, pay, n_segments), **TOL)
+    spec = (ops.ReduceSpec("seg", 0, n_segments, 3, 0),)
+    out, = ops.fused_scan_block(seg[:, None].contiguous(), pay, spec)
+    torch.testing.assert_close(out, ref.seg_aggregate_ref(seg, pay, n_segments), **TOL)
 
 
 def test_integer_sums_are_exact_past_2_24(cuda_device):
@@ -157,3 +221,21 @@ def test_tree_fit_on_card_matches_cpu(cuda_device, fuse_kernels):
     else:
         assert launched["tree_hist_batched"] > 0
         assert launched["fused_scan_block"] == 0
+
+
+def test_fused_covar_on_card_matches_cpu(cuda_device):
+    """The gathered-XᵀX covar over Retailer (30,000 fact rows, blocks of
+    4,096 rows and a short last one) on the card against a CPU session of
+    the same tables: every block went through the kernel."""
+    ds = TD.make("retailer", scale=0.5)
+    ops.reset_launches()
+    fn, layout = make_fused_covar(ds, block_size=4096,
+                                  database=connect(ds, device=cuda_device))
+    card = fn()
+    assert card.device.type == "cuda"
+    assert ops.LAUNCHES["covar_xtx"] == 8
+    host, _ = make_fused_covar(ds, block_size=4096, device="cpu")
+    want = host().numpy()
+    np.testing.assert_allclose(card.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    assert float(card[0, 0]) == 30000.0

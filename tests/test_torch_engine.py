@@ -141,6 +141,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         dt = trees.DecisionTree(ds, max_depth=2, min_instances=50,
                                 database=db).fit()
         assert dt.n_split_nodes() > 0
+        from repro_torch.data import statistics
+        from repro_torch.ml import chowliu, covar_fused, cubes, polyreg
+        Cf, Nf, _ = covar_fused.compute_covar_fused(ds, database=db)
+        assert Nf == N and abs(Cf - C).max() <= 1e-4 * abs(C).max()
+        assert len(chowliu.chow_liu(ds, database=db).edges) == 7
+        assert len(cubes.cube_rollup(ds, ["rain", "category"],
+                                     ["inventoryunits"], database=db)) == 4
+        polyreg.fit_polyreg(ds, attrs=["maxtemp", "prize"], database=db)
+        statistics.feature_moments(ds, database=db)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

@@ -125,8 +125,10 @@ def test_cpu_tensors_run_plain_versions_uncounted():
                   torch.ones(4), 3)
     ops.tree_hist_batched(torch.zeros(4, dtype=torch.int32), torch.ones(4),
                           torch.ones(4, 2), 3)
-    assert ops.LAUNCHES == {"fused_scan_block": 0, "seg_aggregate": 0,
-                            "tree_hist": 0, "tree_hist_batched": 0}
+    ops.covar_xtx(torch.ones(4, 3), torch.ones(4))
+    assert ops.LAUNCHES == {"covar_xtx": 0, "fused_scan_block": 0,
+                            "seg_aggregate": 0, "tree_hist": 0,
+                            "tree_hist_batched": 0}
 
 
 @pytest.mark.parametrize("n_segments,width", [(4960, 99), (12000, 1),
@@ -142,6 +144,34 @@ def test_column_tiles_cover_width_within_shared_memory(n_segments, width):
 def test_column_tiles_reject_a_spec_no_tile_fits():
     with pytest.raises(ValueError, match="does not fit"):
         fused_scan.column_tiles(fused_scan.SMEM_BYTES // 4 + 1, 1)
+
+
+@pytest.mark.parametrize("n_segments", [1, 58112, 58113, 120000, 400000])
+def test_segment_ranges_cover_segments_within_shared_memory(n_segments):
+    ranges = fused_scan.segment_ranges(n_segments)
+    assert [s0 + i for s0, k in ranges for i in range(k)] == \
+        list(range(n_segments))
+    assert all(k <= fused_scan.MAX_TILE_SEGMENTS for _, k in ranges)
+    assert len(ranges) == -(-n_segments // fused_scan.MAX_TILE_SEGMENTS)
+
+
+def test_launch_plan_cuts_a_wide_reduction_into_segment_ranges(monkeypatch):
+    """A single-root Chow-Liu view grouped by sku × category × subcategory
+    (120,000 segments): every (segment, column) in exactly one item."""
+    import types
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    specs = (ops.ReduceSpec("seg", 0, 120000, 2, 0),
+             ops.ReduceSpec("seg", 1, 40, 4, 2))
+    plan = fused_scan.launch_plan.__wrapped__(specs, ("seg",) * 2, 70001,
+                                              torch.device("cpu"))
+    items = plan.items.tolist()
+    cells = sorted((it[8], it[12] + s, it[6] + c) for it in items
+                   for s in range(it[2]) for c in range(it[7]))
+    want = sorted([(0, s, c) for s in range(120000) for c in range(2)]
+                  + [(240000, s, c) for s in range(40) for c in range(4)])
+    assert cells == want
+    assert all(4 * it[2] * it[7] <= fused_scan.SMEM_BYTES for it in items)
 
 
 @pytest.mark.parametrize("n", [1, 4097, 4960, 1 << 20])
