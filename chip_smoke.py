@@ -42,6 +42,32 @@ Phases, one JSON line each (``{"phase": ...}``):
                float64 design-matrix oracle, the fit's training RMSE.
  11. moments — ``feature_moments`` against float64 sums, and
                ``expert_load_aggregate`` against ``bincount``.
+ 12. lm.f32  — internlm2-1.8b at full width and depth in float32, random
+               weights from ``--seed`` on the card: the prefill
+               ``forward(impl="flash")`` against ``forward(impl="dense")``
+               (B = 2, S = 4096), ``BatchedServer.generate`` (batch 8,
+               64-token prompts, 64 new tokens), then teacher-forced
+               ``decode_step`` logits at all 128 positions against the flash
+               forward over the same sequence; 24 kernel launches a forward,
+               none in decode.
+ 13. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
+               tokens/s at B = 4, S = 4096 against the dense prefill, warm
+               ``generate`` walls (ms per decode step), peak memory, and a
+               device breakdown of one prefill and of a short decode; then
+               the flash prefill against the float32 dense prefill on the
+               same bf16 weights for three seeds, each layer's kernel output
+               against the plain version on that layer's q, k, v, and the
+               readings of planted faults.
+
+The ``kernels`` phase also holds ``flash_attention`` against its plain
+version at the attention shapes of internlm2-1.8b's prefill (the summary's
+case), llama3-8b, minicpm-2b, h2o-danube-3-4b (window 4,096), a ragged
+non-causal case and ``prefill_32k`` (sampled rows), with
+``scaled_dot_product_attention`` as the library time, on (B, H, S, D)
+views of (B, S, H, D) tensors as the model passes them.  Besides allclose
+at the reference's tolerances, each case is held per query row to a
+limit on the scale of that row's output, and must read above that limit
+against a plain version with a planted fault.
 
 Every phase sets the kernels' launch counters to 0 before it runs its path
 and reads them after.
@@ -107,6 +133,25 @@ GAIN_TOL = 1e-4
 ROOT_N_TOL = 1e-5
 #: a tree or forest learns: training RMSE ≤ this × the label's std
 RMSE_RATIO = 0.8
+#: attention kernel vs its plain version in float32 on the same inputs, and
+#: the float32 flash prefill vs the dense one: the reference's own bounds
+#: (tests/test_kernels.py:185,197, tests/test_models.py:109), as allclose's
+#: rtol = atol
+ATTN_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+#: teacher-forced decode logits vs the prefill's (tests/test_models.py:70)
+DECODE_TOL = 5e-3
+#: flash_attention vs its plain version, per query row: max |Δ| over the
+#: row ÷ the row's rms.  allclose's atol does not scale with the output
+#: (|o| ≈ sqrt(e/n) for a row that sees n keys of randn inputs, 0.026 at
+#: n = 4,096), so it cannot see a dropped key tile; this can: in bf16 it
+#: reads the output's rounding (at most 2⁻⁸ of an element), a planted fault
+#: reads far more (both readings: PERF.md)
+ROW_REL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+#: the bf16 flash prefill vs the float32 dense prefill on the same (bf16)
+#: weights: max |Δlogits| / max |logits|
+BF16_PREFILL_TOL = 5e-2
+#: seeds (from --seed on) of the bf16 prefill check's weights and tokens
+BF16_CHECK_SEEDS = 3
 #: polyreg: the training RMSE of θ (on the oracle's statistics) against the
 #: oracle θ's, relative.  θ itself is not held to a bound: 45 monomials of 8
 #: features that take 30 to 4,960 distinct values are nearly collinear, and
@@ -133,13 +178,14 @@ def check(ok: bool, what: str) -> None:
 
 
 def card_rates(name: str):
-    """(HBM bytes/s, float32 FLOP/s outside the tensor cores) from NVIDIA's
-    data sheets, by the card's reported name."""
+    """(HBM bytes/s, float32 FLOP/s outside the tensor cores, dense bf16
+    tensor-core FLOP/s) from NVIDIA's data sheets, by the card's reported
+    name."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12            # H100 SXM
+        return 3.9e12, 60e12, 835e12
+    return 3.35e12, 67e12, 989e12    # H100 SXM
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -211,7 +257,7 @@ def kernel_phase(args, plan_specs, rates):
 
     from repro_torch.kernels import ops, ref
 
-    bw, flops = rates
+    bw, flops, _ = rates
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     n = KERNEL_ROWS
@@ -413,10 +459,11 @@ def oracle_covar(join, layout):
     return G.cpu().numpy(), float(join.n)
 
 
-def device_breakdown(fn, top: int = 8):
+def device_breakdown(fn, top: int = 8, classify=None):
     """Run ``fn`` once under ``torch.profiler``: device time by kernel name
     (the ``top`` largest), the device's busy time (sum of kernel times: one
-    stream, so they do not overlap) and the host wall of the profiled run."""
+    stream, so they do not overlap) and the host wall of the profiled run;
+    with ``classify`` (kernel name -> group), device time by group too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -435,10 +482,17 @@ def device_breakdown(fn, top: int = 8):
             by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(profiled_wall_ms=wall * 1e3, device_busy_ms=busy,
-                idle_share=1 - busy / (wall * 1e3) if wall > 0 else None,
-                n_kernel_names=len(by_name), trace_read_s=time.perf_counter() - t0,
-                top=[[k, v] for k, v in ranked])
+    out = dict(profiled_wall_ms=wall * 1e3, device_busy_ms=busy,
+               idle_share=1 - busy / (wall * 1e3) if wall > 0 else None,
+               n_kernel_names=len(by_name), trace_read_s=time.perf_counter() - t0,
+               top=[[k, v] for k, v in ranked])
+    if classify is not None:
+        groups = {}
+        for k, v in by_name.items():
+            g = classify(k)
+            groups[g] = groups.get(g, 0.0) + v
+        out["groups_ms"] = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    return out
 
 
 def scaled_err(C, G):
@@ -1118,6 +1172,447 @@ def moments_phase(ds, db, join, seed: int):
     return launches
 
 
+# ---------------------------------------------------------------- LM
+
+#: flash_attention's cases: (label, B, H, H_kv, S, D, causal, window, dtype);
+#: the first is the summary line's (internlm2-1.8b's prefill at B = 4)
+ATTN_CASES = (
+    ("internlm2-1.8b", 4, 16, 8, 4096, 128, True, 0, "bfloat16"),
+    ("internlm2-1.8b.f32", 4, 16, 8, 4096, 128, True, 0, "float32"),
+    ("llama3-8b", 2, 32, 8, 4096, 128, True, 0, "bfloat16"),
+    ("minicpm-2b", 4, 36, 36, 2048, 64, True, 0, "bfloat16"),
+    ("h2o-danube-3-4b", 1, 32, 8, 8192, 120, True, 4096, "bfloat16"),
+    ("ragged.noncausal", 2, 8, 4, 1000, 16, False, 0, "float32"),
+    ("prefill_32k", 1, 16, 8, 32768, 128, True, 0, "bfloat16"),
+)
+#: query rows of the prefill_32k case held against the plain version (the
+#: full plain version's float32 scores would take 68 GB)
+SAMPLED_ROWS = 512
+#: the LM configuration: internlm2-1.8b at full width and depth
+LM_ARCH = "internlm2-1.8b"
+#: prefill batches (float32 checks, bf16 timing), sequence length, serving
+#: batch, prompt and generated tokens
+LM_F32_BATCH, LM_BF16_BATCH, LM_SEQ = 2, 4, 4096
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 64, 64
+
+
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask allows in one (batch, head)."""
+    import numpy as np
+
+    i = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(i, sk - 1) if causal else np.full_like(i, sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def plain_rows(q, k, v, rows, causal: bool, window: int = 0, drop=(0, 0)):
+    """The plain version for the query rows ``rows`` only, over the keys
+    those rows see, in float32.  Keys ``drop[0]:drop[1]`` are left out of
+    every row: a planted fault."""
+    import torch
+
+    group = q.shape[1] // k.shape[1]
+    t = int(rows.max()) + 1 if causal else k.shape[2]
+    kr = k[:, :, :t].float().repeat_interleave(group, dim=1)
+    vr = v[:, :, :t].float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(), kr) / math.sqrt(q.shape[-1])
+    cols = torch.arange(t, device=q.device)[None, :]
+    hidden = (cols >= drop[0]) & (cols < drop[1])
+    if causal:
+        hidden = hidden | (cols > rows[:, None])
+    if window > 0:
+        hidden = hidden | (cols <= rows[:, None] - window)
+    s = s.masked_fill(hidden, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vr)
+
+
+def row_rel(got, want) -> float:
+    """max over query rows of max |got − want| ÷ the rms of ``want``'s row
+    (a row of zeros must come back zeros)."""
+    rms = want.float().pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((got.float() - want.float()).abs().amax(-1, keepdim=True) / rms).max())
+
+
+def planted_fault_rel(q, k, v, got, causal: bool, window: int) -> float:
+    """``row_rel`` of the kernel's last 64 query rows against the plain
+    version with a planted fault: the window's edge one key too far, or
+    else the first 64-key tile left out."""
+    import torch
+
+    s = q.shape[2]
+    rows = torch.arange(s - 64, s, device=q.device)
+    if window > 0:
+        bad = plain_rows(q, k, v, rows, causal, window + 1)
+    else:
+        bad = plain_rows(q, k, v, rows, causal, drop=(0, 64))
+    return row_rel(got[:, :, rows], bad)
+
+
+def attention_kernel_cases(args, rates):
+    """``flash_attention`` against its plain version at the dense models'
+    attention shapes, on (B, H, S, D) views of (B, S, H, D) tensors as the
+    model passes them: error, kernel, plain and SDPA times, bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    bw, f32_flops, bf16_flops = rates
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    cases = []
+    for label, b, h, hkv, s, d, causal, window, dt in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        reps = 3 if s > 8192 else 5
+        if label == "prefill_32k":
+            rows = torch.randperm(s, generator=gen, device="cuda")[:SAMPLED_ROWS - 1]
+            rows = torch.cat([rows, torch.tensor([s - 1], device="cuda")]).sort().values
+            want = plain_rows(q, k, v, rows, causal)
+            got_cmp = got[:, :, rows].float()
+            plain_ms = None
+            plain_rows_ms = cuda_ms(lambda: plain_rows(q, k, v, rows, causal), reps)
+        else:
+            want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                     window=window)
+            got_cmp = got.float()
+            plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
+                                                         window=window), reps)
+            plain_rows_ms = None
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got_cmp).all()), f"flash_attention[{label}]: non-finite output")
+        err = (got_cmp - want).abs()
+        max_abs = float(err.max())
+        tol = ATTN_TOL[dt]
+        worst = float((err / (tol + tol * want.abs())).max())
+        rel = row_rel(got_cmp, want)
+        del want, got_cmp, err
+        fault_rel = planted_fault_rel(q, k, v, got, causal, window)
+        del got
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window), reps)
+        if window > 0:
+            rr = torch.arange(s, device="cuda")
+            allowed = (rr[None, :] <= rr[:, None]) & (rr[None, :] > rr[:, None] - window)
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed, enable_gqa=True)
+        else:
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+        library_ms = cuda_ms(library, reps)
+        nbytes = q.element_size() * b * s * d * (2 * h + 2 * hkv)
+        pairs = b * h * unmasked_pairs(s, s, causal, window)
+        peak = bf16_flops if dt == "bfloat16" else f32_flops
+        case = dict(case=label, B=b, H=h, H_kv=hkv, S=s, D=d, causal=causal,
+                    window=window, dtype=dt, max_abs_err=max_abs,
+                    err_over_tol=worst, tol=tol, row_rel_err=rel,
+                    row_rel_tol=ROW_REL_TOL[dt], planted_fault_row_rel=fault_rel,
+                    planted_fault="window + 1" if window > 0 else "keys 0:64 left out",
+                    ms=ms, plain_ms=plain_ms,
+                    plain_sampled_rows_ms=plain_rows_ms,
+                    sampled_rows=SAMPLED_ROWS if plain_rows_ms is not None else None,
+                    library_ms=library_ms,
+                    library_call="scaled_dot_product_attention"
+                    + (" with an explicit band mask" if window > 0 else ""),
+                    unmasked_pairs=pairs, achieved_tflops=4 * d * pairs / ms / 1e9,
+                    **bound(nbytes, 4 * d * pairs, bw, peak))
+        emit("kernel", name="flash_attention", **case)
+        check(worst <= 1.0, f"flash_attention[{label}]: |kernel - plain| exceeds "
+              f"{tol} + {tol}·|plain| (max abs {max_abs:.3e})")
+        check(rel <= ROW_REL_TOL[dt], f"flash_attention[{label}]: |kernel - plain| "
+              f"reaches {rel:.3e} of a row's rms (limit {ROW_REL_TOL[dt]})")
+        check(fault_rel > ROW_REL_TOL[dt], f"flash_attention[{label}]: a planted fault "
+              f"reads {fault_rel:.3e}, within the limit {ROW_REL_TOL[dt]}")
+        cases.append(case)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return cases
+
+
+def lm_params(cfg, seed: int):
+    """Random weights of ``cfg`` on the card, from a seeded generator."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(M.model_specs(cfg), gen, cfg.torch_dtype, "cuda")
+    torch.cuda.synchronize()
+
+    def numel(tree):
+        return (sum(numel(v) for v in tree.values()) if isinstance(tree, dict)
+                else tree.numel())
+
+    check(numel(params) == cfg.param_count(),
+          f"{cfg.name}: {numel(params)} parameters, expected {cfg.param_count()}")
+    return params
+
+
+def allclose_excess(got, want, tol: float) -> float:
+    """max |got − want| / (tol + tol·|want|): ≤ 1 is allclose at rtol = atol
+    = tol."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def lm_f32_phase(seed: int):
+    """internlm2-1.8b in float32 at full width and depth: the flash prefill
+    against the dense one, generate, and teacher-forced decode against the
+    prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    from repro_torch.serve.engine import BatchedServer
+
+    cfg = configs.get(LM_ARCH).with_(dtype="float32")
+    t0 = time.perf_counter()
+    params = lm_params(cfg, seed)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_F32_BATCH, LM_SEQ))).cuda()
+    ops.reset_launches()
+    flash, _ = M.forward(params, {"tokens": tokens}, cfg, impl="flash")
+    torch.cuda.synchronize()
+    fwd_launches = dict(ops.LAUNCHES)
+    dense, _ = M.forward(params, {"tokens": tokens}, cfg, impl="dense")
+    prefill_excess = allclose_excess(flash, dense, ATTN_TOL["float32"])
+    prefill_err = float((flash - dense).abs().max())
+    logits_max = float(dense.abs().max())
+    check(bool(torch.isfinite(flash).all()) and tuple(flash.shape) == (LM_F32_BATCH, LM_SEQ, cfg.vocab),
+          f"lm.f32: prefill logits not finite or of shape {tuple(flash.shape)}")
+    del flash, dense
+
+    server = BatchedServer(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
+                           batch=SERVE_BATCH, device="cuda")
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = server.generate(prompts, SERVE_GEN)
+    gen_s = time.perf_counter() - t0
+    gen_launches = dict(ops.LAUNCHES)
+    seq = torch.from_numpy(out.astype(np.int64)).cuda()
+    full, _ = M.forward(params, {"tokens": seq}, cfg, impl="flash")
+    cache = init_params(M.cache_specs(cfg, SERVE_BATCH, seq.shape[1]), None,
+                        cfg.torch_dtype, "cuda")
+    ops.reset_launches()
+    decode_excess = decode_err = 0.0
+    for pos in range(seq.shape[1]):
+        lg, cache = M.decode_step(params, cache, seq[:, pos:pos + 1], pos, cfg)
+        decode_excess = max(decode_excess, allclose_excess(lg[:, 0], full[:, pos], DECODE_TOL))
+        decode_err = max(decode_err, float((lg[:, 0] - full[:, pos]).abs().max()))
+    decode_launches = dict(ops.LAUNCHES)
+    agree = float((full[:, SERVE_PROMPT - 1:-1].argmax(-1) == seq[:, SERVE_PROMPT:]).float().mean())
+    emit("lm.f32", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params=cfg.param_count(), init_s=init_s,
+         prefill_batch=LM_F32_BATCH, seq=LM_SEQ,
+         flash_vs_dense_max_abs=prefill_err, flash_vs_dense_over_tol=prefill_excess,
+         logits_max_abs=logits_max, tol=ATTN_TOL["float32"],
+         forward_launches=fwd_launches, generate_s=gen_s,
+         generate_launches=gen_launches, decode_launches=decode_launches,
+         decode_vs_prefill_max_abs=decode_err, decode_vs_prefill_over_tol=decode_excess,
+         decode_tol=DECODE_TOL, greedy_agreement=agree,
+         serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN))
+    check(fwd_launches["flash_attention"] == cfg.n_layers
+          and sum(fwd_launches.values()) == cfg.n_layers,
+          f"lm.f32: a forward launched {fwd_launches}, expected {cfg.n_layers} flash_attention")
+    check(sum(gen_launches.values()) == 0 and sum(decode_launches.values()) == 0,
+          f"lm.f32: decode launched kernels: {gen_launches}, {decode_launches}")
+    check(prefill_excess <= 1.0, f"lm.f32: flash prefill vs dense {prefill_err:.3e} "
+          f"beyond {ATTN_TOL['float32']} (allclose)")
+    check(decode_excess <= 1.0, f"lm.f32: decode vs prefill {decode_err:.3e} beyond "
+          f"{DECODE_TOL} (allclose)")
+    check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+          and (out[:, :SERVE_PROMPT] == prompts).all()
+          and ((out >= 0) & (out < cfg.vocab)).all(), "lm.f32: generate's tokens")
+
+
+def lm_kernel_group(name: str) -> str:
+    """A device kernel's group in the prefill breakdown."""
+    if "flash_kernel" in name:
+        return "flash_attention"
+    if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+        return "matrix products"
+    if "reduce_kernel" in name:
+        return "reductions (rms_norm, softmax)"
+    if "CatArray" in name:
+        return "cat (rope)"
+    if "elementwise" in name:
+        return "elementwise (norm, rope, SiLU, residual, casts)"
+    if "index" in name.lower():
+        return "embedding gather"
+    return "other"
+
+
+def tapped_kernel_rel(prefill):
+    """Run ``prefill()`` with every ``flash_attention`` call's output held
+    against the plain version on that layer's own q, k, v (strided views,
+    the model's activations): per-layer ``row_rel``, and per layer the
+    reading of the planted tile-drop fault."""
+    from repro_torch.kernels import ops, ref
+
+    launch = ops.flash_attention
+    rels, faults = [], []
+
+    def tap(q, k, v, *, causal=True, window=0):
+        o = launch(q, k, v, causal=causal, window=window)
+        rels.append(row_rel(o, ref.attention_ref(q.float(), k.float(), v.float(),
+                                                 causal=causal, window=window)))
+        faults.append(planted_fault_rel(q, k, v, o, causal, window))
+        return o
+
+    ops.flash_attention = tap
+    try:
+        logits = prefill()
+    finally:
+        ops.flash_attention = launch
+    return logits, rels, faults
+
+
+def as_float(tree):
+    """A parameter tree cast to float32."""
+    if isinstance(tree, dict):
+        return {k: as_float(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def bf16_prefill_checks(cfg, params, seed: int):
+    """The bf16 flash prefill against the float32 dense prefill on the same
+    bf16 weights, for BF16_CHECK_SEEDS seeds of weights and tokens, and for
+    two planted faults on the first seed's: every layer's window cut to
+    S − 64 (the last query tile loses up to one key tile) and to S / 2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    f32 = cfg.with_(dtype="float32")
+
+    def rel(got, want):
+        return float((got.float() - want).abs().max()) / float(want.abs().max())
+
+    readings, faults, tap = [], {}, {}
+    for i in range(BF16_CHECK_SEEDS):
+        p = params if i == 0 else lm_params(cfg, seed + i)
+        rng = np.random.default_rng(seed + 100 + i)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
+        want = M.forward(as_float(p), batch, f32, impl="dense")[0]
+        if i == 0:
+            got, tap["row_rel"], tap["planted_fault_row_rel"] = tapped_kernel_rel(
+                lambda: M.forward(p, batch, cfg, impl="flash")[0])
+            check(bool(torch.isfinite(got).all()), "lm.bf16: prefill logits not finite")
+            for label, w in (("window S-64", LM_SEQ - 64), ("window S/2", LM_SEQ // 2)):
+                faults[label] = rel(M.forward(p, batch, cfg.with_(window=w),
+                                              impl="flash")[0], want)
+        else:
+            got = M.forward(p, batch, cfg, impl="flash")[0]
+        readings.append(rel(got, want))
+        del got, want, p
+        torch.cuda.empty_cache()
+    return dict(flash_bf16_vs_dense_f32_rel=readings, planted_faults_rel=faults,
+                tol=BF16_PREFILL_TOL, per_layer_kernel=dict(
+                    tap, row_rel_tol=ROW_REL_TOL["bfloat16"]))
+
+
+def lm_bf16_phase(seed: int):
+    """internlm2-1.8b in bf16: prefill and serving walls, the dense prefill
+    beside the flash one, peak memory, device breakdowns and
+    ``bf16_prefill_checks``; returns the launches of the main path (one
+    prefill, then generate)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import BatchedServer
+
+    cfg = configs.get(LM_ARCH)
+    params = lm_params(cfg, seed)
+    rng = np.random.default_rng(seed + 1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    server = BatchedServer(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
+                           batch=SERVE_BATCH, device="cuda")
+
+    def prefill(impl):
+        return M.forward(params, batch, cfg, impl=impl)[0]
+
+    # the main path: one prefill, then serving, counters zeroed before
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    prefill("flash")
+    out = server.generate(prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+
+    walls = {}
+    peak = {}
+    for impl in ("flash", "dense"):
+        prefill(impl)                                   # warm
+        ws = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lg = prefill(impl)
+            torch.cuda.synchronize()
+            ws.append(time.perf_counter() - t0)
+            del lg
+        walls[impl] = ws
+        peak[impl] = torch.cuda.max_memory_allocated() / 2**30
+    prof = device_breakdown(lambda: prefill("flash"), top=10, classify=lm_kernel_group)
+
+    gen_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out2 = server.generate(prompts, SERVE_GEN)
+        gen_walls.append(time.perf_counter() - t0)
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    gen_prof = device_breakdown(lambda: server.generate(prompts[:, :8], 8), top=6,
+                                classify=lm_kernel_group)
+    del server
+    checks = bf16_prefill_checks(cfg, params, seed)
+    tokens = LM_BF16_BATCH * LM_SEQ
+    med = sorted(walls["flash"])[1]
+    gmed = min(gen_walls)
+    emit("lm.bf16", arch=LM_ARCH, params=cfg.param_count(), prefill_batch=LM_BF16_BATCH,
+         seq=LM_SEQ, prefill_walls_s=walls["flash"], prefill_tokens_per_s=tokens / med,
+         dense_prefill_walls_s=walls["dense"],
+         dense_prefill_tokens_per_s=tokens / sorted(walls["dense"])[1],
+         peak_mem_gb=peak, launches=launches,
+         generate_walls_s=gen_walls, decode_steps=steps,
+         ms_per_decode_step=gmed / steps * 1e3,
+         generated_tokens_per_s=SERVE_BATCH * SERVE_GEN / gmed,
+         same_tokens_as_first_generate=bool((out2 == out).all()),
+         serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN))
+    emit("lm.bf16.prefill.profile", **prof)
+    emit("lm.bf16.decode.profile", steps=15, **gen_prof)
+    emit("lm.bf16.checks", **checks)
+    worst = max(checks["flash_bf16_vs_dense_f32_rel"])
+    check(worst <= BF16_PREFILL_TOL, f"lm.bf16: flash prefill vs the float32 dense one "
+          f"{worst:.3e} of max|logits| > {BF16_PREFILL_TOL}")
+    check(checks["planted_faults_rel"]["window S/2"] > BF16_PREFILL_TOL,
+          "lm.bf16: the prefill check does not see a window of S/2")
+    layer = checks["per_layer_kernel"]
+    check(max(layer["row_rel"]) <= ROW_REL_TOL["bfloat16"]
+          and min(layer["planted_fault_row_rel"]) > ROW_REL_TOL["bfloat16"],
+          f"lm.bf16: per-layer kernel readings {layer}")
+    check(launches["flash_attention"] == cfg.n_layers and sum(launches.values()) == cfg.n_layers,
+          f"lm.bf16: the prefill and generate launched {launches}, expected "
+          f"{cfg.n_layers} flash_attention")
+    del params
+    return launches
+
+
 def plan_specs_for(scale: float, block_size: int):
     """The fused specs of the covar plan's fact step and of its Items step
     with the histogram view, and of the tree plan's fact step for
@@ -1185,7 +1680,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
     emit("card", name=name, nvidia_smi=card_line, count=torch.cuda.device_count(),
-         hbm_bytes_per_s=rates[0], fp32_flops=rates[1],
+         hbm_bytes_per_s=rates[0], fp32_flops=rates[1], bf16_flops=rates[2],
          torch=torch.__version__, cuda=torch.version.cuda)
 
     try:
@@ -1203,6 +1698,7 @@ def main() -> int:
         # 3. kernels
         specs = plan_specs_for(args.scale, args.block_size)
         kern = kernel_phase(args, specs, rates)
+        kern["flash_attention"] = attention_kernel_cases(args, rates)
 
         # 4. main path: covar -> ridge
         ds, db = load_data(args)
@@ -1223,6 +1719,13 @@ def main() -> int:
         cubes_phase(ds, db, join)
         polyreg_phase(ds, db, join)
         moments_phase(ds, db, join, args.seed)
+
+        # 12.-13. the LM prefill and serving path, after freeing Retailer
+        del ds, db, join
+        torch.cuda.empty_cache()
+        lm_f32_phase(args.seed)
+        torch.cuda.empty_cache()
+        launches["flash_attention"] = lm_bf16_phase(args.seed)["flash_attention"]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1232,7 +1735,9 @@ def main() -> int:
                "tree_hist": ("tree_hist.cu", "src/repro/kernels/tree_hist.py:51"),
                "tree_hist_batched": ("tree_hist_batched.cu",
                                      "src/repro/kernels/tree_hist.py:99"),
-               "covar_xtx": ("covar_xtx.cu", "src/repro/kernels/covar_xtx.py:41")}
+               "covar_xtx": ("covar_xtx.cu", "src/repro/kernels/covar_xtx.py:41"),
+               "flash_attention": ("flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:68")}
     summary = []
     for kname, cases in kern.items():
         main_case = cases[0]

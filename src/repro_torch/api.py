@@ -25,6 +25,7 @@ from repro_torch.core.plan import validate_block_size
 from repro_torch.core.schema import DatabaseSchema
 from repro_torch.data import relations as rel_mod
 from repro_torch.data.datasets import Dataset
+from repro_torch.device import resolve_device
 
 __all__ = ["ExecutionConfig", "Database", "ViewHandle", "connect"]
 
@@ -112,16 +113,6 @@ class Database:
             queries, **self.config.compile_kwargs()))
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch versions "
-            "of the kernels on the CPU")
-    return device
-
-
 def connect(source, config: Optional[ExecutionConfig] = None, *,
             device="cuda",
             tables: Optional[Mapping[str, Mapping[str, object]]] = None,
@@ -138,7 +129,7 @@ def connect(source, config: Optional[ExecutionConfig] = None, *,
     if isinstance(source, Dataset):
         return Database(source.schema,
                         rel_mod.from_numpy(source.schema, source.tables,
-                                           _device(device)),
+                                           resolve_device(device)),
                         edges=edges if edges is not None else source.edges,
                         config=config)
     if isinstance(source, rel_mod.Database):
@@ -149,7 +140,7 @@ def connect(source, config: Optional[ExecutionConfig] = None, *,
                 raise ValueError("connect(schema, ...) needs data= (a "
                                  "relations Database) or tables= (numpy "
                                  "column dicts)")
-            data = rel_mod.from_numpy(source, tables, _device(device))
+            data = rel_mod.from_numpy(source, tables, resolve_device(device))
         return Database(source, data, edges=edges, config=config)
     raise TypeError(f"cannot connect to {type(source).__name__}: expected a "
                     "Dataset, a relations Database, or a DatabaseSchema")

@@ -118,7 +118,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.covar_xtx.argtypes = [P, P, I64, I, I64, I, P, P, P]
     lib.covar_xtx_blocks_per_sm.argtypes = []
     lib.covar_xtx_blocks_per_sm.restype = ctypes.c_int
+    # q, k, v, o, the 12 strides, bf16?, B, H, H_kv, S_q, S_k, D, causal,
+    # window, stream
+    lib.flash_attention.argtypes = [P, P, P, P, ctypes.POINTER(I64), I, I, I,
+                                    I, I64, I64, I, I, I64, P]
     for fn in (lib.fused_scan_block, lib.seg_aggregate, lib.tree_hist,
-               lib.tree_hist_batched, lib.covar_xtx):
+               lib.tree_hist_batched, lib.covar_xtx, lib.flash_attention):
         fn.restype = ctypes.c_int
     return lib

@@ -16,17 +16,19 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.covar_xtx import covar_xtx_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_scan import ReduceSpec, fused_scan_block_cuda
 from repro_torch.kernels.seg_aggregate import seg_aggregate_cuda
 from repro_torch.kernels.tree_hist import (tree_hist_batched_cuda,
                                            tree_hist_cuda)
 
-__all__ = ["LAUNCHES", "ReduceSpec", "covar_xtx", "fused_scan_block",
-           "reset_launches", "seg_aggregate", "tree_hist", "tree_hist_batched"]
+__all__ = ["LAUNCHES", "ReduceSpec", "covar_xtx", "flash_attention",
+           "fused_scan_block", "reset_launches", "seg_aggregate", "tree_hist",
+           "tree_hist_batched"]
 
-LAUNCHES: Dict[str, int] = {"covar_xtx": 0, "fused_scan_block": 0,
-                            "seg_aggregate": 0, "tree_hist": 0,
-                            "tree_hist_batched": 0}
+LAUNCHES: Dict[str, int] = {"covar_xtx": 0, "flash_attention": 0,
+                            "fused_scan_block": 0, "seg_aggregate": 0,
+                            "tree_hist": 0, "tree_hist_batched": 0}
 
 
 def reset_launches() -> None:
@@ -99,4 +101,18 @@ def tree_hist_batched(codes: torch.Tensor, y: torch.Tensor,
         return ref.tree_hist_batched_ref(codes, y, cond, n_buckets)
     out = tree_hist_batched_cuda(codes, y, cond, n_buckets)
     LAUNCHES["tree_hist_batched"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Blockwise attention over ``q`` (B, H, S, D) and ``k``, ``v``
+    (B, H_kv, S, D), GQA by head index, with causal and sliding-window
+    masks; returns (B, H, S, D) in ``q``'s dtype.  Any ``S``: the
+    reference's ``block_q``, ``block_k`` and ``interpret`` pad for the TPU's
+    tiles and have no counterpart here."""
+    if not _on_cuda(q):
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the scan kernels; counterpart of
+"""Plain PyTorch versions of the kernels; counterpart of
 ``repro/kernels/ref.py``.  The CPU path runs them, and the card's kernels
 are held against them."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -54,3 +56,27 @@ def fused_scan_block_ref(codes: torch.Tensor, fpay: torch.Tensor, specs):
                 codes.shape[0], sp.n_cond * 3)
         outs.append(seg_aggregate_ref(code, pay, sp.n_segments))
     return tuple(outs)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Dense attention with GQA (K/V heads repeated), causal and
+    sliding-window masks over ``q`` (B, H, S_q, D) and ``k``, ``v``
+    (B, H_kv, S_k, D): scores, softmax and the product in float32, the
+    output in ``q``'s dtype; a row with no valid key gives 0."""
+    d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) / math.sqrt(d)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window > 0:
+        mask &= cols > rows - window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)

@@ -1,0 +1,256 @@
+"""Core model layers as pure functions over parameter trees; counterpart of
+``repro/models/layers.py``.
+
+Parameters are declared as :class:`ParamSpec` trees (nested dicts) with the
+reference's logical axis names, and materialised by :func:`init_params` as
+dicts of tensors of the same keys and shapes.  Activations keep the
+reference's layouts: ``(B, S, H, hd)`` for attention, weights ``wq``
+``(d, h, hd)`` and so on.
+
+Attention offers two implementations:
+  * ``dense`` — full softmax (the reference's ``_dense_attention``)
+  * ``flash`` — ``kernels/ops.py:flash_attention``, the counterpart of the
+                reference's ``pallas``: the hand-written CUDA kernel on the
+                card, its plain version on the CPU.  The default.
+
+The reference's ``chunked`` implementation is not ported yet (ROADMAP
+Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+
+# --------------------------------------------------------------------------
+# Parameter specs
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axis names (len == ndim)
+    init: str = "normal"                 # normal | zeros | ones
+    scale: float = 0.02
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             "in rank")
+
+
+def p_(shape, axes, init="normal", scale=0.02) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), init, scale)
+
+
+def map_specs(fn, specs) -> Any:
+    """``fn`` applied to every :class:`ParamSpec` of a nested-dict tree, in
+    sorted key order (the order ``jax.tree`` walks a dict)."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
+
+
+def init_params(specs, generator: Optional[torch.Generator],
+                dtype: torch.dtype, device="cuda") -> Any:
+    """Tensors for a spec tree: ``normal`` draws N(0, 1) · scale in float32
+    from ``generator`` (a ``torch.Generator`` on ``device``; its numbers
+    differ from ``jax.random``'s), then casts to ``dtype``; ``zeros`` and
+    ``ones`` need no generator."""
+    device = resolve_device(device)
+
+    def make(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=device)
+        if generator is None:
+            raise ValueError("normal-initialised parameters need a generator")
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * spec.scale).to(dtype)
+
+    return map_specs(make, specs)
+
+
+# --------------------------------------------------------------------------
+# Normalization / embeddings / rope
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n, d) rotary over the last dim; positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32, device=x.device)
+                      * (math.log(theta) / half))
+    ang = positions[..., None].float() * freqs             # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention cores
+# --------------------------------------------------------------------------
+
+
+def _dense_attention(q, k, v, *, causal: bool, window: int):
+    """q: (B,S,H,hd), k/v: (B,T,Kv,hd). Returns (B,S,H,hd)."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    rows = torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window > 0:
+        mask &= cols > rows - window
+    p = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1).to(q.dtype)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v)
+    return o.reshape(b, s, h, v.shape[-1])
+
+
+def attention_core(q, k, v, *, causal: bool = True, window: int = 0,
+                   impl: str = "flash"):
+    if impl == "dense":
+        return _dense_attention(q, k, v, causal=causal, window=window)
+    if impl == "flash":
+        # (B, S, H, hd) -> (B, H, S, hd) as strided views: the kernel reads
+        # them in place, and its output comes back laid out like q
+        o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=causal,
+                                 window=window)
+        return o.transpose(1, 2)
+    raise ValueError(f"unknown attention impl {impl!r} (the port has "
+                     "'dense' and 'flash')")
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
+    """Single-token decode: q (B,1,H,hd); caches (B,T,Kv,hd); ``pos`` is the
+    number of valid cache entries.  Softmax masks the cache tail (and the
+    sliding window)."""
+    b, _, h, hd = q.shape
+    t, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, hd)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float()
+    scores = scores / math.sqrt(hd)
+    cols = torch.arange(t, device=q.device)
+    mask = cols < pos
+    if window > 0:
+        mask &= cols > pos - 1 - window
+    p = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1).to(q.dtype)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache)
+    return o.reshape(b, 1, h, hd)
+
+
+# --------------------------------------------------------------------------
+# Standard GQA attention block (params + apply)
+# --------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    return {
+        "wq": p_((d, h, hd), ("embed", "heads", None)),
+        "wk": p_((d, kv, hd), ("embed", "kv", None)),
+        "wv": p_((d, kv, hd), ("embed", "kv", None)),
+        "wo": p_((h, hd, d), ("heads", None, "embed")),
+    }
+
+
+def _proj(x, w):
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, positions, impl="flash",
+               cache=None, decode_pos=None):
+    """Returns (out, cache).  ``cache``: dict(k=(B,T,Kv,hd), v=...), views
+    into the stacked decode cache, updated in place at ``decode_pos`` (the
+    reference's ``dynamic_update_slice`` returns a new cache instead)."""
+    q = rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
+    k = rope(_proj(x, p["wk"]), positions, cfg.rope_theta)
+    v = _proj(x, p["wv"])
+    if cache is not None:
+        t = cache["k"].shape[1]
+        if cfg.window and t == cfg.window:
+            # ring buffer: O(window) cache; keys carry their absolute rope
+            # phase, so attention over the ring needs no reordering
+            widx = decode_pos % t
+            valid = min(decode_pos + 1, t)
+            ring_window = 0          # ring already holds only the window
+        else:
+            widx = decode_pos
+            valid = decode_pos + 1
+            ring_window = cfg.window
+        cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
+        o = decode_attention(q, cache["k"], cache["v"], valid,
+                             window=ring_window)
+    else:
+        o = attention_core(q, k, v, causal=True, window=cfg.window,
+                           impl=impl)
+    h, hd, d = p["wo"].shape
+    out = o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
+    return out, cache
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+
+
+def mlp_specs(d: int, f: int) -> Dict[str, ParamSpec]:
+    return {
+        "wg": p_((d, f), ("embed", "ffn")),
+        "wu": p_((d, f), ("embed", "ffn")),
+        "wd": p_((f, d), ("ffn", "embed")),
+    }
+
+
+def mlp_apply(p, x):
+    g = torch.nn.functional.silu(x @ p["wg"])
+    u = x @ p["wu"]
+    return (g * u) @ p["wd"]
+
+
+# --------------------------------------------------------------------------
+# Embedding / head (tied)
+# --------------------------------------------------------------------------
+
+
+def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return {"embedding": p_((cfg.vocab, cfg.d_model), ("vocab", "embed")),
+            "final_norm": p_((cfg.d_model,), ("embed",), init="ones")}
+
+
+def embed_apply(p, tokens):
+    return p["embedding"][tokens]
+
+
+def logits_apply(p, x):
+    return x @ p["embedding"].t()

@@ -1,0 +1,81 @@
+"""Serving: the single-token decode step and a batched greedy decoder;
+counterpart of ``repro/serve/engine.py``.
+
+``make_serve_step`` gives the one-token step; ``BatchedServer`` drives it
+for a batch of requests with greedy sampling, teacher-forcing each prompt
+one token at a time through the cache as the reference does.  There is no
+``jit``: the step runs eagerly, and the decode cache is updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import init_params
+
+
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, cache, tokens(B,1), pos) -> (logits(B,1,V), cache)."""
+
+    def serve_step(params, cache, tokens, pos):
+        return M.decode_step(params, cache, tokens, pos, cfg)
+
+    return serve_step
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The arg max of the last position's logits, (B, 1) int32; ties go to
+    the first index, as ``jnp.argmax``."""
+    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+
+
+@dataclasses.dataclass
+class BatchedServer:
+    """Greedy batched decoding over a fixed slot count, on ``device`` (the
+    card unless the caller asks for the CPU).  The cache is zeros on the
+    device."""
+
+    cfg: ModelConfig
+    params: Any
+    max_len: int
+    batch: int
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        specs = M.cache_specs(self.cfg, self.batch, self.max_len)
+        self.cache = init_params(specs, None, self.cfg.torch_dtype, self.device)
+        self._step = make_serve_step(self.cfg)
+
+    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+        """prompts: (B, P) int32. Greedy-decodes n_tokens continuations.
+        The cache is reused from call to call without clearing: every entry
+        a step reads was written earlier in the same call."""
+        b, plen = prompts.shape
+        if b != self.batch:
+            raise ValueError(f"{b} prompts for {self.batch} slots")
+        t = self.cache["kv"]["k"].shape[2]
+        ring = bool(self.cfg.window) and t == self.cfg.window
+        if not ring and plen + n_tokens - 1 > t:
+            raise ValueError(f"{plen} prompt and {n_tokens} new tokens need "
+                             f"{plen + n_tokens - 1} cache entries, the cache "
+                             f"holds {t}")
+        prompt_t = torch.as_tensor(np.asarray(prompts, np.int32),
+                                   device=self.device)
+        toks = prompt_t[:, :1]
+        out = [toks]
+        for pos in range(plen + n_tokens - 1):
+            logits, self.cache = self._step(self.params, self.cache, toks, pos)
+            if pos + 1 < plen:
+                toks = prompt_t[:, pos + 1:pos + 2]      # teacher force
+            else:
+                toks = greedy(logits)
+            out.append(toks)
+        return torch.cat(out, dim=1).cpu().numpy()

@@ -1,24 +1,29 @@
-"""The port's CUDA kernels and its engine on the card, against the plain
-PyTorch versions (this file imports no JAX, so it runs where only the port
-is installed):
+"""The port's CUDA kernels, its engine and its LM forward on the card,
+against the plain PyTorch versions (this file imports no JAX, so it runs
+where only the port is installed):
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Every case skips without a CUDA device.  Tolerance: rtol/atol 1e-4 — the
-kernels and the plain versions sum float32 values in different orders (the
-kernels with shared-memory atomics, in an order that varies by run).
+Every case skips without a CUDA device.  Tolerance: rtol/atol 1e-4 for the
+scan kernels — they and the plain versions sum float32 values in different
+orders (the kernels with shared-memory atomics, in an order that varies by
+run); for attention the reference's own, 2e-3 in float32 and 5e-2 in bf16
+against the plain version in float32 (tests/test_kernels.py:185,197).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.api import ExecutionConfig, connect
 from repro_torch.data import datasets as TD
 from repro_torch.kernels import ops, ref
 from repro_torch.ml.covar import compute_covar
 from repro_torch.ml.covar_fused import make_fused_covar
 from repro_torch.ml.trees import DecisionTree
+from repro_torch.models import model as M
+from repro_torch.models.layers import init_params
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -239,3 +244,98 @@ def test_fused_covar_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card.cpu().numpy(), want, rtol=1e-4,
                                atol=1e-4 * np.abs(want).max())
     assert float(card[0, 0]) == 30000.0
+
+
+ATTN_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+
+
+def _qkv(b, h, hkv, s, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, n, s, d)).astype(np.float32))
+            .to(device=device, dtype=dtype) for n in (h, hkv, hkv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,hkv,s", [(16, 4, 4, 1000), (64, 8, 4, 333),
+                                       (120, 8, 2, 777), (128, 16, 8, 1000)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0),
+                                           (False, 64)])
+def test_flash_attention_matches_plain(cuda_device, dtype, d, h, hkv, s,
+                                       causal, window):
+    """GQA groups 1, 2 and 4, the model families' head dims (120:
+    h2o-danube), sequences that end inside a 64-row tile, every mask."""
+    q, k, v = _qkv(2, h, hkv, s, d, dtype, cuda_device, seed=d + s)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_transposed_views(cuda_device):
+    """The model's (B, S, H, D) activations as (B, H, S, D) views: no copy,
+    the output laid out like q."""
+    rng = np.random.default_rng(11)
+    b, s, h, hkv, d = 2, 300, 8, 2, 128
+    qs, ks, vs = (torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
+                  .to(cuda_device, torch.bfloat16) for n in (h, hkv, hkv))
+    q, k, v = (t.transpose(1, 2) for t in (qs, ks, vs))
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_attention_rows_without_keys_are_zero(cuda_device):
+    """More query rows than keys under a window of 1: rows past S_k see no
+    key and give 0, the others their one key's value."""
+    q = torch.ones(1, 1, 130, 8, device=cuda_device)
+    k = v = torch.ones(1, 1, 70, 8, device=cuda_device)
+    got = ops.flash_attention(q, k, v, causal=True, window=1)
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, causal=True,
+                                                      window=1))
+    assert not bool(got[0, 0, 70:].any())
+
+
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(*_qkv(1, 4, 2, 64, 12, torch.float32, cuda_device))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(*_qkv(1, 4, 2, 64, 136, torch.float32, cuda_device))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="key/value heads"):
+        ops.flash_attention(*_qkv(1, 4, 3, 64, 64, torch.float32, cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+def test_forward_on_card_matches_cpu(cuda_device):
+    """internlm2-1.8b's smoke config: the forward on the card (the kernel,
+    once per layer) against the forward on the CPU (the plain version)."""
+    cfg = configs.get_smoke("internlm2-1.8b")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    host = init_params(M.model_specs(cfg), gen, cfg.torch_dtype, "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+
+    card = to_card(host)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int64))
+    want, _ = M.forward(host, {"tokens": tokens}, cfg, impl="dense")
+    ops.reset_launches()
+    got, _ = M.forward(card, {"tokens": tokens.to(cuda_device)}, cfg)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)

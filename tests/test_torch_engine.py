@@ -150,6 +150,21 @@ def test_port_imports_neither_jax_nor_the_reference():
                                      ["inventoryunits"], database=db)) == 4
         polyreg.fit_polyreg(ds, attrs=["maxtemp", "prize"], database=db)
         statistics.feature_moments(ds, database=db)
+        import numpy as np
+        import torch
+        from repro_torch import configs
+        from repro_torch.models import model as M
+        from repro_torch.models.layers import init_params
+        from repro_torch.serve.engine import BatchedServer
+        cfg = configs.get_smoke("internlm2-1.8b")
+        gen = torch.Generator().manual_seed(0)
+        params = init_params(M.model_specs(cfg), gen, cfg.torch_dtype, "cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+        logits, _ = M.forward(params, {"tokens": toks}, cfg)
+        assert tuple(logits.shape) == (2, 12, cfg.vocab)
+        out = BatchedServer(cfg, params, max_len=12, batch=2, device="cpu"
+                            ).generate(toks[:, :4].numpy(), 8)
+        assert out.shape == (2, 12)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

@@ -126,9 +126,11 @@ def test_cpu_tensors_run_plain_versions_uncounted():
     ops.tree_hist_batched(torch.zeros(4, dtype=torch.int32), torch.ones(4),
                           torch.ones(4, 2), 3)
     ops.covar_xtx(torch.ones(4, 3), torch.ones(4))
-    assert ops.LAUNCHES == {"covar_xtx": 0, "fused_scan_block": 0,
-                            "seg_aggregate": 0, "tree_hist": 0,
-                            "tree_hist_batched": 0}
+    ops.flash_attention(torch.ones(1, 2, 5, 8), torch.ones(1, 1, 5, 8),
+                        torch.ones(1, 1, 5, 8))
+    assert ops.LAUNCHES == {"covar_xtx": 0, "flash_attention": 0,
+                            "fused_scan_block": 0, "seg_aggregate": 0,
+                            "tree_hist": 0, "tree_hist_batched": 0}
 
 
 @pytest.mark.parametrize("n_segments,width", [(4960, 99), (12000, 1),
