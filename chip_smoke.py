@@ -62,7 +62,8 @@ Phases, one JSON line each (``{"phase": ...}``):
 The ``kernels`` phase also holds ``flash_attention`` against its plain
 version at the attention shapes of internlm2-1.8b's prefill (the summary's
 case), llama3-8b, minicpm-2b, h2o-danube-3-4b (window 4,096), a ragged
-non-causal case and ``prefill_32k`` (sampled rows), with
+non-causal float32 case, a ragged causal bf16 one and ``prefill_32k``
+(sampled rows), with
 ``scaled_dot_product_attention`` as the library time, on (B, H, S, D)
 views of (B, S, H, D) tensors as the model passes them.  Besides allclose
 at the reference's tolerances, each case is held per query row to a
@@ -1183,6 +1184,7 @@ ATTN_CASES = (
     ("minicpm-2b", 4, 36, 36, 2048, 64, True, 0, "bfloat16"),
     ("h2o-danube-3-4b", 1, 32, 8, 8192, 120, True, 4096, "bfloat16"),
     ("ragged.noncausal", 2, 8, 4, 1000, 16, False, 0, "float32"),
+    ("ragged.bf16", 2, 8, 4, 1000, 128, True, 0, "bfloat16"),
     ("prefill_32k", 1, 16, 8, 32768, 128, True, 0, "bfloat16"),
 )
 #: query rows of the prefill_32k case held against the plain version (the

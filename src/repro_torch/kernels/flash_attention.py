@@ -2,12 +2,16 @@
 softmax over GQA heads, causal and sliding-window masks; the port of
 ``flash_attention_pallas`` (``repro/kernels/flash_attention.py:68``).
 
-The device code is ``csrc/flash_attention.cu``: one block per (64-row query
-tile, head, batch), key tiles staged through shared memory, float32 scores
-and accumulators, and only the key tiles inside the causal / window band
-visited.  The TPU kernel's ``block_q``, ``block_k``, ``interpret`` and
-``kv_len`` have no counterpart: any ``S`` goes in as it is (the kernel masks
-the ragged tile itself), and the inputs may be strided views, such as the
+The device code is ``csrc/flash_attention.cu``, float32 scores and
+accumulators in both dtypes, and only the key tiles inside the causal /
+window band visited.  bf16 runs one block per (128-row query tile, head,
+batch): a producer thread feeds 128-key K/V tiles by TMA into a ring in
+shared memory, and two warpgroups of 64 rows multiply them with ``wgmma``.
+The tensor maps are built in the C entry point from the strides passed
+here.  float32 runs 64-row tiles on the CUDA cores.  The TPU kernel's
+``block_q``, ``block_k``, ``interpret`` and ``kv_len`` have no counterpart:
+any ``S`` goes in as it is (the kernel masks the ragged tile itself), and
+the inputs may be strided views, such as the
 ``(B, S, H, D) → (B, H, S, D)`` transposes of the model's attention, as long
 as their last axis is contiguous.
 """

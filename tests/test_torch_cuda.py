@@ -302,6 +302,85 @@ def test_flash_attention_rows_without_keys_are_zero(cuda_device):
     assert not bool(got[0, 0, 70:].any())
 
 
+def _check_bf16(q, k, v, causal, window):
+    """The bf16 kernel against the plain version in float32: allclose at
+    5e-2, and per query row max |Δ| ≤ 5e-2 of the row's rms (allclose's
+    atol is near a long row's |o|, so it alone cannot see a dropped key
+    tile; a row without keys must come back exactly 0)."""
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(q.shape)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             window=window)
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (got.float() - want).abs().amax(-1, keepdim=True)
+    assert bool((err <= tol * rms).all()), float((err / rms.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("s", [64, 127, 128, 129, 255, 4096])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tile_edges(cuda_device, s, causal):
+    """Query and key tiles of 128 that end on and inside a tile's edge."""
+    q, k, v = _qkv(2, 4, 2, s, 128, torch.bfloat16, cuda_device, seed=s)
+    _check_bf16(q, k, v, causal, 0)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 300), (300, 100), (129, 1000),
+                                   (1000, 129), (256, 255)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 100)])
+def test_flash_attention_bf16_sq_ne_sk(cuda_device, sq, sk, causal, window):
+    """More keys than queries and fewer, with every mask: causal rows past
+    S_k see every key, query tiles past S_k under a window see none."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, n, s, 64)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for n, s in ((8, sq), (4, sk), (4, sk)))
+    _check_bf16(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("window", [100, 129, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_windows(cuda_device, window, causal):
+    """Windows whose edge falls inside a key tile, on a tile's edge + 1,
+    and one key past a 4,096-key span."""
+    q, k, v = _qkv(1, 4, 2, 5000, 128, torch.bfloat16, cuda_device, seed=window)
+    _check_bf16(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_attention_bf16_gqa_groups(cuda_device, group):
+    q, k, v = _qkv(2, 8, 8 // group, 700, 128, torch.bfloat16, cuda_device,
+                   seed=group)
+    _check_bf16(q, k, v, True, 0)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 120, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 200)])
+def test_flash_attention_bf16_head_dims(cuda_device, d, causal, window):
+    """Head dims the TMA boxes cover only in part (8 ... 120) or whole."""
+    q, k, v = _qkv(2, 4, 2, 600, d, torch.bfloat16, cuda_device, seed=d)
+    _check_bf16(q, k, v, causal, window)
+
+
+def test_flash_attention_bf16_rows_without_keys_are_zero(cuda_device):
+    """The bf16 kernel under a window of 1 with more query rows than keys:
+    a query tile wholly past S_k loads no key tile."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 300, 64)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(1, 2, 70, 64)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True, window=1)
+    assert not bool(got[0, :, 70:].any())
+    torch.testing.assert_close(got[0, :, :70], v[0], rtol=0, atol=0)
+    _check_bf16(q, k, v, True, 1)
+    none = ops.flash_attention(q, k[:, :, :0], v[:, :, :0], causal=False)
+    assert tuple(none.shape) == tuple(q.shape) and not bool(none.any())
+
+
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
