@@ -181,7 +181,7 @@ def check(ok: bool, what: str) -> None:
 def card_rates(name: str):
     """(HBM bytes/s, float32 FLOP/s outside the tensor cores, dense bf16
     tensor-core FLOP/s) from NVIDIA's data sheets, by the card's reported
-    name."""
+    name; dense TF32 is half the bf16 rate."""
     if "PCIe" in name:
         return 2.0e12, 51e12, 756e12
     if "NVL" in name:
@@ -248,6 +248,19 @@ def compare(got, want, abs_want, what: str):
     return max_abs, max_rel
 
 
+def ptxas_report(log: str, namespace: str):
+    """Registers and spills of each kernel whose mangled name holds
+    ``namespace``, from nvcc's ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            name = fn if namespace in fn else None
+        elif name and ("Used" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split("info    :")[-1].strip())
+    return out
+
+
 def in_range_rows(codes, specs):
     return [int(((codes[:, sp.code_col] >= 0)
                  & (codes[:, sp.code_col] < sp.n_segments)).sum()) for sp in specs]
@@ -256,9 +269,13 @@ def in_range_rows(codes, specs):
 def kernel_phase(args, plan_specs, rates):
     import torch
 
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import covar_xtx as kxtx
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import seg_aggregate as kseg
 
-    bw, flops, _ = rates
+    bw, flops, bf16 = rates
+    tf32 = bf16 / 2
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     n = KERNEL_ROWS
@@ -296,6 +313,17 @@ def kernel_phase(args, plan_specs, rates):
     sp = max(fact, key=lambda s: s.n_segments * s.width)
     codes, fpay = random_inputs((ops.ReduceSpec("seg", 0, sp.n_segments, sp.width, 0),), n, gen)
     seg = codes[:, 0].contiguous()
+    plan = kseg.seg_plan(n, sp.n_segments, sp.width, seg.device)
+    lay = plan.layout
+    geometry = dict(mode=("one block", "segment ranges")[lay.mode],
+                    blocks_at_once=plan.wave_blocks,
+                    blocks=[(it[1], it[3]) for it in lay.items],
+                    ring_stages=(kseg.STAGES_A, 1)[lay.mode],
+                    stage_rows=lay.stage_rows if lay.mode == 0 else kseg.STAGE_ROWS_B,
+                    chunks=plan.n_chunks, chunk_rows=plan.chunk_rows,
+                    smem_bytes=lay.smem_bytes,
+                    scratch_bytes=4 * plan.scratch_numel,
+                    ptxas=ptxas_report(_build.build_log, "seg_reduce"))
     got = ops.seg_aggregate(seg, fpay, sp.n_segments)
     want = ref.seg_aggregate_ref(seg, fpay, sp.n_segments)
     abs_want = ref.seg_aggregate_ref(seg, fpay.abs(), sp.n_segments)
@@ -305,7 +333,7 @@ def kernel_phase(args, plan_specs, rates):
     pay = fpay * ok[:, None].float()
     lib_out = torch.zeros((sp.n_segments, sp.width), device="cuda")
     case = dict(case="fact", n=n, n_segments=sp.n_segments, width=sp.width,
-                max_abs_err=max_abs, max_rel_err=max_rel,
+                geometry=geometry, max_abs_err=max_abs, max_rel_err=max_rel,
                 ms=cuda_ms(lambda: ops.seg_aggregate(seg, fpay, sp.n_segments)),
                 plain_ms=cuda_ms(lambda: ref.seg_aggregate_ref(seg, fpay, sp.n_segments)),
                 library_ms=cuda_ms(lambda: lib_out.index_add_(0, sid, pay)),
@@ -370,21 +398,34 @@ def kernel_phase(args, plan_specs, rates):
     del codes, y, cond, got, want, abs_want, sid, pay, yk
 
     # -- covar_xtx at the fused covar path's blocks: Retailer's p = 70 and
-    # Favorita's p = 142 feature columns, w 0/1
+    # Favorita's p = 142 feature columns, w 0/1.  Bound: its bytes against
+    # its three TF32 products of the upper triangle on the tensor cores
     xtx_cases = []
     for f in XTX_WIDTHS:
         x = torch.randn((n, f), generator=gen, device="cuda")
         w = (torch.rand((n,), generator=gen, device="cuda") < 0.9).float()
+        rows = kxtx.step_rows(f)
+        stages = kxtx.ring_stages(f, rows)
+        smem = kxtx.smem_bytes(f, stages, rows)
+        groups = kxtx.groups(f)
+        wave = kxtx._wave(x.device, stages, rows, smem, _build.library())
+        chunk_rows, n_chunks = kxtx.chunking(n, max(1, wave // len(groups)))
+        geometry = dict(pieces=kxtx.pieces(f), groups=len(groups), step_rows=rows,
+                        ring_stages=stages, smem_bytes=smem,
+                        chunks=n_chunks, chunk_rows=chunk_rows,
+                        ptxas=ptxas_report(_build.build_log, "3xtx"))
         got = ops.covar_xtx(x, w)
         want = ref.covar_xtx_ref(x, w)
         abs_want = ref.covar_xtx_ref(x.abs(), w)
         max_abs, max_rel = compare([got], [want], [abs_want], f"covar_xtx[{f}]")
         check(torch.equal(got, got.t()), f"covar_xtx[{f}]: not symmetric")
-        case = dict(case=f"p{f}", n=n, f=f, max_abs_err=max_abs, max_rel_err=max_rel,
+        case = dict(case=f"p{f}", n=n, f=f, geometry=geometry, max_abs_err=max_abs,
+                    max_rel_err=max_rel,
                     ms=cuda_ms(lambda: ops.covar_xtx(x, w)),
                     plain_ms=cuda_ms(lambda: ref.covar_xtx_ref(x, w)),
                     library_ms=cuda_ms(lambda: torch.mm(x.t(), x * w[:, None])),
-                    **bound((n * f + n + f * f) * 4, n * f * (f + 1), bw, flops))
+                    bound_rate="3xTF32 at the dense TF32 tensor-core rate",
+                    **bound((n * f + n + f * f) * 4, 3 * n * f * (f + 1), bw, tf32))
         emit("kernel", name="covar_xtx", **case)
         xtx_cases.append(case)
         del x, w, got, want, abs_want
@@ -496,6 +537,16 @@ def device_breakdown(fn, top: int = 8, classify=None):
     return out
 
 
+def kernel_group(name: str) -> str:
+    """The port's kernel a device kernel belongs to, by its namespace (the
+    partial and combine passes together), or "other"."""
+    for prefix, group in (("seg_reduce::", "seg_aggregate"), ("xtx::", "covar_xtx"),
+                          ("scan_reduce::", "scan_reduce (fused_scan_block, tree_hist*)")):
+        if name.startswith(prefix) or f" {prefix}" in name:
+            return group
+    return "other"
+
+
 def scaled_err(C, G):
     import numpy as np
 
@@ -552,7 +603,8 @@ def main_phase(ds, db, join):
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         del out
-        emit(f"main.{label}.profile", **device_breakdown(lambda: batch(sess.data)))
+        emit(f"main.{label}.profile", **device_breakdown(lambda: batch(sess.data),
+                                                          classify=kernel_group))
         stats = batch.stats
         n_blocks = sum(-(-sizes[st.rel] // min(cfg.block_size, sizes[st.rel]))
                        for st in batch.schedule.steps)
@@ -874,7 +926,7 @@ def fused_covar_phase(ds, db, orc):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    prof = device_breakdown(fn)
+    prof = device_breakdown(fn, classify=kernel_group)
     C = out.cpu().numpy().astype(np.float64)
     N = float(n)
     err = scaled_err(C, orc["G"])

@@ -47,9 +47,10 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def covar_xtx(x: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``C = Xᵀ·diag(w)·X``: the (F, F) float32 ``C[f, g] = Σ_n w[n]·x[n, f]·
     x[n, g]`` for ``x`` (n, F) of any float dtype (cast to float32) and ``w``
-    (n,) or ``None`` (ones).  Any ``n`` and ``F``: the reference's
-    ``block_rows``, ``interpret`` and ``feature_align`` pad for the TPU's
-    tiles and have no counterpart here."""
+    (n,) or ``None`` (ones).  Any ``n``, and on the card any ``F`` up to
+    ``covar_xtx.MAX_FEATURES`` (past it the wrapper raises): the
+    reference's ``block_rows``, ``interpret`` and ``feature_align`` pad for
+    the TPU's tiles and have no counterpart here."""
     x = x.to(torch.float32)
     w = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
          if w is None else w.to(torch.float32))

@@ -54,19 +54,87 @@ def test_covar_xtx_without_weights_is_xtx():
 @pytest.mark.parametrize("n", [0, 1, 31, 4960, 1_000_003, 84_000_000])
 @pytest.mark.parametrize("f", [1, 70, 142])
 def test_covar_xtx_chunks_cover_rows(n, f):
-    """The kernel's row chunks: whole staged steps, at most 2^16 rows (exact
-    0/1 counts in float32), none empty, and together exactly the n rows."""
-    chunk_rows, n_chunks = kxtx.chunking(n, f, wave=132 * 14)
+    """The kernel's row chunks for a wave of the F-wide kernel: whole staged
+    steps, at most 2^16 rows (exact 0/1 counts in float32), none empty, and
+    together exactly the n rows."""
+    rows = kxtx.step_rows(f)
+    per_sm = kxtx.SMEM_BYTES // kxtx.smem_bytes(f, kxtx.ring_stages(f, rows), rows)
+    chunk_rows, n_chunks = kxtx.chunking(n, max(1, 132 * per_sm // len(kxtx.groups(f))))
     assert chunk_rows % kxtx.STEP_ROWS == 0
     assert 0 < chunk_rows <= kxtx.MAX_CHUNK_ROWS
     assert 1 <= n_chunks <= kxtx.MAX_CHUNKS
     assert (n_chunks - 1) * chunk_rows < max(n, 1) <= n_chunks * chunk_rows
 
 
-@pytest.mark.parametrize("f,pairs", [(1, 1), (32, 1), (33, 3), (70, 6),
-                                     (142, 15)])
-def test_covar_xtx_tile_pairs(f, pairs):
-    assert kxtx.tile_pairs(f) == pairs
+@pytest.mark.parametrize("f,count", [(1, 1), (32, 1), (65, 3), (70, 3),
+                                     (142, 6), (173, 8)])
+def test_covar_xtx_pieces_cover_the_triangle(f, count):
+    """Every upper-triangle entry (i <= j < F) in exactly one 64 x 48 piece,
+    each piece starting on its band's diagonal."""
+    pieces = kxtx.pieces(f)
+    assert len(pieces) == count
+    assert all(m0 % kxtx.PIECE_ROWS == 0 and n0 >= m0 for m0, n0 in pieces)
+    for i in range(f):
+        for j in range(i, f):
+            hits = [(m0, n0) for m0, n0 in pieces
+                    if m0 <= i < m0 + kxtx.PIECE_ROWS
+                    and n0 <= j < n0 + kxtx.PIECE_COLS]
+            assert len(hits) == 1, (i, j, hits)
+
+
+@pytest.mark.parametrize("f", [1, 48, 70, 96, 97, 142, 144, 145, 173, 300,
+                               kxtx.MAX_FEATURES])
+def test_covar_xtx_geometry_fits_a_block(f):
+    """A step's buffers and at least two ring stages fit a block's shared
+    memory; 48-row steps up to F = 96, 32-row steps where two stages of
+    them fit (to F = 192), else 16; one group up to F = 144."""
+    rows = kxtx.step_rows(f)
+    stages = kxtx.ring_stages(f, rows)
+    assert rows == (kxtx.LONG_STEP_ROWS if f <= 96 else kxtx.STEP_ROWS if f <= 192
+                    else kxtx.SHORT_STEP_ROWS)
+    assert (len(kxtx.groups(f)) == 1) == (f <= 144)
+    assert kxtx.MIN_STAGES <= stages <= kxtx.MAX_STAGES
+    assert kxtx.smem_bytes(f, stages, rows) <= kxtx.SMEM_BYTES
+
+
+@pytest.mark.parametrize("f", [1, 70, 142, 144, 145, 173, 300, 500,
+                               kxtx.MAX_FEATURES])
+def test_covar_xtx_groups_cover_every_piece_once(f):
+    """The grid's groups: every piece in exactly one, at most MAX_PIECES
+    each, inside its group's operand rows (A whole bands; B from a core
+    matrix's start, a multiple of 8), and no more columns to split than the
+    kernel's task registers hold: 96 in 48-row steps, 192 in 32-row steps,
+    else MAX_OPERAND_ROWS."""
+    pieces = kxtx.pieces(f)
+    seen = []
+    for g in kxtx.groups(f):
+        assert 1 <= g.count <= kxtx.MAX_PIECES
+        assert g.a_lo % kxtx.PIECE_ROWS == 0 and g.a_n % kxtx.PIECE_ROWS == 0
+        assert g.b_lo % 8 == 0
+        seen += range(g.first, g.first + g.count)
+        for m0, n0 in pieces[g.first:g.first + g.count]:
+            assert g.a_lo <= m0 and m0 + kxtx.PIECE_ROWS <= g.a_lo + g.a_n
+            assert g.b_lo <= n0 and n0 + kxtx.PIECE_COLS <= g.b_lo + g.b_n
+        cols = set(range(g.a_lo, min(g.a_lo + g.a_n, f)))
+        cols |= set(range(g.b_lo, min(g.b_lo + g.b_n, f)))
+        assert len(cols) <= {kxtx.LONG_STEP_ROWS: 96, kxtx.STEP_ROWS: 192,
+                             kxtx.SHORT_STEP_ROWS: kxtx.MAX_OPERAND_ROWS}[kxtx.step_rows(f)]
+        assert g.a_n + g.b_n <= kxtx.operand_rows(f) <= kxtx.MAX_OPERAND_ROWS
+    assert seen == list(range(len(pieces)))
+
+
+def test_covar_xtx_takes_every_width_up_to_its_widest():
+    """Every F from 1 to MAX_FEATURES has a step and at least two ring
+    stages that fit; at MAX_FEATURES + 1 two 16-row stages would not fit
+    beside split buffers of MAX_OPERAND_ROWS rows."""
+    assert kxtx.MAX_FEATURES >= 173   # TPC-DS's covar features
+    assert all(kxtx.ring_stages(f, kxtx.step_rows(f))
+               for f in range(1, kxtx.MAX_FEATURES + 1))
+    rows = kxtx.SHORT_STEP_ROWS
+    split = 2 * 2 * kxtx.MAX_OPERAND_ROWS * rows * 4
+    last = kxtx.MAX_FEATURES
+    assert split + kxtx.MIN_STAGES * kxtx._stage_bytes(last, rows) <= kxtx.SMEM_BYTES
+    assert split + kxtx.MIN_STAGES * kxtx._stage_bytes(last + 1, rows) > kxtx.SMEM_BYTES
 
 
 @pytest.fixture(scope="module", params=["retailer", "favorita"])

@@ -18,7 +18,9 @@ import torch
 from repro_torch import configs
 from repro_torch.api import ExecutionConfig, connect
 from repro_torch.data import datasets as TD
+from repro_torch.kernels import covar_xtx as kxtx
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import seg_aggregate as kseg
 from repro_torch.ml.covar import compute_covar
 from repro_torch.ml.covar_fused import make_fused_covar
 from repro_torch.ml.trees import DecisionTree
@@ -87,13 +89,18 @@ def test_tree_hist_batched_matches_plain(cuda_device, n):
     torch.testing.assert_close(got[:, :, 0].sum(1), cond[ok].sum(0))
 
 
-@pytest.mark.parametrize("f", [1, 7, 64, 70, 142])
+@pytest.mark.parametrize("f", [1, 7, 8, 63, 64, 65, 70, 99, 128, 142, 144,
+                               145, 173, 300, kxtx.MAX_FEATURES])
 @pytest.mark.parametrize("n", [0, 1, 517, 70001, 1_000_003])
 def test_covar_xtx_matches_plain(cuda_device, n, f):
     """Row counts that are no multiple of a chunk or a staged row step,
-    widths on and off the 32-wide tiles, and a 0/1 w with zeros (the
-    validity of padded rows in the reference): within 1e-4 of the plain
-    version's Σ|terms| per entry, exactly symmetric."""
+    widths on and off the 64-row bands and 48-column pieces, in one group
+    (F <= 144) and in groups of consecutive pieces past it (TPC-DS's 173 in
+    two; 300 in five, one splitting two runs of columns) up to the widest
+    the kernel takes,
+    and a 0/1 w with zeros (the validity of padded
+    rows in the reference): within 1e-4 of the plain version's Σ|terms| per
+    entry, exactly symmetric."""
     rng = np.random.default_rng(n + f)
     x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda_device)
     w = torch.from_numpy((rng.random(n) < 0.8).astype(np.float32)).to(cuda_device)
@@ -109,15 +116,17 @@ def test_covar_xtx_matches_plain(cuda_device, n, f):
         assert not bool(got.any())
 
 
-def test_covar_xtx_is_bit_reproducible(cuda_device):
+@pytest.mark.parametrize("n,f", [(20_000_003, 3), (3_000_017, 173)])
+def test_covar_xtx_is_bit_reproducible(cuda_device, n, f):
     """No atomics: chunks combine in a fixed order, so two launches give the
-    same bits; a 0/1 column's count is exact past 2^24."""
+    same bits; a 0/1 column's count is exact past 2^24.  At TPC-DS's 173
+    features the grid's two groups of pieces write their own pieces: still
+    the same bits, exactly symmetric, the count exact."""
     rng = np.random.default_rng(5)
-    n = 20_000_003
-    x = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda_device)
     x[:, 0] = 1.0
     a, b = ops.covar_xtx(x), ops.covar_xtx(x)
-    assert torch.equal(a, b)
+    assert torch.equal(a, b) and torch.equal(a, a.t())
     assert float(a[0, 0]) == float(np.float32(n))
 
 
@@ -183,6 +192,102 @@ def test_integer_sums_are_exact_past_2_24(cuda_device):
         assert float(out[0, 0]) == want
 
 
+def _scaled_err(got, want, scale):
+    """max |got − want| ÷ (Σ|terms| + 1e-30) over the entries."""
+    return float(((got - want).abs() / (scale + 1e-30)).max())
+
+
+@pytest.mark.parametrize("n_segments", [1, 13, 4960, 60000, 120000])
+@pytest.mark.parametrize("width", [1, 3, 4, 7, 11, 99, 100, 1500])
+def test_seg_aggregate_edges(cuda_device, width, n_segments):
+    """Widths from one column to past one block's threads (1,500: two
+    column tiles), segment counts from one to three segment ranges,
+    50,003 rows (no multiple of 4 or of a ring stage), a payload that
+    starts 4 bytes past a 16-byte boundary, and codes up to 5 outside the
+    domain on both sides: within 1e-4 of the plain version's Σ|terms|."""
+    rng = np.random.default_rng(width * 7 + n_segments)
+    n = 50_003
+    seg = torch.from_numpy(rng.integers(-5, n_segments + 5, n).astype(np.int32)).to(cuda_device)
+    flat = torch.from_numpy(rng.normal(size=n * width + 1).astype(np.float32)).to(cuda_device)
+    pay = flat[1:].view(n, width)
+    assert pay.is_contiguous() and pay.data_ptr() % 16 != 0
+    ops.reset_launches()
+    got = ops.seg_aggregate(seg, pay, n_segments)
+    assert ops.LAUNCHES["seg_aggregate"] == 1
+    want = ref.seg_aggregate_ref(seg, pay, n_segments)
+    scale = ref.seg_aggregate_ref(seg, pay.abs(), n_segments)
+    assert tuple(got.shape) == (n_segments, width)
+    assert _scaled_err(got, want, scale) <= 1e-4
+
+
+def test_seg_aggregate_fact_bucket_plan(cuda_device):
+    """The covar plan's widest fact bucket (4,960 segments, 99 columns)
+    runs in segment ranges, one wave of blocks of which the card holds at
+    least one, and agrees with the plain version."""
+    plan = kseg.seg_plan(1_000_003, 4960, 99, cuda_device)
+    assert plan.layout.mode == 1 and plan.wave_blocks >= 1
+    assert plan.n_chunks * plan.chunk_rows >= 1_000_003
+    rng = np.random.default_rng(3)
+    seg = torch.from_numpy(rng.integers(-200, 5160, 1_000_003).astype(np.int32)).to(cuda_device)
+    pay = torch.from_numpy(rng.normal(size=(1_000_003, 99)).astype(np.float32)).to(cuda_device)
+    got = ops.seg_aggregate(seg, pay, 4960)
+    want = ref.seg_aggregate_ref(seg, pay, 4960)
+    assert _scaled_err(got, want, ref.seg_aggregate_ref(seg, pay.abs(), 4960)) <= 1e-4
+
+
+def test_covar_xtx_takes_unaligned_rows(cuda_device):
+    """x and w that start 4 bytes past a 16-byte boundary (a slice of a
+    larger buffer): the ring's 16-byte copies start after the unaligned
+    head."""
+    rng = np.random.default_rng(8)
+    n, f = 70001, 70
+    flat = torch.from_numpy(rng.normal(size=n * f + 1).astype(np.float32)).to(cuda_device)
+    x = flat[1:].view(n, f)
+    w = torch.from_numpy((rng.random(n + 1) < 0.8).astype(np.float32)).to(cuda_device)[1:]
+    assert x.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0
+    got = ops.covar_xtx(x, w)
+    want = ref.covar_xtx_ref(x, w)
+    assert _scaled_err(got, want, ref.covar_xtx_ref(x.abs(), w)) <= 1e-4
+    assert torch.equal(got, got.t())
+
+
+def test_covar_xtx_raises_past_its_widest_input(cuda_device):
+    x = torch.ones(100, kxtx.MAX_FEATURES + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="columns"):
+        ops.covar_xtx(x)
+
+
+def _tf32(t):
+    """Round float32 to TF32 (10 explicit mantissa bits), to nearest."""
+    bits = t.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_covar_xtx_check_sees_planted_faults(cuda_device):
+    """The check the kernel passes (1e-4 of Σ|terms| per entry) reads
+    above its limit for two faults of the kernel's own kind: one 32-row
+    stage dropped out of 70,001 rows, and products in 1xTF32 (no low
+    parts) on gathered-like features, whose few positive values repeat in
+    every row, so their rounding does not average out; on the latter the
+    kernel itself stays within the limit."""
+    rng = np.random.default_rng(9)
+    n, f = 70001, 70
+    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda_device)
+    w = torch.ones(n, device=cuda_device)
+    want, scale = ref.covar_xtx_ref(x, w), ref.covar_xtx_ref(x.abs(), w)
+    assert _scaled_err(ops.covar_xtx(x, w), want, scale) <= 1e-4
+    dropped = w.clone()
+    dropped[64:96] = 0.0
+    assert _scaled_err(ref.covar_xtx_ref(x, dropped), want, scale) > 1e-4
+    # eight values 0.45 of a TF32 unit above one: each rounds down, alike
+    values = torch.from_numpy((1.0 + (rng.integers(0, 512, 8) + 0.45) * 2.0 ** -10)
+                              .astype(np.float32)).to(cuda_device)
+    g = values[torch.from_numpy(rng.integers(0, 8, (n, f))).to(cuda_device)]
+    want, scale = ref.covar_xtx_ref(g, w), ref.covar_xtx_ref(g.abs(), w)
+    assert _scaled_err(ops.covar_xtx(g, w), want, scale) <= 1e-4
+    assert _scaled_err(ref.covar_xtx_ref(_tf32(g), w), want, scale) > 1e-4
+
+
 @pytest.mark.parametrize("fuse_kernels", [True, False])
 def test_covar_on_card_matches_cpu(cuda_device, fuse_kernels):
     ds = TD.make("retailer", scale=0.5)
@@ -228,16 +333,18 @@ def test_tree_fit_on_card_matches_cpu(cuda_device, fuse_kernels):
         assert launched["fused_scan_block"] == 0
 
 
-def test_fused_covar_on_card_matches_cpu(cuda_device):
-    """The gathered-XᵀX covar over Retailer (30,000 fact rows, blocks of
-    4,096 rows and a short last one) on the card against a CPU session of
-    the same tables: every block went through the kernel."""
-    ds = TD.make("retailer", scale=0.5)
+@pytest.mark.parametrize("name,p", [("retailer", 70), ("tpcds", 173)])
+def test_fused_covar_on_card_matches_cpu(cuda_device, name, p):
+    """The gathered-XᵀX covar (30,000 fact rows, blocks of 4,096 rows and a
+    short last one) on the card against a CPU session of the same tables:
+    every block went through the kernel.  TPC-DS's 173 features (4
+    continuous, 16 categorical dimensions) run in two groups of pieces."""
+    ds = TD.make(name, scale=0.5)
     ops.reset_launches()
     fn, layout = make_fused_covar(ds, block_size=4096,
                                   database=connect(ds, device=cuda_device))
     card = fn()
-    assert card.device.type == "cuda"
+    assert card.device.type == "cuda" and layout.p == p
     assert ops.LAUNCHES["covar_xtx"] == 8
     host, _ = make_fused_covar(ds, block_size=4096, device="cpu")
     want = host().numpy()

@@ -16,6 +16,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fused_scan, ops
+from repro_torch.kernels import seg_aggregate as kseg
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -225,3 +226,50 @@ def test_launch_plan_spreads_a_short_scan(monkeypatch, n, chunk_rows):
     assert len(items) == 7
     assert {it[11] for it in items} == {chunk_rows}
     assert all(it[10] * it[11] >= n > (it[10] - 1) * it[11] for it in items)
+
+
+SEG_SHAPES = [(4960, 99), (4800, 1), (480, 20), (40, 4), (1, 1), (13, 1500),
+              (60000, 3), (120000, 3), (4960, 1024), (4960, 1025), (2, 513),
+              (100000, 1), (7, 4096), (30000, 7), (64, 512), (3, 2)]
+
+
+@pytest.mark.parametrize("n_segments,width", SEG_SHAPES)
+def test_seg_layout_covers_every_cell_once(n_segments, width):
+    """seg_aggregate's work items: every (segment, column) of the output in
+    exactly one block, each block within the shared-memory budget, and one
+    block for an accumulator that fits one."""
+    lay = kseg.seg_layout(n_segments, width)
+    assert lay.smem_bytes <= kseg.SMEM_BYTES
+    assert lay.mode == (0 if kseg.fits_one_block(n_segments, width) else 1)
+    cells = np.zeros((n_segments, width), dtype=np.int64)
+    for s0, ns, c0, t, _ in lay.items:
+        assert ns > 0 and t > 0
+        cells[s0:s0 + ns, c0:c0 + t] += 1
+        assert ns * t <= lay.max_size <= lay.part_stride
+    assert (cells == 1).all()
+    if lay.mode == 0:
+        assert len(lay.items) == 1 and lay.stage_rows % 32 == 0
+
+
+def test_seg_layout_at_the_fact_bucket():
+    """The covar plan's widest fact bucket: 11 ranges of 450-451 segments
+    with all 99 columns, a block each."""
+    lay = kseg.seg_layout(4960, 99)
+    assert lay.mode == 1 and len(lay.items) == 11
+    assert {it[1] for it in lay.items} == {450, 451}
+    assert {it[3] for it in lay.items} == {99}
+
+
+@pytest.mark.parametrize("n,per_chunk,wave", [(1, 1, 264), (4960, 1, 264),
+                                              (1_000_003, 11, 132),
+                                              (1_048_576, 1, 264),
+                                              (84_000_000, 11, 132),
+                                              (300_007, 1, 7)])
+def test_seg_chunks_cover_rows(n, per_chunk, wave):
+    """Every row in exactly one chunk, no chunk empty or past
+    MAX_CHUNK_ROWS, and the grid whole waves where the cap cuts chunks."""
+    chunk_rows, n_chunks = kseg.seg_chunks(n, per_chunk, wave)
+    assert 0 < chunk_rows <= kseg.MAX_CHUNK_ROWS
+    assert (n_chunks - 1) * chunk_rows < n <= n_chunks * chunk_rows
+    if n >= kseg.MIN_CHUNK_ROWS * max(1, wave // per_chunk):
+        assert n_chunks * per_chunk <= wave or n_chunks % (wave // per_chunk) == 0
