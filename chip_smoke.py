@@ -11,7 +11,10 @@ Phases, one JSON line each (``{"phase": ...}``):
                at the shapes the covar plan gives it (unaligned rows,
                out-of-range codes), with its time, the plain version's
                time, the ``index_add_`` time where one call computes the
-               same function, and the least time the card could take.
+               same function, and the least time the card could take;
+               ``fused_scan_block`` both in the reference's packed form
+               and in the parts form the main path launches (its covar
+               fact case leads the summary).
   4. main    — ``make_retailer(scale)`` (84M fact rows at 1400),
                ``connect(..., device="cuda")`` and ``compute_covar`` fused,
                then unfused; launch counters of each run; the covar held
@@ -121,6 +124,17 @@ XTX_WIDTHS = (70, 142)
 #: frontier nodes of the tree kernels' cases: the last level of the depth-4
 #: tree (1, 2, 4, 8, 16 nodes)
 TREE_NODES = 16
+#: the fact steps' reductions as the main path's lowering passes them, a
+#: tensor a part: (kind, segments, part widths) or, for a histogram, (kind,
+#: buckets, (nodes,)); the covar fact bucket's 45 aggregate columns of one
+#: view and its five one-aggregate views of pulled widths, as Retailer's
+#: covar plan has them; the tree fact bucket's 48 columns at TREE_NODES
+PARTS_STEPS = {
+    "fact_parts": [("seg", 4960, (1,) * 45 + (5, 6, 10, 25, 8)), ("seg", 40, (1,) * 4),
+                   ("seg", 480, (1,) * 9 + (5, 6))],
+    "tree_fact_parts": [("seg", 4960, (1,) * 48), ("hist", 40, (TREE_NODES,)),
+                        ("hist", 480, (TREE_NODES,))],
+}
 #: |stat − oracle| ≤ STAT_TOL · Σ|terms| per tree statistic (Σcond, Σcond·|y|,
 #: Σcond·y²): the engine sums in float32, per row block, in a varying order
 STAT_TOL = 1e-4
@@ -261,6 +275,25 @@ def ptxas_report(log: str, namespace: str):
     return out
 
 
+def launch_geometry(plan):
+    """The grids and items of a seg_reduce.cuh launch, and the registers and
+    spills of its kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import seg_aggregate as kseg
+
+    lay = plan.launch
+    names = ("one block SEG", "segment ranges SEG", "one block HIST", "segment ranges HIST")
+    return dict(grids=[dict(kernel=names[g.kernel], blocks=g.n_items, chunks=g.n_chunks,
+                            chunk_rows=g.chunk_rows, smem_bytes=g.smem_bytes,
+                            blocks_at_once=g.wave_blocks) for g in lay.grids],
+                reductions=[dict(kind=sh.kind, segments=sh.n_segments, width=sh.width,
+                                 kernel=names[kseg.kernel_of(sh, sub)], blocks=len(sub.items),
+                                 copies=sub.copies)
+                            for sh, sub in zip(lay.shapes, lay.layouts)],
+                scratch_bytes=4 * lay.scratch_numel,
+                ptxas=ptxas_report(_build.build_log, "seg_reduce"))
+
+
 def in_range_rows(codes, specs):
     return [int(((codes[:, sp.code_col] >= 0)
                  & (codes[:, sp.code_col] < sp.n_segments)).sum()) for sp in specs]
@@ -282,7 +315,8 @@ def kernel_phase(args, plan_specs, rates):
     results = {}
 
     # -- fused_scan_block at the covar plan's fact and Items steps, and at
-    # the tree plan's fact step for TREE_NODES frontier nodes
+    # the tree plan's fact step for TREE_NODES frontier nodes.  Library
+    # time: the sum of one index_add_ per spec on payloads formed beforehand
     fused_cases = []
     for label in ("fact", "items", "tree_fact"):
         specs = plan_specs[label]
@@ -299,13 +333,102 @@ def kernel_phase(args, plan_specs, rates):
             sp.n_segments * sp.width * 4 for sp in specs)
         ops_n = sum(r * sp.width * (2 if sp.kind == "hist" else 1)
                     for r, sp in zip(rows, specs))
-        case = dict(case=label, n=n, specs=[list(map(str, (sp.kind, sp.n_segments, sp.width))) for sp in specs],
+        sids, pays, outs = [], [], []
+        for sp in specs:
+            code = codes[:, sp.code_col]
+            ok = (code >= 0) & (code < sp.n_segments)
+            sids.append(torch.where(ok, code, torch.zeros_like(code)).long())
+            if sp.kind == "seg":
+                pay = fpay[:, sp.pay_off:sp.pay_off + sp.width]
+            else:
+                cond = fpay[:, sp.pay_off:sp.pay_off + sp.n_cond]
+                yk = fpay[:, sp.yk_off:sp.yk_off + 3]
+                pay = (cond[:, :, None] * yk[:, None, :]).reshape(n, sp.width)
+            pays.append((pay * ok[:, None].float()).contiguous())
+            outs.append(torch.zeros((sp.n_segments, sp.width), device="cuda"))
+
+        def library():
+            for o, i, p in zip(outs, sids, pays):
+                o.index_add_(0, i, p)
+
+        shapes = tuple(kseg.Shape("seg", sp.n_segments, (sp.width,), sp.width)
+                       if sp.kind == "seg" else
+                       kseg.Shape("hist", sp.n_segments, (sp.n_cond, 3), sp.width)
+                       for sp in specs)
+        case = dict(case=label, form="packed", n=n,
+                    specs=[list(map(str, (sp.kind, sp.n_segments, sp.width))) for sp in specs],
+                    geometry=launch_geometry(kseg.launch_plan(n, shapes, codes.device)),
                     max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                    plain_ms=plain_ms, library_ms=None,
+                    plain_ms=plain_ms, library_ms=cuda_ms(library),
+                    library_call="the sum of one index_add_ per spec on payloads formed beforehand",
                     **bound(nbytes, ops_n, bw, flops))
         emit("kernel", name="fused_scan_block", **case)
         fused_cases.append(case)
-        del codes, fpay, got, want, abs_want
+        del codes, fpay, got, want, abs_want, sids, pays, outs
+
+    # -- fused_scan_block in the parts form, as the main path's lowering
+    # passes the covar and tree fact steps: each aggregate column a tensor
+    # of its own, a pulled block a row-major (n, w) tensor, a histogram's
+    # node masks read transposed from (N, n), y formed on the card
+    for label, steps in PARTS_STEPS.items():
+        reds, absr, sids, pays, nbytes, ops_n = [], [], [], [], 0, 0
+        for kind, S, widths in steps:
+            spill = max(1, S // 25)
+            code = torch.randint(-spill, S + spill, (n,), generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            ok = (code >= 0) & (code < S)
+            rows_in = int(ok.sum())
+            if kind == "seg":
+                vals = [torch.randn((n, w) if w > 1 else (n,), generator=gen, device="cuda")
+                        for w in widths]
+                offs = [sum(widths[:i]) for i in range(len(widths))]
+                reds.append(ops.Parts("seg", code, tuple(map(ops.Part, vals, offs)), S))
+                absr.append(ops.Parts("seg", code, tuple(ops.Part(v.abs(), o)
+                                                         for v, o in zip(vals, offs)), S))
+                pay = torch.cat([v.reshape(n, -1) for v in vals], 1)
+                width = sum(widths)
+                ops_n += rows_in * width
+            else:
+                (n_cond,) = widths
+                mask = (torch.rand((n_cond, n), generator=gen, device="cuda") < 0.5).float()
+                y = torch.randn((n,), generator=gen, device="cuda")
+                reds.append(ops.Parts("hist", code, (mask.t(), y), S))
+                absr.append(ops.Parts("hist", code, (mask.t(), y.abs()), S))
+                yk = torch.stack([torch.ones_like(y), y, y * y], 1)
+                pay = (mask.t()[:, :, None] * yk[:, None, :]).reshape(n, 3 * n_cond)
+                width = 3 * n_cond
+                ops_n += 2 * rows_in * width
+            nbytes += 4 * (n + n * sum(widths) + (n if kind == "hist" else 0) + S * width)
+            sids.append(torch.where(ok, code, torch.zeros_like(code)).long())
+            pays.append((pay * ok[:, None].float()).contiguous())
+        got = ops.fused_scan_parts(reds)
+        want = ref.fused_scan_parts_ref(reds)
+        abs_want = ref.fused_scan_parts_ref(absr)
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare(got, want, abs_want, f"fused_scan_parts[{label}]")
+        outs = [torch.zeros_like(g) for g in got]
+
+        def library():
+            for o, i, p in zip(outs, sids, pays):
+                o.index_add_(0, i, p)
+
+        shapes = tuple(kseg.Shape("seg", S, tuple(ws), sum(ws)) if kind == "seg" else
+                       kseg.Shape("hist", S, (ws[0], 1), 3 * ws[0]) for kind, S, ws in steps)
+        case = dict(case=label, form="parts", n=n,
+                    specs=[[kind, S, len(ws), sum(ws)] for kind, S, ws in steps],
+                    geometry=launch_geometry(kseg.launch_plan(n, shapes, code.device)),
+                    max_abs_err=max_abs, max_rel_err=max_rel,
+                    ms=cuda_ms(lambda: ops.fused_scan_parts(reds)),
+                    plain_ms=cuda_ms(lambda: ref.fused_scan_parts_ref(reds)),
+                    library_ms=cuda_ms(library),
+                    library_call="the sum of one index_add_ per reduction on payloads "
+                                 "packed beforehand",
+                    **bound(nbytes, ops_n, bw, flops))
+        emit("kernel", name="fused_scan_block", **case)
+        fused_cases.append(case)
+        del reds, absr, sids, pays, outs, got, want, abs_want
+    # the main path launches the parts form: its covar fact case leads
+    fused_cases.sort(key=lambda c: c["case"] != "fact_parts")
     results["fused_scan_block"] = fused_cases
 
     # -- seg_aggregate at the unfused fact bucket (the widest spec)
@@ -314,15 +437,15 @@ def kernel_phase(args, plan_specs, rates):
     codes, fpay = random_inputs((ops.ReduceSpec("seg", 0, sp.n_segments, sp.width, 0),), n, gen)
     seg = codes[:, 0].contiguous()
     plan = kseg.seg_plan(n, sp.n_segments, sp.width, seg.device)
-    lay = plan.layout
+    lay, (grid,) = plan.launch.layouts[0], plan.launch.grids
     geometry = dict(mode=("one block", "segment ranges")[lay.mode],
-                    blocks_at_once=plan.wave_blocks,
+                    blocks_at_once=grid.wave_blocks,
                     blocks=[(it[1], it[3]) for it in lay.items],
                     ring_stages=(kseg.STAGES_A, 1)[lay.mode],
                     stage_rows=lay.stage_rows if lay.mode == 0 else kseg.STAGE_ROWS_B,
-                    chunks=plan.n_chunks, chunk_rows=plan.chunk_rows,
+                    chunks=grid.n_chunks, chunk_rows=grid.chunk_rows,
                     smem_bytes=lay.smem_bytes,
-                    scratch_bytes=4 * plan.scratch_numel,
+                    scratch_bytes=4 * plan.launch.scratch_numel,
                     ptxas=ptxas_report(_build.build_log, "seg_reduce"))
     got = ops.seg_aggregate(seg, fpay, sp.n_segments)
     want = ref.seg_aggregate_ref(seg, fpay, sp.n_segments)
@@ -387,6 +510,8 @@ def kernel_phase(args, plan_specs, rates):
            * ok[:, None].float())
     lib_out = torch.zeros((D, 3 * N), device="cuda")
     case = dict(case="tree_fact", n=n, n_buckets=D, n_nodes=N,
+                geometry=launch_geometry(kseg.launch_plan(
+                    n, (kseg.Shape("hist", D, (N, 1), 3 * N),), codes.device)),
                 max_abs_err=max_abs, max_rel_err=max_rel,
                 ms=cuda_ms(lambda: ops.tree_hist_batched(codes, y, cond, D)),
                 plain_ms=cuda_ms(lambda: ref.tree_hist_batched_ref(codes, y, cond, D)),
@@ -540,8 +665,8 @@ def device_breakdown(fn, top: int = 8, classify=None):
 def kernel_group(name: str) -> str:
     """The port's kernel a device kernel belongs to, by its namespace (the
     partial and combine passes together), or "other"."""
-    for prefix, group in (("seg_reduce::", "seg_aggregate"), ("xtx::", "covar_xtx"),
-                          ("scan_reduce::", "scan_reduce (fused_scan_block, tree_hist*)")):
+    for prefix, group in (("seg_reduce::", "seg_reduce (fused_scan_block, seg_aggregate, tree_hist*)"),
+                          ("xtx::", "covar_xtx")):
         if name.startswith(prefix) or f" {prefix}" in name:
             return group
     return "other"
@@ -1804,7 +1929,10 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]})
+            "library_ms": main_case["library_ms"],
+            "case": main_case["case"],
+            "cases": [{k: c[k] for k in ("case", "ms", "bound_ms", "plain_ms", "library_ms")}
+                      for c in cases]})
     print(json.dumps({"kernels": summary}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card_line, flush=True)

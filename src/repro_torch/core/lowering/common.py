@@ -153,6 +153,31 @@ def col_payload(cp: ColProgram, cols: Cols,
     return out
 
 
+def view_columns(vp: ViewProgram, cols: Cols,
+                 gathered: Mapping[int, torch.Tensor], params: Params,
+                 valid: torch.Tensor, n_rows: int,
+                 n_nodes: Optional[int] = None):
+    """``(columns, shape)``: per aggregate of view vp, its (B,
+    *pulled_dims) contributions of a row block — (N, B, *pulled_dims) for
+    batched views, the ``shape`` — as an ``expand`` view where it
+    broadcasts (never written in place), or ``None`` for a column with no
+    products (zeros)."""
+    target = (n_rows,) + vp.pulled_dims
+    if vp.batched:
+        if n_nodes is None:
+            raise ValueError(f"view {vp.vid} is batched but n_nodes is unset")
+        target = (n_nodes,) + target
+    out = []
+    for cp in vp.cols:
+        if cp.products:
+            c = (col_payload(cp, cols, gathered, params, n_rows, valid.device)
+                 * reshape_axes(valid, vp.pulled))
+            out.append(c.expand(target))
+        else:
+            out.append(None)
+    return out, target
+
+
 def view_payload(vp: ViewProgram, cols: Cols,
                  gathered: Mapping[int, torch.Tensor], params: Params,
                  valid: torch.Tensor, n_rows: int,
@@ -160,20 +185,10 @@ def view_payload(vp: ViewProgram, cols: Cols,
     """(B, *pulled_dims, n_aggs) contributions of a row block to view vp —
     (N, B, *pulled_dims, n_aggs) for batched views.  Columns with no
     products contribute zeros."""
-    target = (n_rows,) + vp.pulled_dims
-    if vp.batched:
-        if n_nodes is None:
-            raise ValueError(f"view {vp.vid} is batched but n_nodes is unset")
-        target = (n_nodes,) + target
-    out_cols = []
-    for cp in vp.cols:
-        if cp.products:
-            c = (col_payload(cp, cols, gathered, params, n_rows, valid.device)
-                 * reshape_axes(valid, vp.pulled))
-        else:
-            c = valid.new_zeros(target)
-        out_cols.append(c.expand(target))
-    return torch.stack(out_cols, dim=-1)
+    out_cols, target = view_columns(vp, cols, gathered, params, valid,
+                                    n_rows, n_nodes)
+    return torch.stack([valid.new_zeros(target) if c is None else c
+                        for c in out_cols], dim=-1)
 
 
 def finalize(vp: ViewProgram, acc: torch.Tensor) -> torch.Tensor:

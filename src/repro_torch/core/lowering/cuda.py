@@ -7,13 +7,18 @@ payloads of every view of the step with torch, and reduces them on the card.
 
 Launch fusion (``PlanConfig.fuse_kernels``, default): the union of a step's
 reductions — every local group-by bucket and every histogram-pattern view —
-goes to ONE ``fused_scan_block`` launch per row block, packed exactly as the
-reference packs it (bucket specs first, then hist specs; one ``[1, y, y²]``
-triple per distinct y attribute, shared by the hist views on it).  The
-unfused path launches one ``seg_aggregate`` per bucket and one
-``tree_hist`` per hist view (``tree_hist_batched`` for a batched one).  On
-CPU tensors the kernel wrappers run their plain versions, which keeps this
-backend testable everywhere.
+goes to ONE ``fused_scan_block`` launch per row block, in the reference's
+order (buckets, then hist views), each reduction's codes and payload read
+where they lie (``ops.fused_scan_parts``): a bucket's parts are its views'
+aggregate columns (a batched view's, node by node), a hist view's its cond mask (the (N, B) node masks read
+transposed) and its y column, ``[1, y, y²]`` formed in the kernel.  Nothing
+is stacked or concatenated for the launch.  :func:`fused_layout` gives the
+reference's packing of the same launch, which the kernel also takes.  The
+unfused path launches one ``seg_aggregate`` per bucket (its views'
+payloads concatenated) and one ``tree_hist`` per hist view
+(``tree_hist_batched`` for a batched one).  On CPU tensors the kernel
+wrappers run their plain versions, which keeps this backend testable
+everywhere.
 
 Param-batch (node) axis: batched views fold the ``N`` nodes into the
 kernels' column axis — bucket columns are ``[node, pulled…, agg]`` and
@@ -23,6 +28,7 @@ whole frontier.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -139,27 +145,49 @@ class CudaBackend:
                 return common.segment_ids(blk_cols, vps[0].seg).to(torch.int32)
             return torch.zeros((B,), dtype=torch.int32, device=device)
 
+        def bucket_parts(vps, blk_cols, gathered, valid):
+            """A bucket's payload as it lies, and its width: one part per
+            aggregate column of a view (per node of a batched one), its
+            pulled values at a stride of the view's aggregates.  A column
+            with no products is no part."""
+            parts, o = [], 0
+            for vp in vps:
+                cols, _ = common.view_columns(vp, blk_cols, gathered, params,
+                                              valid, B, n_nodes)
+                pulled = math.prod(vp.pulled_dims)
+                for a, c in enumerate(cols):
+                    if c is None:
+                        continue
+                    for node, col in enumerate(c if vp.batched else [c]):
+                        parts.append(ops.Part(
+                            col if col.dim() <= 2 else col.reshape(B, -1),
+                            o + node * pulled * vp.n_aggs + a, vp.n_aggs))
+                o += flat_width(vp, n_nodes)
+            if not parts:   # every column zero: one expanded zero column
+                parts.append(ops.Part(valid.new_zeros(1).expand(B), 0))
+            return tuple(parts), o
+
         if config.fuse_kernels and (hist_views or buckets):
-            specs, yk_offs = fused_layout(prog, n_nodes)
-            accs = [torch.zeros((sp.n_segments, sp.width), dtype=torch.float32,
-                                device=device) for sp in specs]
+            accs = None
             for blk_cols, gathered, valid in blocks():
-                code_cols, pay_cols = [], []
+                reds = []
                 for key, vps in buckets:
-                    code_cols.append(bucket_codes(key, vps, blk_cols))
-                    pay_cols.append(bucket_payload(vps, blk_cols, gathered,
-                                                   valid))
+                    parts, width = bucket_parts(vps, blk_cols, gathered, valid)
+                    reds.append(ops.Parts(
+                        "seg", bucket_codes(key, vps, blk_cols), parts,
+                        vps[0].seg.n_segments if key else 1, width))
                 for vp in hist_views:
-                    code_cols.append(blk_cols[vp.hist.code_attr].to(torch.int32))
-                    pay_cols.append(hist_cond(vp, blk_cols, gathered, valid))
-                for ya in yk_offs:
-                    y = blk_cols[ya].to(torch.float32)
-                    pay_cols.append(torch.stack([torch.ones_like(y), y, y * y],
-                                                dim=1))
-                outs = ops.fused_scan_block(torch.stack(code_cols, dim=1),
-                                            torch.cat(pay_cols, dim=1), specs)
-                for acc, out in zip(accs, outs):
-                    acc += out
+                    reds.append(ops.Parts(
+                        "hist", blk_cols[vp.hist.code_attr].to(torch.int32),
+                        (hist_cond(vp, blk_cols, gathered, valid),
+                         blk_cols[vp.hist.y_attr].to(torch.float32)),
+                        vp.hist.n_buckets))
+                outs = ops.fused_scan_parts(reds)
+                if accs is None:
+                    accs = list(outs)
+                else:
+                    for acc, out in zip(accs, outs):
+                        acc += out
             bucket_accs = accs[:len(buckets)]
             hist_accs = []
             for vp, acc in zip(hist_views, accs[len(buckets):]):

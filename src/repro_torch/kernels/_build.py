@@ -110,31 +110,27 @@ def library() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    tail = [P, I, I, I64, I, P, P, P]   # items .. stream
-    lib.fused_scan_block.argtypes = [P, I64, I64, P, I64] + tail
-    bind_seg_aggregate(lib)
-    lib.tree_hist.argtypes = [P, P, P, I64] + tail
-    lib.tree_hist_batched.argtypes = [P, P, P, I64, I64] + tail
+    bind_seg_reduce(lib)
     bind_covar_xtx(lib)
     # q, k, v, o, the 12 strides, bf16?, B, H, H_kv, S_q, S_k, D, causal,
     # window, stream
     lib.flash_attention.argtypes = [P, P, P, P, ctypes.POINTER(I64), I, I, I,
                                     I, I64, I64, I, I, I64, P]
-    for fn in (lib.fused_scan_block, lib.tree_hist, lib.tree_hist_batched,
-               lib.flash_attention):
-        fn.restype = ctypes.c_int
+    lib.flash_attention.restype = ctypes.c_int
     return lib
 
 
-def bind_seg_aggregate(lib: ctypes.CDLL) -> None:
+def bind_seg_reduce(lib: ctypes.CDLL) -> None:
+    """The four scan entry points of ``seg_reduce.cuh``, each (items, srcs,
+    n, grid, n_grids, combine_blocks, scratch, out, stream), and its
+    occupancy query."""
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    # seg, n, payload, width, items, mode, n_items, n_chunks, chunk_rows,
-    # part_stride, stage_rows, max_size, smem, scratch, out, stream
-    lib.seg_aggregate.argtypes = [P, I64, P, I64, P, I, I, I, I64, I, I,
-                                  I64, I, P, P, P]
-    lib.seg_aggregate_blocks_per_sm.argtypes = [I, I]
-    for fn in (lib.seg_aggregate, lib.seg_aggregate_blocks_per_sm):
+    for fn in (lib.seg_aggregate, lib.fused_scan_block, lib.tree_hist,
+               lib.tree_hist_batched):
+        fn.argtypes = [P, P, I64, ctypes.POINTER(I), I, I64, P, P, P]
         fn.restype = I
+    lib.seg_reduce_blocks_per_sm.argtypes = [I, I]
+    lib.seg_reduce_blocks_per_sm.restype = I
 
 
 def bind_covar_xtx(lib: ctypes.CDLL) -> None:

@@ -9,26 +9,25 @@
 //
 // Bound on the H100: HBM bytes, 4 per id and per payload float, read once.
 // The design that comes near it (a block a segment range, each payload row
-// read once by the block whose range holds its code) is seg_reduce.cuh's.
+// read once by the block whose range holds its code) is seg_reduce.cuh's:
+// this is its launch of one reduction with one payload part.
 
 #include "seg_reduce.cuh"
 
-// Blocks with `smem_bytes` of shared memory each that one SM holds at once:
-// 0 when the shape does not schedule, -1 on error.  mode 0: the whole
-// accumulator in one block; 1: segment ranges.
-extern "C" int seg_aggregate_blocks_per_sm(int mode, int smem_bytes) {
-  return seg_reduce::blocks_per_sm(mode, smem_bytes);
+// Blocks with `smem_bytes` of shared memory each that one SM holds at once
+// of a partial kernel (0 one-block SEG, 1 segment-range SEG, 2 one-block
+// HIST, 3 segment-range HIST): 0 when the shape does not schedule, -1 on
+// error.  Every entry point of the scan kernels launches the same partial
+// kernels.
+extern "C" int seg_reduce_blocks_per_sm(int kernel, int smem_bytes) {
+  return seg_reduce::blocks_per_sm(kernel, smem_bytes);
 }
 
-// items: (n_items, N_FIELDS) int64 on the device; scratch: n_items *
-// n_chunks * part_stride floats; out: (S, width).
-extern "C" int seg_aggregate(const int* seg, int64_t n, const float* payload,
-                             int64_t width, const int64_t* items, int mode,
-                             int n_items, int n_chunks, int64_t chunk_rows,
-                             int part_stride, int stage_rows, int64_t max_size,
-                             int smem_bytes, float* scratch, float* out, void* stream) {
-  seg_reduce::Params p{seg, payload, n, width, items, scratch, chunk_rows,
-                       part_stride, stage_rows};
-  return (int)seg_reduce::launch(p, mode, n_items, n_chunks, smem_bytes, max_size, out,
-                                 (cudaStream_t)stream);
+// items, srcs: the launch's work items and sources on the device (see
+// seg_reduce.cuh); grid: n_grids (kernel, items, chunks, shared memory);
+// scratch: the chunks' partials; out: (S, width).
+extern "C" int seg_aggregate(const int64_t* items, const int64_t* srcs, int64_t n,
+                             const int* grid, int n_grids, int64_t combine_blocks,
+                             float* scratch, float* out, void* stream) {
+  return seg_reduce::run(items, srcs, n, grid, n_grids, combine_blocks, scratch, out, stream);
 }

@@ -8,24 +8,21 @@
 //
 // Bound on the H100: HBM bytes, n * (8 + 4N) (a code, a y and N cond floats
 // per row, each read once) against 2 * 3N flops per row; the payload is
-// never written.  The design: the MAT_HIST kind of scan_reduce.cuh.  The
-// payload cond[r, c / 3] * [1, y, y^2][c % 3] is formed in registers, one
-// thread per output column, so neighbouring threads read neighbouring cond
-// floats of a row; the (D, 3N) accumulator lives in shared memory (at D =
-// 480, N = 16: 92 KB, one column tile) and takes one shared-memory atomic
-// add per payload element.  Codes outside [0, D) contribute nowhere.  The
-// wrapper returns (N, D, 3).  Tolerance: see scan_reduce.cuh.
+// never written.  The design: a HIST reduction of seg_reduce.cuh.  Where
+// the (D, 3N) accumulator fits one block (D = 480, N = 16: 92 KB, two
+// blocks an SM), each thread loads a few rows' codes, ys and the conds of
+// its node straight from global memory, forms the three values in
+// registers and adds them with the shared-memory atomicAdd, zeros too (as
+// the reference, so a non-finite y reads the same in every mode); those
+// adds run at the SM's atomic rate.  A wider accumulator (N =
+// 200) is cut into segment ranges.  Codes outside [0, D) contribute
+// nowhere.  The kernel writes (N, D, 3) itself.  Tolerance: see
+// seg_reduce.cuh.
 
-#include "scan_reduce.cuh"
+#include "seg_reduce.cuh"
 
-extern "C" int tree_hist_batched(const int* codes, const float* y,
-                                 const float* cond, int64_t n, int64_t n_cond,
-                                 const int64_t* items, int n_items,
-                                 int n_chunks, int64_t max_size,
-                                 int smem_bytes, float* scratch, float* out,
-                                 void* stream) {
-  scan_reduce::Inputs in{codes, 1, nullptr, 0, y, cond, n_cond, n};
-  return (int)scan_reduce::launch(in, items, n_items, n_chunks, max_size,
-                                  smem_bytes, scratch, out,
-                                  (cudaStream_t)stream);
+extern "C" int tree_hist_batched(const int64_t* items, const int64_t* srcs, int64_t n,
+                                 const int* grid, int n_grids, int64_t combine_blocks,
+                                 float* scratch, float* out, void* stream) {
+  return seg_reduce::run(items, srcs, n, grid, n_grids, combine_blocks, scratch, out, stream);
 }

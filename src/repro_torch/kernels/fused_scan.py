@@ -2,51 +2,34 @@
 launch; the port of ``fused_scan_block_pallas``
 (``repro/kernels/fused_scan.py:168``).
 
-Inputs are packed by the lowering backend exactly as for the TPU kernel:
+Two forms, one device entry point (``csrc/fused_scan.cu`` over
+``csrc/seg_reduce.cuh``):
 
-  * ``codes`` (n, C) int32 — one column per reduction: the flattened
-    segment id (bucket reductions) or the histogram bucket code;
-  * ``fpay`` (n, W) float32 — all float payloads concatenated: bucket view
-    payloads, hist cond masks and the shared ``[1, y, y²]`` triples.
+  * the reference's packed form, :func:`fused_scan_block_cuda`: ``codes``
+    (n, C) int32 with one column per reduction, and ``fpay`` (n, W) float32
+    holding every payload, cond mask and ``[1, y, y²]`` triple, sliced by
+    :class:`ReduceSpec`\\ s.  Its sources point into the two matrices;
+  * the parts form, :func:`fused_scan_parts_cuda`: per reduction a
+    :class:`Parts`, its codes and payload parts as they lie (strided
+    views, transposed masks, expanded columns), which the lowering passes
+    so that it stacks nothing.
 
-Each :class:`ReduceSpec` says which slice belongs to which reduction.  The
-device code (``csrc/scan_reduce.cuh``) splits every reduction into column
-tiles that fit shared memory, and a reduction over more segments than one
-shared-memory column holds into segment ranges; :func:`launch_plan` lays
-those work items out and this module's launch function runs them.  Codes outside
-``[0, n_segments)`` contribute nothing, so the last, ragged row block needs
-no padding rows.
+The host geometry is ``seg_aggregate.py``'s (:func:`launch_plan`): each
+reduction's accumulator in one block where it fits, else cut into segment
+ranges.  Codes outside ``[0, n_segments)`` contribute nothing, so the
+last, ragged row block needs no padding rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-#: shared memory a block may use on sm_90 (227 KB, opt-in above 48 KB)
-SMEM_BYTES = 232448
-#: threads per block of the partial pass (``kThreads`` in scan_reduce.cuh)
-THREADS = 1024
-#: rows per chunk where the partial tiles are cheap enough: chunks bound
-#: how many rows add into one shared-memory word in sequence
-CHUNK_ROWS = 4096
-#: partial-tile floats (8 MB) an item may write before it gets fewer,
-#: longer chunks: a narrow, skewed accumulator such as the fact step's
-#: (480 × 20) sku view gets its 4096-row chunks for a few MB of scratch
-SCRATCH_FLOATS = 1 << 21
-#: fewest rows per chunk.  A short scan gets about two blocks per SM down
-#: to chunks this short: the covar plan's last, 4,960-row Weather step runs
-#: in 38 chunks of 131 rows instead of 2 of 2,480, which spreads it over the
-#: card and keeps its fact-row counts per chunk (about 2.2M at 84M fact
-#: rows) below 2^24, where float32 adds of integers are exact
-MIN_CHUNK_ROWS = 32
-KIND_CODES = {"seg": 0, "hist": 1, "vec_hist": 2, "mat_hist": 3}
-N_FIELDS = 13
-#: most segments one column of a block's shared-memory tile holds
-MAX_TILE_SEGMENTS = SMEM_BYTES // 4
+from repro_torch.kernels.seg_aggregate import (Shape, check_tensor,
+                                               launch_plan, run, source)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,118 +54,158 @@ class ReduceSpec:
             assert self.width == self.n_cond * 3, (self.width, self.n_cond)
 
 
-@dataclasses.dataclass(frozen=True)
-class LaunchPlan:
-    """Work items and buffer sizes of one launch (see scan_reduce.cuh)."""
+class Part(NamedTuple):
+    """A payload part of a "seg" :class:`Parts`: ``values`` (n,) or (n, w)
+    float32, any strides (0 for an expanded axis), whose element ``i`` of a
+    row goes to output column ``ocol + i * ostride``."""
 
-    items: torch.Tensor          # (n_items, N_FIELDS) int64 on the device
-    n_items: int
-    n_chunks: int                # the most chunks of any item (grid y)
-    max_size: int                # largest S_r * tile over the items
-    smem_bytes: int
-    scratch_numel: int
-    outputs: Tuple[Tuple[int, int, int], ...]   # (offset, S_r, width_r)
+    values: torch.Tensor
+    ocol: int
+    ostride: int = 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Parts:
+    """One reduction of the parts form.  ``kind`` "seg": ``parts`` are
+    :class:`Part`\\ s, summed into ``width`` output columns (a column no
+    part names reads 0); "hist": ``parts = (cond, y)``, cond (n, N) and y
+    (n,) (``[1, y, y²]`` formed on chip) or (n, 3), output ``3 N``
+    columns ``[node j, stat k]``.  ``codes`` (n,) int32 keys the rows into
+    ``n_segments``; every tensor lies on one device, with any strides."""
+
+    kind: str
+    codes: torch.Tensor
+    parts: Tuple
+    n_segments: int
+    width: Optional[int] = None
 
     @property
-    def out_numel(self) -> int:
-        off, s, w = self.outputs[-1]
-        return off + s * w
+    def out_width(self) -> int:
+        if self.kind == "hist":
+            return 3 * self.parts[0].shape[1]
+        if self.width is not None:
+            return self.width
+        return max(p.ocol + (_cols(p.values) - 1) * p.ostride + 1
+                   for p in self.parts)
 
 
-def segment_ranges(n_segments: int):
-    """``(first segment, segments)`` ranges of one reduction, of about equal
-    size, each small enough that one of its columns fits a block's shared
-    memory.  A reduction over more segments (a single-root batch may group
-    a view by a product of domains) is cut into ranges, and each range
-    re-reads the rows, skipping the codes outside it."""
-    k = max(1, -(-n_segments // MAX_TILE_SEGMENTS))
-    per = -(-n_segments // k)
-    return [(s0, min(per, n_segments - s0)) for s0 in range(0, n_segments, per)]
+def _cols(t: torch.Tensor) -> int:
+    return t.shape[1] if t.dim() == 2 else 1
 
 
-def column_tiles(n_segments: int, width: int):
-    """``(first column, columns)`` tiles of one reduction, each sized so
-    that its ``n_segments × columns`` float32 accumulator fits a block's
-    shared memory.  Raises when not even one column fits."""
-    fit = SMEM_BYTES // (4 * n_segments)
-    if fit < 1:
-        raise ValueError(
-            f"a reduction over {n_segments} segments does not fit the "
-            f"{SMEM_BYTES}-byte shared-memory tile of one block (at most "
-            f"{SMEM_BYTES // 4} segments)")
-    tile = min(width, fit, THREADS)
-    return [(c0, min(tile, width - c0)) for c0 in range(0, width, tile)]
+def _check_part(name: str, t: torch.Tensor, dtype, n: int,
+                device: torch.device) -> None:
+    """A (n,) or (n, w) tensor of ``dtype`` on ``device``, w > 0, with no
+    negative stride (one test on the launch's path, the message after)."""
+    if (t.device == device and t.dtype == dtype and 1 <= t.dim() <= 2
+            and t.shape[0] == n and t.numel() > 0 and min(t.stride()) >= 0):
+        return
+    raise ValueError(f"{name}: expected a ({n},) or ({n}, w > 0) {dtype} "
+                     f"tensor on {device} with no negative stride, got "
+                     f"{tuple(t.shape)} {t.dtype} on {t.device}, strides "
+                     f"{t.stride()}")
+
+
+@functools.lru_cache(maxsize=1024)
+def disjoint_columns(width: int, cols: Tuple[Tuple[int, int, int], ...]) -> bool:
+    """Whether parts at ``(ocol, ostride, columns)`` name each of ``width``
+    output columns at most once (checked once per layout of a launch)."""
+    seen = bytearray(width)
+    for ocol, ostride, w in cols:
+        for c in range(ocol, ocol + w * ostride, ostride):
+            if seen[c]:
+                return False
+            seen[c] = 1
+    return True
+
+
+def fused_scan_parts_cuda(reds: Sequence[Parts], lib=None):
+    """Launch the fused kernel over reductions given as :class:`Parts`;
+    returns one ``(n_segments, width)`` tensor each.  ``lib``: a kernel
+    library other than the package's (``tools/scan_ablation.py``)."""
+    from repro_torch.kernels._build import library
+
+    device, f32 = reds[0].codes.device, torch.float32
+    n = reds[0].codes.shape[0]
+    if n == 0:
+        raise ValueError("fused_scan_parts needs at least one row")
+    shapes, sources, zero = [], [], False
+    for i, red in enumerate(reds):
+        _check_part(f"reduction {i} codes", red.codes, torch.int32, n, device)
+        if red.codes.dim() != 1:
+            raise ValueError(f"reduction {i}: codes must be (n,)")
+        sources.append(source(red.codes))
+        if red.kind == "hist":
+            cond, y = red.parts
+            _check_part(f"reduction {i} cond", cond, torch.float32, n, device)
+            _check_part(f"reduction {i} y", y, torch.float32, n, device)
+            if cond.dim() != 2 or _cols(y) not in (1, 3):
+                raise ValueError(f"reduction {i}: hist takes a (n, N) cond "
+                                 "and a (n,) y or (n, 3) yk")
+            n_cond = cond.shape[1]
+            sources += [source(cond, ocol=3 * n_cond, ostride=3),
+                        source(y, col0=n_cond)]
+            shapes.append(Shape("hist", red.n_segments, (n_cond, _cols(y)),
+                                3 * n_cond))
+            continue
+        if red.kind != "seg" or not red.parts:
+            raise ValueError(f"reduction {i}: a seg reduction needs parts")
+        # one pass a part, the checks in one test: a launch may name
+        # hundreds of parts (polyreg's 540 aggregate columns)
+        width, col, widths = red.out_width, 0, []
+        for t, ocol, ostride in red.parts:
+            shape, st = t.shape, t.stride()
+            w = shape[1] if len(shape) == 2 else 1
+            if not (t.dtype is f32 and t.device == device and 1 <= len(shape) <= 2
+                    and shape[0] == n and w > 0 and min(st) >= 0 and ocol >= 0
+                    and ostride > 0 and ocol + (w - 1) * ostride < width):
+                _check_part(f"reduction {i} part {len(widths)}", t, f32, n, device)
+                raise ValueError(f"reduction {i} part {len(widths)}: output "
+                                 f"columns {ocol}+{ostride}·i, i < {w}, "
+                                 f"outside {width}")
+            sources.append((t.data_ptr(), st[0], st[1] if len(shape) == 2 else 0,
+                            col, w, ocol, ostride))
+            widths.append((ocol, ostride, w))
+            col += w
+        if not disjoint_columns(width, tuple(widths)):
+            raise ValueError(f"reduction {i}: two parts name one output column")
+        zero |= col < width
+        shapes.append(Shape("seg", red.n_segments, tuple(w for *_, w in widths), width))
+    lib = library() if lib is None else lib
+    plan = launch_plan(n, tuple(shapes), device, lib)
+    return run(lib.fused_scan_block, plan, sources, n, device, zero=zero)
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(specs: Tuple[ReduceSpec, ...], kinds: Tuple[str, ...],
-                n: int, device: torch.device) -> LaunchPlan:
-    """Lay out the work items of ``specs`` for ``n`` rows.  Cached: the
-    items tensor is copied to the device once per (specs, n)."""
-    rows, outputs, off = [], [], 0
-    for sp, kind in zip(specs, kinds):
-        for s0, ns in segment_ranges(sp.n_segments):
-            for c0, t in column_tiles(ns, sp.width):
-                rows.append([KIND_CODES[kind], sp.code_col, ns, sp.width,
-                             sp.pay_off, sp.yk_off, c0, t, off, 0, 0, 0, s0])
-        outputs.append((off, sp.n_segments, sp.width))
-        off += sp.n_segments * sp.width
-    # chunks per item: one per CHUNK_ROWS rows while its partial tiles stay
-    # under SCRATCH_FLOATS, but no fewer than it takes to give the grid
-    # about two blocks per SM, down to MIN_CHUNK_ROWS rows; no empty chunk
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    base = -(-2 * sms // len(rows))
-    scratch = 0
-    for r in rows:
-        size = r[2] * r[7]
-        want = max(base, min(-(-n // CHUNK_ROWS), SCRATCH_FLOATS // size))
-        chunks = max(1, min(-(-n // MIN_CHUNK_ROWS), want))
-        chunk_rows = -(-n // chunks)
-        r[9], r[10], r[11] = scratch, -(-n // chunk_rows), chunk_rows
-        scratch += r[10] * size
-    max_size = max(r[2] * r[7] for r in rows)
-    return LaunchPlan(
-        items=torch.tensor(rows, dtype=torch.int64, device=device),
-        n_items=len(rows), n_chunks=max(r[10] for r in rows),
-        max_size=max_size, smem_bytes=4 * max_size, scratch_numel=scratch,
-        outputs=tuple(outputs))
-
-
-def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-                 device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name}: expected a {ndim}-d {dtype} tensor, got "
-                         f"{t.dim()}-d {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def run(entry, args: Sequence[int], plan: LaunchPlan, n: int,
-        device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """Allocate scratch and output, launch ``entry`` of the kernel library
-    on the current stream, and split the output per reduction."""
-    out = torch.empty(plan.out_numel, dtype=torch.float32, device=device)
-    scratch = torch.empty(plan.scratch_numel, dtype=torch.float32,
-                          device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = entry(*args, plan.items.data_ptr(), plan.n_items,
-                    plan.n_chunks, plan.max_size, plan.smem_bytes,
-                    scratch.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{entry.__name__} launch failed with CUDA error "
-                           f"{err} (n={n}, items={plan.n_items}, "
-                           f"smem={plan.smem_bytes} B)")
-    return tuple(out[o:o + s * w].view(s, w) for o, s, w in plan.outputs)
+def _packed(specs: Tuple[ReduceSpec, ...], n_codes: int, width: int):
+    """The packed form's shapes, and its sources as (matrix, first element,
+    row stride, column stride, first accumulator column, width, first output
+    column, output column stride): matrix 0 the codes, 1 the payload."""
+    shapes, rows = [], []
+    for sp in specs:
+        end = (sp.pay_off + sp.width if sp.kind == "seg"
+               else max(sp.pay_off + sp.n_cond, sp.yk_off + 3))
+        if not (0 <= sp.code_col < n_codes and sp.pay_off >= 0
+                and end <= width):
+            raise ValueError(f"{sp} does not fit codes (n, {n_codes}) / "
+                             f"fpay (n, {width})")
+        rows.append((0, sp.code_col, n_codes, 0, 0, 1, 0, 1))
+        if sp.kind == "seg":
+            rows.append((1, sp.pay_off, width, 1, 0, sp.width, 0, 1))
+            shapes.append(Shape("seg", sp.n_segments, (sp.width,), sp.width))
+        else:
+            rows += [(1, sp.pay_off, width, 1, 0, sp.n_cond, 3 * sp.n_cond, 3),
+                     (1, sp.yk_off, width, 1, sp.n_cond, 3, 0, 1)]
+            shapes.append(Shape("hist", sp.n_segments, (sp.n_cond, 3), sp.width))
+    return tuple(shapes), tuple(rows)
 
 
 def fused_scan_block_cuda(codes: torch.Tensor, fpay: torch.Tensor,
-                          specs: Tuple[ReduceSpec, ...]):
-    """Launch the fused kernel; returns one ``(n_segments, width)`` tensor
-    per spec.  ``codes`` (n, C) int32 and ``fpay`` (n, W) float32, both
-    contiguous on one CUDA device."""
+                          specs: Tuple[ReduceSpec, ...], lib=None):
+    """Launch the fused kernel on the reference's packed inputs; returns one
+    ``(n_segments, width)`` tensor per spec.  ``codes`` (n, C) int32 and
+    ``fpay`` (n, W) float32, both contiguous on one CUDA device: the
+    sources point into the two matrices at the specs' offsets."""
     from repro_torch.kernels._build import library
 
     device = codes.device
@@ -192,15 +215,9 @@ def fused_scan_block_cuda(codes: torch.Tensor, fpay: torch.Tensor,
     if fpay.shape[0] != n or n == 0:
         raise ValueError(f"codes {tuple(codes.shape)} and fpay "
                          f"{tuple(fpay.shape)} need the same, non-zero rows")
-    width = fpay.shape[1]
-    for sp in specs:
-        end = (sp.pay_off + sp.width if sp.kind == "seg"
-               else max(sp.pay_off + sp.n_cond, sp.yk_off + 3))
-        if not (0 <= sp.code_col < n_codes and sp.pay_off >= 0
-                and end <= width):
-            raise ValueError(f"{sp} does not fit codes {tuple(codes.shape)} "
-                             f"/ fpay {tuple(fpay.shape)}")
-    plan = launch_plan(specs, tuple(sp.kind for sp in specs), n, device)
-    return run(library().fused_scan_block,
-               [codes.data_ptr(), n, n_codes, fpay.data_ptr(), width],
-               plan, n, device)
+    shapes, rows = _packed(tuple(specs), n_codes, fpay.shape[1])
+    base = (codes.data_ptr(), fpay.data_ptr())
+    sources = [(base[m] + 4 * off, *rest) for m, off, *rest in rows]
+    lib = library() if lib is None else lib
+    plan = launch_plan(n, shapes, device, lib)
+    return run(lib.fused_scan_block, plan, sources, n, device)

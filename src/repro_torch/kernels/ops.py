@@ -17,14 +17,16 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.covar_xtx import covar_xtx_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.fused_scan import ReduceSpec, fused_scan_block_cuda
+from repro_torch.kernels.fused_scan import (Part, Parts, ReduceSpec,
+                                            fused_scan_block_cuda,
+                                            fused_scan_parts_cuda)
 from repro_torch.kernels.seg_aggregate import seg_aggregate_cuda
 from repro_torch.kernels.tree_hist import (tree_hist_batched_cuda,
                                            tree_hist_cuda)
 
-__all__ = ["LAUNCHES", "ReduceSpec", "covar_xtx", "flash_attention",
-           "fused_scan_block", "reset_launches", "seg_aggregate", "tree_hist",
-           "tree_hist_batched"]
+__all__ = ["LAUNCHES", "Part", "Parts", "ReduceSpec", "covar_xtx",
+           "flash_attention", "fused_scan_block", "fused_scan_parts",
+           "reset_launches", "seg_aggregate", "tree_hist", "tree_hist_batched"]
 
 LAUNCHES: Dict[str, int] = {"covar_xtx": 0, "flash_attention": 0,
                             "fused_scan_block": 0, "seg_aggregate": 0,
@@ -69,6 +71,18 @@ def fused_scan_block(codes: torch.Tensor, fpay: torch.Tensor,
     if not _on_cuda(codes):
         return ref.fused_scan_block_ref(codes, fpay, specs)
     out = fused_scan_block_cuda(codes, fpay, specs)
+    LAUNCHES["fused_scan_block"] += 1
+    return out
+
+
+def fused_scan_parts(reds: Sequence[Parts]):
+    """The same launch over reductions given as :class:`Parts`: each its
+    codes and payload parts where they lie.  Counted as a
+    ``fused_scan_block`` launch."""
+    reds = tuple(reds)
+    if not _on_cuda(reds[0].codes):
+        return ref.fused_scan_parts_ref(reds)
+    out = fused_scan_parts_cuda(reds)
     LAUNCHES["fused_scan_block"] += 1
     return out
 

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.fused_scan import disjoint_columns
+
 
 def covar_xtx_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nf,n,ng->fg", x.to(torch.float32),
@@ -55,6 +57,35 @@ def fused_scan_block_ref(codes: torch.Tensor, fpay: torch.Tensor, specs):
             pay = (cond[:, :, None] * yk[:, None, :]).reshape(
                 codes.shape[0], sp.n_cond * 3)
         outs.append(seg_aggregate_ref(code, pay, sp.n_segments))
+    return tuple(outs)
+
+
+def fused_scan_parts_ref(reds):
+    """Each reduction of the parts form (``fused_scan.Parts``) as a seg-sum:
+    a "seg" payload is its parts placed at their output columns (a column no
+    part names is 0); a "hist" payload is cond⊗yk, yk formed from y."""
+    outs = []
+    for red in reds:
+        n = red.codes.shape[0]
+        if red.kind == "hist":
+            cond, y = red.parts
+            yk = (y if y.dim() == 2
+                  else torch.stack([torch.ones_like(y), y, y * y], dim=1))
+            pay = (cond[:, :, None] * yk[:, None, :]).reshape(
+                n, 3 * cond.shape[1])
+        else:
+            pay = torch.zeros((n, red.out_width), dtype=torch.float32,
+                              device=red.codes.device)
+            if not disjoint_columns(red.out_width, tuple(
+                    (p.ocol, p.ostride, p.values.reshape(n, -1).shape[1])
+                    for p in red.parts)):
+                raise ValueError("two parts name one output column")
+            for part in red.parts:
+                v = part.values.reshape(n, -1)
+                cols = part.ocol + part.ostride * torch.arange(
+                    v.shape[1], device=v.device)
+                pay[:, cols] = v.to(torch.float32)
+        outs.append(seg_aggregate_ref(red.codes, pay, red.n_segments))
     return tuple(outs)
 
 

@@ -4,10 +4,10 @@ node masks at once; the ports of ``tree_hist_pallas`` and
 ``tree_hist_batched_pallas`` (``repro/kernels/tree_hist.py:51`` and
 ``:99``).
 
-The payload ``cond ⊗ [1, y, y²]`` is formed in registers from ``y`` and
-``cond`` (the ``vec_hist`` and ``mat_hist`` kinds of
-``csrc/scan_reduce.cuh``, entry points ``csrc/tree_hist.cu`` and
-``csrc/tree_hist_batched.cu``) and never written to device memory.  Codes
+Both are one HIST reduction of ``csrc/seg_reduce.cuh`` (entry points
+``csrc/tree_hist.cu`` and ``csrc/tree_hist_batched.cu``): the payload
+``cond ⊗ [1, y, y²]`` is formed in registers from ``y`` and ``cond`` and
+never written to device memory; ``tree_hist`` is the one-node case.  Codes
 outside ``[0, n_buckets)`` contribute nowhere.
 """
 
@@ -15,8 +15,23 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_scan import (ReduceSpec, check_tensor,
-                                            launch_plan, run)
+from repro_torch.kernels.seg_aggregate import (Shape, check_tensor,
+                                               launch_plan, run, source)
+
+
+def _hist(entry, codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
+          n_buckets: int, lib=None) -> torch.Tensor:
+    """One HIST launch over ``cond`` (n, N), or (n,) for one node; returns
+    (N, n_buckets, 3), the kernel writing each node's histogram whole.
+    ``lib``: the library of ``entry`` where it is not the package's."""
+    device, n = codes.device, cond.shape[0]
+    n_cond = cond.shape[1] if cond.dim() == 2 else 1
+    plan = launch_plan(n, (Shape("hist", n_buckets, (n_cond, 1), 3 * n_cond),),
+                       device, lib)
+    (out,) = run(entry, plan, [source(codes),
+                               source(cond, ocol=3, ostride=3 * n_buckets),
+                               source(y, col0=n_cond)], n, device)
+    return out.view(n_cond, n_buckets, 3)
 
 
 def tree_hist_cuda(codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
@@ -32,12 +47,7 @@ def tree_hist_cuda(codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
     n = codes.shape[0]
     if y.shape[0] != n or cond.shape[0] != n or n == 0:
         raise ValueError("codes, y and cond need the same, non-zero length")
-    spec = ReduceSpec("hist", 0, n_buckets, 3, 0, n_cond=1)
-    plan = launch_plan((spec,), ("vec_hist",), n, device)
-    (out,) = run(library().tree_hist,
-                 [codes.data_ptr(), y.data_ptr(), cond.data_ptr(), n],
-                 plan, n, device)
-    return out
+    return _hist(library().tree_hist, codes, y, cond, n_buckets).view(n_buckets, 3)
 
 
 def tree_hist_batched_cuda(codes: torch.Tensor, y: torch.Tensor,
@@ -55,10 +65,4 @@ def tree_hist_batched_cuda(codes: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"codes {tuple(codes.shape)}, y {tuple(y.shape)} and "
                          f"cond {tuple(cond.shape)} need the same, non-zero "
                          "rows and at least one cond column")
-    spec = ReduceSpec("hist", 0, n_buckets, 3 * n_cond, 0, n_cond=n_cond)
-    plan = launch_plan((spec,), ("mat_hist",), n, device)
-    (out,) = run(library().tree_hist_batched,
-                 [codes.data_ptr(), y.data_ptr(), cond.data_ptr(), n, n_cond],
-                 plan, n, device)
-    # columns are [node j, stat k]: (D, N·3) -> (N, D, 3)
-    return out.view(n_buckets, n_cond, 3).permute(1, 0, 2).contiguous()
+    return _hist(library().tree_hist_batched, codes, y, cond, n_buckets)

@@ -225,8 +225,9 @@ def test_seg_aggregate_fact_bucket_plan(cuda_device):
     runs in segment ranges, one wave of blocks of which the card holds at
     least one, and agrees with the plain version."""
     plan = kseg.seg_plan(1_000_003, 4960, 99, cuda_device)
-    assert plan.layout.mode == 1 and plan.wave_blocks >= 1
-    assert plan.n_chunks * plan.chunk_rows >= 1_000_003
+    (grid,) = plan.launch.grids
+    assert plan.launch.layouts[0].mode == 1 and grid.wave_blocks >= 1
+    assert grid.n_chunks * grid.chunk_rows >= 1_000_003
     rng = np.random.default_rng(3)
     seg = torch.from_numpy(rng.integers(-200, 5160, 1_000_003).astype(np.int32)).to(cuda_device)
     pay = torch.from_numpy(rng.normal(size=(1_000_003, 99)).astype(np.float32)).to(cuda_device)
@@ -286,6 +287,252 @@ def test_covar_xtx_check_sees_planted_faults(cuda_device):
     want, scale = ref.covar_xtx_ref(g, w), ref.covar_xtx_ref(g.abs(), w)
     assert _scaled_err(ops.covar_xtx(g, w), want, scale) <= 1e-4
     assert _scaled_err(ref.covar_xtx_ref(_tf32(g), w), want, scale) > 1e-4
+
+
+#: the fused launches of chip_smoke.py's kernel cases, packed as the covar
+#: plan packs them: (kind, segments, width, n_cond) a reduction
+PLAN_STEPS = {
+    "covar_fact": [("seg", 4960, 99, 0), ("seg", 40, 4, 0), ("seg", 480, 20, 0)],
+    "covar_items": [("seg", 4800, 1, 0), ("seg", 3840, 1, 0), ("seg", 12000, 1, 0),
+                    ("hist", 480, 3, 1)],
+    "tree_fact": [("seg", 4960, 48, 0), ("hist", 40, 48, 16), ("hist", 480, 48, 16)],
+}
+
+
+def _packed(rows, n, rng, skew=False):
+    """codes (n, C) up to 4% outside each domain on each side (with
+    ``skew``, a quarter of the rows on 124 segments of the first), and a
+    payload packed as the covar plan packs it: seg slices, then the hist
+    views' 0/1 conds, then one random yk triple they share."""
+    specs, codes, off = [], [], 0
+    n_hist = sum(k == "hist" for k, *_ in rows)
+    yk_off = sum(w for k, _, w, _ in rows if k == "seg") + sum(
+        nc for k, _, _, nc in rows if k == "hist")
+    for i, (kind, S, w, nc) in enumerate(rows):
+        spill = max(1, S // 25)
+        c = rng.integers(-spill, S + spill, n)
+        if skew and i == 0:
+            heavy = rng.random(n) < 0.25
+            c[heavy] = rng.integers(0, 124, int(heavy.sum())) * (S // 124)
+        codes.append(c)
+        if kind == "seg":
+            specs.append(ops.ReduceSpec("seg", i, S, w, off))
+            off += w
+        else:
+            specs.append(ops.ReduceSpec("hist", i, S, w, off, n_cond=nc,
+                                        yk_off=yk_off))
+            off += nc
+    fpay = rng.normal(size=(n, yk_off + 3 * (n_hist > 0))).astype(np.float32)
+    for sp in specs:
+        if sp.kind == "hist":
+            fpay[:, sp.pay_off:sp.pay_off + sp.n_cond] = (
+                fpay[:, sp.pay_off:sp.pay_off + sp.n_cond] > 0)
+    return (torch.from_numpy(np.stack(codes, 1).astype(np.int32)),
+            torch.from_numpy(fpay), tuple(specs))
+
+
+def _within(got, want, scale, tol=1e-4):
+    return all(_scaled_err(g, w, a) <= tol for g, w, a in zip(got, want, scale))
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("step", sorted(PLAN_STEPS))
+def test_fused_plan_steps_match_plain(cuda_device, step, skew):
+    """chip_smoke.py's three fused launches at 1,000,003 rows: the covar
+    fact step mixes range (4,960 x 99) and one-block reductions, the tree
+    fact step a range reduction and two 16-node histograms; codes out of
+    range on both sides, and with Retailer-like skew (a quarter of the rows
+    on 124 of the first reduction's segments).  One launch each."""
+    rng = np.random.default_rng(11)
+    codes, fpay, specs = _packed(PLAN_STEPS[step], 1_000_003, rng, skew)
+    c, f = codes.to(cuda_device), fpay.to(cuda_device)
+    ops.reset_launches()
+    got = ops.fused_scan_block(c, f, specs)
+    assert ops.LAUNCHES["fused_scan_block"] == 1
+    want = ref.fused_scan_block_ref(c, f, specs)
+    scale = ref.fused_scan_block_ref(c, f.abs(), specs)
+    assert [tuple(g.shape) for g in got] == [(sp.n_segments, sp.width) for sp in specs]
+    assert _within(got, want, scale)
+
+
+def test_fused_parts_read_where_they_lie(cuda_device):
+    """The parts form: seg parts that are strided column slices of a wider
+    matrix, a (n,) column at an output stride, an expanded scalar (row
+    stride 0), an output column no part names (0); a hist over a transposed
+    (N, n) node mask with y formed on the card, and one with a packed random
+    yk read at a column stride; all in one launch, against the plain
+    version of the same parts."""
+    rng = np.random.default_rng(12)
+    n = 300_007
+    big = torch.from_numpy(rng.normal(size=(n, 20)).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy((rng.random((16, n)) < 0.3).astype(np.float32)).to(cuda_device)
+    code = torch.from_numpy(rng.integers(-3, 4963, n).astype(np.int32)).to(cuda_device)
+    hcode = torch.from_numpy(rng.integers(-20, 500, n).astype(np.int32)).to(cuda_device)
+    reds = [ops.Parts("seg", code, (ops.Part(big[:, 2:7], 0, 2),
+                                    ops.Part(big[:, 10], 1, 3),
+                                    ops.Part(torch.full((1,), 2.5, device=cuda_device).expand(n), 13)),
+                      4960, 15),
+            ops.Parts("hist", hcode, (mask.t(), big[:, 11]), 480),
+            ops.Parts("hist", hcode, (mask.t()[:, :3], big[:, 12:18:2]), 480)]
+    ops.reset_launches()
+    got = ops.fused_scan_parts(reds)
+    assert ops.LAUNCHES["fused_scan_block"] == 1
+    want = ref.fused_scan_parts_ref(reds)
+    absr = [ops.Parts("seg", code, tuple(ops.Part(p.values.abs(), p.ocol, p.ostride)
+                                         for p in reds[0].parts), 4960, 15),
+            ops.Parts("hist", hcode, (mask.t(), big[:, 11].abs()), 480),
+            ops.Parts("hist", hcode, (mask.t()[:, :3], big[:, 12:18:2].abs()), 480)]
+    assert _within(got, want, ref.fused_scan_parts_ref(absr))
+    assert not bool(got[0][:, 3].any()) and not bool(got[0][:, 12].any())
+
+
+#: the covar fact bucket's parts as the lowering passes them: 45 aggregate
+#: columns of one view, then five one-aggregate views of pulled widths
+FACT_PART_WIDTHS = (1,) * 45 + (5, 6, 10, 25, 8)
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("step", ["covar_fact", "tree_fact"])
+def test_fused_parts_at_the_fact_steps(cuda_device, step, skew):
+    """The fact steps as the lowering passes them, 1,000,003 rows: the
+    covar fact bucket (4,960 x 99) as 45 one-column parts (one a strided
+    column, one expanded: row stride 0) and five row-major pulled blocks,
+    some across tile edges, beside 40 x 4 in four column parts and 480 x
+    20; the tree fact bucket as 48 one-column parts beside two 16-node
+    histograms over a transposed mask with y formed on the card.  The wide
+    reduction runs in segment ranges, the rest in one block; codes out of
+    range on both sides, and with Retailer-like skew."""
+    rng = np.random.default_rng(15)
+    n = 1_000_003
+    dev = cuda_device
+
+    def codes(S):
+        spill = max(1, S // 25)
+        c = rng.integers(-spill, S + spill, n)
+        if skew:
+            heavy = rng.random(n) < 0.25
+            c[heavy] = rng.integers(0, 124, int(heavy.sum())) * (S // 124)
+        return torch.from_numpy(c.astype(np.int32)).to(dev)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    if step == "covar_fact":
+        wide = rand(n, 3)
+        cols = [rand(n) if w == 1 else rand(n, w) for w in FACT_PART_WIDTHS]
+        cols[7] = wide[:, 1]                                        # strided
+        cols[20] = torch.full((1,), 1.5, device=dev).expand(n)      # row stride 0
+        offs = np.cumsum((0,) + FACT_PART_WIDTHS)[:-1]
+        small = rand(n, 4)
+        reds = [ops.Parts("seg", codes(4960), tuple(ops.Part(c, int(o)) for c, o in
+                                                     zip(cols, offs)), 4960, 99),
+                ops.Parts("seg", codes(40), tuple(ops.Part(small[:, j], j)
+                                                  for j in range(4)), 40),
+                ops.Parts("seg", codes(480), (ops.Part(rand(n, 20), 0),), 480)]
+    else:
+        mask = torch.from_numpy((rng.random((16, n)) < 0.5).astype(np.float32)).to(dev)
+        y = rand(n)
+        reds = [ops.Parts("seg", codes(4960), tuple(ops.Part(rand(n), j) for j in range(48)),
+                          4960, 48),
+                ops.Parts("hist", codes(40), (mask.t(), y), 40),
+                ops.Parts("hist", codes(480), (mask.t(), y), 480)]
+    ops.reset_launches()
+    got = ops.fused_scan_parts(reds)
+    assert ops.LAUNCHES["fused_scan_block"] == 1
+    want = ref.fused_scan_parts_ref(reds)
+
+    def absolute(r):
+        if r.kind == "hist":
+            return ops.Parts("hist", r.codes, (r.parts[0], r.parts[1].abs()), r.n_segments)
+        return ops.Parts("seg", r.codes, tuple(ops.Part(p.values.abs(), p.ocol, p.ostride)
+                                               for p in r.parts), r.n_segments, r.width)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert _within(got, want, ref.fused_scan_parts_ref([absolute(r) for r in reds]))
+
+
+@pytest.mark.parametrize("n_nodes", [16, 200])
+def test_histograms_carry_non_finite_y_in_every_mode(cuda_device, n_nodes):
+    """A y that is NaN on a few rows: the reference adds cond · y for every
+    cond, 0 too, so each bucket holding such a row reads NaN in its y and y²
+    statistics for every node.  One block (16 nodes) and segment ranges
+    (200 nodes) give the same answer."""
+    rng = np.random.default_rng(16)
+    n, d = 300_007, 480
+    codes = torch.from_numpy(rng.integers(-20, d + 20, n).astype(np.int32)).to(cuda_device)
+    y = rng.normal(size=n).astype(np.float32)
+    y[rng.integers(0, n, 5)] = np.nan
+    y = torch.from_numpy(y).to(cuda_device)
+    node = torch.from_numpy(rng.integers(-1, n_nodes, n)).to(cuda_device)
+    cond = (node[:, None] == torch.arange(n_nodes, device=cuda_device)).float()
+    got = ops.tree_hist_batched(codes, y, cond, d)
+    want = ref.tree_hist_batched_ref(codes, y, cond, d)
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    scale = ref.tree_hist_batched_ref(codes, torch.nan_to_num(y).abs(), cond, d)
+    assert _scaled_err(got[ok], want[ok], scale[ok]) <= 1e-4
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 16, 200])
+def test_tree_hist_batched_node_counts(cuda_device, n_nodes):
+    """One to 200 frontier nodes at 480 buckets: one block holds the (480,
+    3N) accumulator up to 16 nodes and more; 200 nodes cut it into segment
+    ranges of whole nodes.  Masks of a frontier (each row in at most one
+    node) and random 0/1 masks; tree_hist is the one-node case."""
+    rng = np.random.default_rng(n_nodes)
+    n, d = 1_000_003, 480
+    codes = torch.from_numpy(rng.integers(-20, d + 20, n).astype(np.int32)).to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda_device)
+    node = torch.from_numpy(rng.integers(-1, n_nodes, n)).to(cuda_device)
+    frontier = (node[:, None] == torch.arange(n_nodes, device=cuda_device)).float()
+    rand = torch.from_numpy((rng.random((n, n_nodes)) < 0.5).astype(np.float32)).to(cuda_device)
+    for cond in (frontier, rand):
+        got = ops.tree_hist_batched(codes, y, cond, d)
+        want = ref.tree_hist_batched_ref(codes, y, cond, d)
+        assert _scaled_err(got, want, ref.tree_hist_batched_ref(codes, y.abs(), cond, d)) <= 1e-4
+    if n_nodes == 1:
+        got = ops.tree_hist(codes, y, rand[:, 0].contiguous(), d)
+        want = ref.tree_hist_ref(codes, y, rand[:, 0].contiguous(), d)
+        assert _scaled_err(got, want, ref.tree_hist_ref(codes, y.abs(), rand[:, 0].contiguous(), d)) <= 1e-4
+
+
+def test_fused_integer_sums_are_exact_past_2_24(cuda_device):
+    """COUNT-like parts through the parts form and a histogram's Σcond:
+    exact past 2^24 in every run (chunk partials below 2^24, chunks
+    combined in double), in one-block and range mode."""
+    rng = np.random.default_rng(13)
+    n = 20_000_003
+    ones = torch.ones(1, device=cuda_device).expand(n)
+    code = torch.from_numpy((rng.random(n) < 0.9).astype(np.int32)).to(cuda_device)
+    y = torch.zeros(n, device=cuda_device)
+    want = np.bincount(code.cpu().numpy(), minlength=2).astype(np.float32)
+    assert want.max() > 2 ** 24
+    wide = torch.ones(1, 1, device=cuda_device).expand(n, 600)   # 600 staged: ranges
+    for _ in range(2):
+        seg, hist, rng_mode = ops.fused_scan_parts([
+            ops.Parts("seg", code, (ops.Part(ones, 0),), 2),
+            ops.Parts("hist", code, (ones[:, None], y), 2),
+            ops.Parts("seg", code, (ops.Part(wide, 0),), 2)])
+        assert seg[:, 0].cpu().numpy().tolist() == want.tolist()
+        assert hist[:, 0].cpu().numpy().tolist() == want.tolist()
+        assert rng_mode[:, 599].cpu().numpy().tolist() == want.tolist()
+
+
+def test_scan_check_sees_a_planted_fault(cuda_device):
+    """The check the fused launch passes (1e-4 of Σ|terms| per entry) reads
+    above its limit for a fault of the kernel's own kind: one 32-row ring
+    stage dropped, or one row of a segment's run added twice."""
+    rng = np.random.default_rng(14)
+    codes, fpay, specs = _packed(PLAN_STEPS["covar_fact"], 70_001, rng)
+    c, f = codes.to(cuda_device), fpay.to(cuda_device)
+    want = ref.fused_scan_block_ref(c, f, specs)
+    scale = ref.fused_scan_block_ref(c, f.abs(), specs)
+    assert _within(ops.fused_scan_block(c, f, specs), want, scale)
+    dropped = c.clone()
+    dropped[4096:4128] = -1
+    assert not _within(ref.fused_scan_block_ref(dropped, f, specs), want, scale)
+    twice = torch.cat([c, c[:1]]), torch.cat([f, f[:1]])
+    assert not _within(ref.fused_scan_block_ref(*twice, specs), want, scale)
 
 
 @pytest.mark.parametrize("fuse_kernels", [True, False])

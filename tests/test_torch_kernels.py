@@ -15,7 +15,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import fused_scan, ops
+from repro_torch.kernels import fused_scan as kfused
+from repro_torch.kernels import ops
 from repro_torch.kernels import seg_aggregate as kseg
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -116,11 +117,85 @@ def test_seg_and_hist_plain_match_reference(n):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _as_parts(codes, fpay, raw, formed):
+    """The reduction of ``_fused_case``'s packed inputs in the parts form,
+    each laid out another way than packed: the first seg's columns a
+    strided slice of a wider matrix (every other column), the second seg's
+    columns 0 and 2 one part at an output stride of 2, its constant column 1
+    (set to 2.5 by the caller) an expanded scalar (row stride 0); each
+    hist's cond read
+    transposed from an (N, n) array, its yk either random columns read at
+    a column stride or formed from y on the card."""
+    n = codes.shape[0]
+    c = torch.from_numpy(codes)
+    (_, _, s1, w1, o1, _, _), (_, _, s2, w2, o2, _, _) = raw[:2]
+    wide = torch.zeros((n, 2 * w1))
+    wide[:, ::2] = torch.from_numpy(fpay[:, o1:o1 + w1])
+    p2 = torch.from_numpy(fpay[:, [o2, o2 + 2]].copy())
+    reds = [ops.Parts("seg", c[:, 0], (ops.Part(wide[:, ::2], 0),), s1),
+            ops.Parts("seg", c[:, 1], (ops.Part(p2, 0, 2),
+                                       ops.Part(torch.tensor(2.5).expand(n), 1)),
+                      s2, w2)]
+    for k, cc, s, _, po, nc, yo in raw[2:]:
+        cond_t = torch.from_numpy(np.ascontiguousarray(fpay[:, po:po + nc].T))
+        if formed:
+            y = torch.from_numpy(fpay[:, yo + 1].copy())
+        else:
+            yk = torch.zeros((n, 6))
+            yk[:, ::2] = torch.from_numpy(fpay[:, yo:yo + 3])
+            y = yk[:, ::2]
+        reds.append(ops.Parts("hist", c[:, cc], (cond_t.t(), y), s))
+    return reds
+
+
+@pytest.mark.parametrize("formed", [False, True])
+@pytest.mark.parametrize("n", [1, 517, 1000])
+def test_fused_parts_plain_matches_reference(n, formed):
+    """The parts form, through the plain version, against the reference's
+    fused_scan_block (interpret mode) on the same values packed: strided
+    seg parts, an expanded (row stride 0) column, transposed conds, random
+    yk columns or yk formed from y."""
+    codes, fpay, raw = _fused_case(n, n_cond=3, extra_hist=True, spill=0)
+    yo = raw[2][6]
+    if formed:
+        y = fpay[:, yo + 1]
+        fpay[:, yo] = 1.0
+        fpay[:, yo + 2] = y * y
+    else:
+        fpay[:, yo:yo + 3] = np.random.default_rng(n).normal(
+            size=(n, 3)).astype(np.float32)
+    fpay[:, raw[1][4] + 1] = 2.5
+    got = ops.fused_scan_parts(_as_parts(codes, fpay, raw, formed))
+    want = jops.fused_scan_block(jnp.asarray(codes), jnp.asarray(fpay),
+                                 _specs(jops, raw), block_rows=256,
+                                 interpret=True)
+    for sp, g, w in zip(raw, got, want):
+        assert tuple(g.shape) == (sp[2], sp[3])
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("parts", [((0, 1, 2), (1, 1, 1)),    # column 1 twice
+                                   ((0, 2, 2), (2, 1, 1))])   # column 2 twice
+def test_fused_parts_reject_overlapping_columns(parts):
+    """Two parts that name one output column are refused (the kernel's
+    blocks would write it in no fixed order), by the plain version too."""
+    n = 8
+    reds = [ops.Parts("seg", torch.zeros(n, dtype=torch.int32),
+                      tuple(ops.Part(torch.ones(n, w) if w > 1 else torch.ones(n),
+                                     ocol, ostride)
+                            for ocol, ostride, w in parts), 2, 4)]
+    with pytest.raises(ValueError, match="one output column"):
+        ops.fused_scan_parts(reds)
+    assert kfused.disjoint_columns(4, parts) is False
+    assert kfused.disjoint_columns(4, ((0, 2, 2), (1, 2, 2))) is True
+
+
 def test_cpu_tensors_run_plain_versions_uncounted():
     codes, fpay, raw = _fused_case(64)
     ops.reset_launches()
     ops.fused_scan_block(torch.from_numpy(codes), torch.from_numpy(fpay),
                          _specs(ops, raw))
+    ops.fused_scan_parts(_as_parts(codes, fpay, raw, True))
     ops.seg_aggregate(torch.zeros(4, dtype=torch.int32), torch.ones(4, 2), 3)
     ops.tree_hist(torch.zeros(4, dtype=torch.int32), torch.ones(4),
                   torch.ones(4), 3)
@@ -134,98 +209,92 @@ def test_cpu_tensors_run_plain_versions_uncounted():
                             "tree_hist": 0, "tree_hist_batched": 0}
 
 
-@pytest.mark.parametrize("n_segments,width", [(4960, 99), (12000, 1),
-                                              (1, 250), (480, 3)])
-def test_column_tiles_cover_width_within_shared_memory(n_segments, width):
-    tiles = fused_scan.column_tiles(n_segments, width)
-    cols = [c0 + j for c0, t in tiles for j in range(t)]
-    assert cols == list(range(width))
-    assert all(n_segments * t * 4 <= fused_scan.SMEM_BYTES for _, t in tiles)
-    assert all(t <= fused_scan.THREADS for _, t in tiles)
+def _hist(S, n_cond, y_cols=1):
+    return kseg.Shape("hist", S, (n_cond, y_cols), 3 * n_cond)
 
 
-def test_column_tiles_reject_a_spec_no_tile_fits():
-    with pytest.raises(ValueError, match="does not fit"):
-        fused_scan.column_tiles(fused_scan.SMEM_BYTES // 4 + 1, 1)
+def _seg(S, *parts, width=None):
+    return kseg.Shape("seg", S, tuple(parts), width or sum(parts))
 
 
-@pytest.mark.parametrize("n_segments", [1, 58112, 58113, 120000, 400000])
-def test_segment_ranges_cover_segments_within_shared_memory(n_segments):
-    ranges = fused_scan.segment_ranges(n_segments)
-    assert [s0 + i for s0, k in ranges for i in range(k)] == \
-        list(range(n_segments))
-    assert all(k <= fused_scan.MAX_TILE_SEGMENTS for _, k in ranges)
-    assert len(ranges) == -(-n_segments // fused_scan.MAX_TILE_SEGMENTS)
+#: launches of several reductions and their rows: chip_smoke.py's three
+#: fused plan steps (packed, and the covar fact step as the lowering passes
+#: it, one part per aggregate column; the tree fact step too),
+#: tree_hist_batched at 1, 16 and 200 nodes, a single-root Chow-Liu
+#: view of 120,000 segments (packed, and in parts), a width past
+#: MAX_TILE_B, polyreg's one-segment 540 columns, and a 30-row scan
+LAUNCHES = {
+    "covar_fact": ([_seg(4960, 99), _seg(40, 4), _seg(480, 20)], 1_000_003),
+    "covar_fact_parts": ([_seg(4960, *([1] * 45), 5, 6, 10, 25, 8),
+                          _seg(40, *([1] * 4)), _seg(480, 20)], 1_000_003),
+    "covar_items": ([_seg(4800, 1), _seg(3840, 1), _seg(12000, 1),
+                     _hist(480, 1, 3)], 1_000_003),
+    "tree_fact": ([_seg(4960, 48), _hist(40, 16, 3), _hist(480, 16, 3)],
+                  1_000_003),
+    "tree_hist_batched_1": ([_hist(480, 1)], 1_000_003),
+    "tree_hist_batched_16": ([_hist(480, 16)], 1_000_003),
+    "tree_hist_batched_200": ([_hist(480, 200)], 1_000_003),
+    "chowliu_single_root": ([_seg(120000, 2), _seg(40, 4)], 70_001),
+    "chowliu_single_root_parts": ([_seg(120000, 1, 1), _seg(40, 1, 1, 1, 1)],
+                                  70_001),
+    "tree_fact_parts": ([_seg(4960, *([1] * 48)), _hist(40, 16), _hist(480, 16)],
+                        1_000_003),
+    "wide": ([_seg(4960, 700, 800, width=1600), _seg(13, 1)], 84_000_000),
+    "polyreg": ([_seg(1, *([1] * 540))], 1 << 20),
+    "short": ([_seg(1, 55)] + [_seg(s, w) for s, w in [(2, 64), (4, 1), (4, 1),
+                                                       (2, 64), (4, 1), (2, 64)]],
+              30),
+}
 
 
-def test_launch_plan_cuts_a_wide_reduction_into_segment_ranges(monkeypatch):
-    """A single-root Chow-Liu view grouped by sku × category × subcategory
-    (120,000 segments): every (segment, column) in exactly one item."""
-    import types
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda d: types.SimpleNamespace(multi_processor_count=132))
-    specs = (ops.ReduceSpec("seg", 0, 120000, 2, 0),
-             ops.ReduceSpec("seg", 1, 40, 4, 2))
-    plan = fused_scan.launch_plan.__wrapped__(specs, ("seg",) * 2, 70001,
-                                              torch.device("cpu"))
-    items = plan.items.tolist()
-    cells = sorted((it[8], it[12] + s, it[6] + c) for it in items
-                   for s in range(it[2]) for c in range(it[7]))
-    want = sorted([(0, s, c) for s in range(120000) for c in range(2)]
-                  + [(240000, s, c) for s in range(40) for c in range(4)])
-    assert cells == want
-    assert all(4 * it[2] * it[7] <= fused_scan.SMEM_BYTES for it in items)
-
-
-@pytest.mark.parametrize("n", [1, 4097, 4960, 1 << 20])
-def test_launch_plan_covers_rows_and_scratch(monkeypatch, n):
-    """Work items of the fact step's fused launch: every output column of
-    every spec in exactly one item, every row in one chunk of each item,
-    and disjoint partial tiles in the scratch buffer."""
-    import types
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda d: types.SimpleNamespace(multi_processor_count=132))
-    specs = (ops.ReduceSpec("seg", 0, 4960, 99, 0),
-             ops.ReduceSpec("seg", 1, 40, 4, 99),
-             ops.ReduceSpec("seg", 2, 480, 20, 103))
-    plan = fused_scan.launch_plan.__wrapped__(specs, ("seg",) * 3, n,
-                                              torch.device("cpu"))
-    items = plan.items.tolist()
-    assert len(items) == plan.n_items == 11
-    spans = []
-    for sp, (off, s, w) in zip(specs, plan.outputs):
-        mine = [it for it in items if it[8] == off]
-        assert sorted(c for it in mine for c in range(it[6], it[6] + it[7])) \
-            == list(range(w))
-    for it in items:
-        size, n_chunks, chunk_rows = it[2] * it[7], it[10], it[11]
-        assert (n_chunks - 1) * chunk_rows < n <= n_chunks * chunk_rows
-        assert 4 * size <= plan.smem_bytes <= fused_scan.SMEM_BYTES
-        spans.append((it[9], it[9] + n_chunks * size))
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("case", sorted(LAUNCHES))
+def test_launch_layout_covers_every_cell_once(case, per_sm):
+    """Every (reduction, segment, accumulator column) cell in exactly one
+    work item; a grid a partial kernel, its blocks within the shared-memory
+    budget; each item's chunks covering the rows, none past MAX_CHUNK_ROWS;
+    disjoint partials in scratch; the items grid by grid, each reduction in
+    the mode its shape fits."""
+    shapes, n = LAUNCHES[case]
+    lay = kseg.launch_layout(n, shapes, lambda kernel, smem: per_sm * 132)
+    assert len(lay.layouts) == len(shapes)
+    grids = {g.kernel: g for g in lay.grids}
+    assert len(grids) == len(lay.grids)
+    cells = [np.zeros((sh.n_segments, sh.acc_width), np.int64) for sh in shapes]
+    by_out = {off: i for i, (off, _, _) in enumerate(lay.outputs)}
+    order, spans = [], []
+    for it in lay.items:
+        (s0, ns, c0, t, soff, kind, width, out, code, src0, nsrc, ncond,
+         srows, nch, crows, pst, copies) = it
+        i = by_out[out]
+        sh, sub = shapes[i], lay.layouts[i]
+        g = grids[kseg.kernel_of(sh, sub)]
+        assert kind == kseg.KINDS[sh.kind] and width == sh.width
+        assert nsrc == len(sh.parts) and src0 == code + 1
+        assert ncond == (sh.parts[0] if sh.kind == "hist" else 0)
+        cells[i][s0:s0 + ns, c0:c0 + t] += 1
+        unit = 3 if sh.kind == "hist" else 1
+        assert ns * t <= pst and c0 % unit == 0 and t % unit == 0
+        assert copies == sub.copies >= 1
+        assert nch <= g.n_chunks <= 65535 and 0 < crows <= min(g.chunk_rows, kseg.MAX_CHUNK_ROWS)
+        assert (nch - 1) * crows < n <= nch * crows
+        assert sub.smem_bytes <= g.smem_bytes <= kseg.SMEM_BYTES
+        order.append(g.kernel)
+        spans.append((soff, soff + nch * pst))
+    assert all((c == 1).all() for c in cells)
+    assert order == sorted(order)
+    assert all(g.n_items == order.count(g.kernel) for g in lay.grids)
     spans.sort()
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
-    assert spans[-1][1] == plan.scratch_numel
-    assert plan.n_chunks == max(it[10] for it in items)
-
-
-@pytest.mark.parametrize("n,chunk_rows", [(4960, 131), (40, 20), (30, 30)])
-def test_launch_plan_spreads_a_short_scan(monkeypatch, n, chunk_rows):
-    """The covar plan's last Weather step (seven narrow reductions, 4,960
-    rows) gets about two blocks per SM, in chunks of no fewer than
-    MIN_CHUNK_ROWS rows: short chunks keep integer count partials below
-    2^24, where float32 adds are exact."""
-    import types
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda d: types.SimpleNamespace(multi_processor_count=132))
-    specs = (ops.ReduceSpec("seg", 0, 1, 55, 0),) + tuple(
-        ops.ReduceSpec("seg", 1 + i, s, w, 55) for i, (s, w) in enumerate(
-            [(2, 64), (4, 1), (4, 1), (2, 64), (4, 1), (2, 64)]))
-    plan = fused_scan.launch_plan.__wrapped__(specs, ("seg",) * 7, n,
-                                              torch.device("cpu"))
-    items = plan.items.tolist()
-    assert len(items) == 7
-    assert {it[11] for it in items} == {chunk_rows}
-    assert all(it[10] * it[11] >= n > (it[10] - 1) * it[11] for it in items)
+    assert spans[-1][1] == lay.scratch_numel
+    assert 0 < lay.combine_blocks <= kseg.COMBINE_BLOCKS
+    for sh, sub in zip(shapes, lay.layouts):
+        fits = (kseg.fits_one_block(sh.n_segments, sh.acc_width) if sh.kind == "seg"
+                else sh.parts[0] <= kseg.THREADS
+                and 4 * sh.n_segments * sh.width <= kseg.SMEM_BYTES)
+        assert sub.mode == (0 if fits else 1)
+    srcs = sum(1 + len(sh.parts) for sh in shapes)
+    assert max(it[8] for it in lay.items) < srcs
 
 
 SEG_SHAPES = [(4960, 99), (4800, 1), (480, 20), (40, 4), (1, 1), (13, 1500),
