@@ -45,7 +45,25 @@ Phases, one JSON line each (``{"phase": ...}``):
                float64 design-matrix oracle, the fit's training RMSE.
  11. moments — ``feature_moments`` against float64 sums, and
                ``expert_load_aggregate`` against ``bincount``.
- 12. lm.f32  — internlm2-1.8b at full width and depth in float32, random
+ 12. ivm     — ``OnlineRidge`` (the covar batch, every query rooted at the
+               fact table) fitted over the same session, then six ticks of
+               1% fact inserts and deletes (``benchmarks/bench_ivm.py``'s
+               update, from ``--seed``), the last four under
+               ``torch.cuda.set_sync_debug_mode("error")`` with no tick
+               runner built: tick walls (apply to results on the host), the
+               solve apart, ``fused_scan_block`` launches per tick; then
+               the resident fact table against the host's ``apply_delta``
+               sequence row for row, C / N / θ against a float64 oracle of
+               the post-update join and against two fresh passes, the
+               maintained batch's (rooted at the fact) and the session's
+               ordinary batch's (the faster wall is the full recompute; the
+               median steady tick must stay below half of it), the
+               compaction alone, a profiled tick
+               that must leave a pinned epoch's results bitwise unchanged,
+               a snapshot restored into a fresh handle bitwise; then
+               ``StreamingCube`` over the cubes phase's cube for two of the
+               ticks, per cell against a float64 ``index_add_`` oracle.
+ 13. lm.f32  — internlm2-1.8b at full width and depth in float32, random
                weights from ``--seed`` on the card: the prefill
                ``forward(impl="flash")`` against ``forward(impl="dense")``
                (B = 2, S = 4096), ``BatchedServer.generate`` (batch 8,
@@ -53,7 +71,7 @@ Phases, one JSON line each (``{"phase": ...}``):
                ``decode_step`` logits at all 128 positions against the flash
                forward over the same sequence; 24 kernel launches a forward,
                none in decode.
- 13. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
+ 14. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
                tokens/s at B = 4, S = 4096 against the dense prefill, warm
                ``generate`` walls (ms per decode step), peak memory, and a
                device breakdown of one prefill and of a short decode; then
@@ -167,6 +185,20 @@ ROW_REL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 BF16_PREFILL_TOL = 5e-2
 #: seeds (from --seed on) of the bf16 prefill check's weights and tokens
 BF16_CHECK_SEEDS = 3
+#: the cube of the cubes and ivm phases: three categorical dimensions of
+#: three relations, the fact label and a Weather attribute as measures
+CUBE_DIMS = ("rain", "rgn_cd", "category")
+CUBE_MEASURES = ("inventoryunits", "maxtemp")
+#: ivm: each tick inserts and deletes this share of the fact rows
+#: (benchmarks/bench_ivm.py's _fact_update), the first IVM_WARM of
+#: IVM_TICKS ticks warm up, and StreamingCube takes IVM_CUBE_TICKS of them
+IVM_FRAC = 0.01
+IVM_TICKS = 6
+IVM_WARM = 2
+IVM_CUBE_TICKS = 2
+#: ivm: the median steady tick must take less than this share of a full
+#: recompute's wall (a tick scans 2 of the pass's 81 fact blocks)
+IVM_TICK_RATIO = 0.5
 #: polyreg: the training RMSE of θ (on the oracle's statistics) against the
 #: oracle θ's, relative.  θ itself is not held to a bound: 45 monomials of 8
 #: features that take 30 to 4,960 distinct values are nearly collinear, and
@@ -427,6 +459,76 @@ def kernel_phase(args, plan_specs, rates):
         emit("kernel", name="fused_scan_block", **case)
         fused_cases.append(case)
         del reds, absr, sids, pays, outs, got, want, abs_want
+    # -- fused_scan_block at the fact's delta step of a maintained covar
+    # batch (every query rooted at the fact), as the lowering passes it:
+    # one 1-segment reduction that every row enters, its parts the views'
+    # aggregate columns at a stride of their view's aggregates; the same
+    # parts with each part's columns adjacent (stride 1); and the same
+    # layout with values like a tick's (case ivm_fact_one_hot): one column
+    # of a part's row ±1, the rest 0 (a one-hot group-by column times a
+    # signed row weight)
+    S, parts, width = plan_specs["ivm_fact"]
+    code = torch.zeros((n,), dtype=torch.int32, device="cuda")
+    vals = [torch.randn((n, w) if w > 1 else (n,), generator=gen, device="cuda")
+            for w, _, _ in parts]
+    reds = [ops.Parts("seg", code, tuple(ops.Part(v, o, s) for v, (_, o, s) in zip(vals, parts)),
+                      S, width)]
+    absr = [ops.Parts("seg", code, tuple(ops.Part(v.abs(), o, s)
+                                         for v, (_, o, s) in zip(vals, parts)), S, width)]
+    offs = [sum(w for w, _, _ in parts[:i]) for i in range(len(parts))]
+    adjacent = [ops.Parts("seg", code, tuple(map(ops.Part, vals, offs)), S, width)]
+    sign = torch.randint(0, 2, (n, 1), generator=gen, device="cuda").float() * 2 - 1
+
+    def signed_one_hot(w):
+        x = torch.zeros((n, w), device="cuda").scatter_(
+            1, torch.randint(0, w, (n, 1), generator=gen, device="cuda"), sign)
+        return x[:, 0] if w == 1 else x
+
+    hot = [signed_one_hot(w) for w, _, _ in parts]
+    onehot = [ops.Parts("seg", code, tuple(ops.Part(v, o, s) for v, (_, o, s) in zip(hot, parts)),
+                        S, width)]
+    got = ops.fused_scan_parts(reds)
+    want = ref.fused_scan_parts_ref(reds)
+    abs_want = ref.fused_scan_parts_ref(absr)
+    torch.cuda.synchronize()
+    max_abs, max_rel = compare(got, want, abs_want, "fused_scan_parts[ivm_fact_parts]")
+    del absr
+    abs_hot = [ops.Parts("seg", code, tuple(ops.Part(v.abs(), o, s)
+                                            for v, (_, o, s) in zip(hot, parts)), S, width)]
+    got = ops.fused_scan_parts(onehot)
+    want = ref.fused_scan_parts_ref(onehot)
+    abs_want = ref.fused_scan_parts_ref(abs_hot)
+    torch.cuda.synchronize()
+    hot_abs, hot_rel = compare(got, want, abs_want,
+                               "fused_scan_parts[ivm_fact_parts, signed one-hot]")
+    del abs_hot, abs_want
+    pay = torch.cat([v.reshape(n, -1) for v in vals], 1)
+    hot_pay = torch.cat([v.reshape(n, -1) for v in hot], 1)
+    sid = code.long()
+    lib_out = torch.zeros((S, width), device="cuda")
+    case = dict(case="ivm_fact_parts", form="parts", n=n,
+                specs=[["seg", S, len(parts), width]],
+                geometry=launch_geometry(kseg.launch_plan(
+                    n, (kseg.Shape("seg", S, tuple(w for w, _, _ in parts), width),),
+                    code.device)),
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                ms=cuda_ms(lambda: ops.fused_scan_parts(reds)),
+                adjacent_columns_ms=cuda_ms(lambda: ops.fused_scan_parts(adjacent)),
+                plain_ms=cuda_ms(lambda: ref.fused_scan_parts_ref(reds)),
+                library_ms=cuda_ms(lambda: lib_out.index_add_(0, sid, pay)),
+                library_call="index_add_ on the payload packed beforehand",
+                **bound(4 * (n + n * width + S * width), n * width, bw, flops))
+    emit("kernel", name="fused_scan_block", **case)
+    fused_cases.append(case)
+    # the same launch on a tick's values
+    case = dict(case, case="ivm_fact_one_hot", max_abs_err=hot_abs, max_rel_err=hot_rel,
+                ms=cuda_ms(lambda: ops.fused_scan_parts(onehot)),
+                plain_ms=cuda_ms(lambda: ref.fused_scan_parts_ref(onehot)),
+                library_ms=cuda_ms(lambda: lib_out.index_add_(0, sid, hot_pay)))
+    del case["adjacent_columns_ms"]
+    emit("kernel", name="fused_scan_block", **case)
+    fused_cases.append(case)
+    del reds, adjacent, onehot, hot, sign, vals, pay, hot_pay, sid, lib_out, got, want, code
     # the main path launches the parts form: its covar fact case leads
     fused_cases.sort(key=lambda c: c["case"] != "fact_parts")
     results["fused_scan_block"] = fused_cases
@@ -1185,20 +1287,18 @@ def chowliu_phase(ds, db, join):
     return launches
 
 
-def cubes_phase(ds, db, join):
-    """A data cube over three categorical dimensions of three relations with
-    two measures (the fact label and a Weather attribute), through the
-    engine and through roll-up, against a float64 oracle."""
+def cube_oracle(ds, join):
+    """Every cell of the CUBE_DIMS × CUBE_MEASURES cube in float64 from the
+    gathered join, on the card: per cell the measures' sums, then their
+    Σ|terms|."""
     import itertools
 
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.ml.cubes import cube_name, cube_rollup, cube_via_engine
+    from repro_torch.ml.cubes import cube_name
 
-    dims = ["rain", "rgn_cd", "category"]
-    meas = ["inventoryunits", "maxtemp"]
+    dims, meas = CUBE_DIMS, CUBE_MEASURES
     dom = [ds.schema.domain(d) for d in dims]
     size = int(np.prod(dom))
     fin = torch.zeros((size, 2 * len(meas)), dtype=torch.float64, device="cuda")
@@ -1214,22 +1314,43 @@ def cubes_phase(ds, db, join):
         for sub in itertools.combinations(dims, r):
             axes = tuple(i for i, d in enumerate(dims) if d not in sub)
             oracle[cube_name(sub)] = fin.sum(axis=axes) if axes else fin
+    return oracle
 
+
+def cube_error(phase: str, cells, oracle) -> float:
+    """The cells' worst error over Σ|terms|, each held to STAT_TOL."""
+    import numpy as np
+
+    worst = 0.0
+    check(set(cells) == set(oracle), f"{phase}: cells {sorted(cells)}")
+    for k, o in oracle.items():
+        err = np.abs(cells[k] - o[..., :len(CUBE_MEASURES)])
+        scale = o[..., len(CUBE_MEASURES):]
+        worst = max(worst, float((err / np.maximum(scale, 1e-300)).max()))
+        check(bool((err <= STAT_TOL * scale).all()),
+              f"{phase}: cell {k} off the oracle by more than {STAT_TOL} of Σ|terms|")
+    return worst
+
+
+def cubes_phase(ds, db, join):
+    """A data cube over three categorical dimensions of three relations with
+    two measures (the fact label and a Weather attribute), through the
+    engine and through roll-up, against a float64 oracle."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.ml.cubes import cube_rollup, cube_via_engine
+
+    oracle = cube_oracle(ds, join)
     out = {}
     for label, fn in (("engine", cube_via_engine), ("rollup", cube_rollup)):
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
-        cells = fn(ds, dims, meas, database=db)
+        cells = fn(ds, CUBE_DIMS, CUBE_MEASURES, database=db)
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
-        worst = 0.0
-        check(set(cells) == set(oracle), f"cubes.{label}: cells {sorted(cells)}")
-        for k, o in oracle.items():
-            err = np.abs(cells[k] - o[..., :2])
-            worst = max(worst, float((err / np.maximum(o[..., 2:], 1e-300)).max()))
-            check(bool((err <= STAT_TOL * o[..., 2:]).all()),
-                  f"cubes.{label}: cell {k} off the oracle by more than {STAT_TOL} of Σ|terms|")
+        worst = cube_error(f"cubes.{label}", cells, oracle)
         emit(f"cubes.{label}", wall_s=wall, launches=launches, n_cells=len(cells),
              max_err_over_abs=worst, tol=STAT_TOL)
         check(launches["fused_scan_block"] > 0, f"cubes.{label} launches {launches}")
@@ -1348,6 +1469,246 @@ def moments_phase(ds, db, join, seed: int):
     check(np.array_equal(load, np.bincount(ids, minlength=64)),
           "expert_load_aggregate differs from bincount")
     return launches
+
+
+# ---------------------------------------------------------------- ivm
+
+def ivm_group(name: str) -> str:
+    """A tick's device kernel by its work: the delta scans' reduction
+    (``seg_reduce``), the resident relation's compaction and append (the
+    keep mask's running sum, the destinations, the row moves), or the rest:
+    the delta tuples' assembly, the payloads' products and gathers, the
+    state fold."""
+    g = kernel_group(name)
+    if g != "other":
+        return g
+    if any(k in name for k in ("Scan", "scan", "index_copy", "index_fill", "where")):
+        return "compaction (cumsum, where, index_fill_, index_copy_)"
+    return "other"
+
+
+def fact_updates(ds, seed: int, n_ticks: int):
+    """benchmarks/bench_ivm.py's ``_fact_update`` ``n_ticks`` times from
+    ``default_rng(seed)``: IVM_FRAC of the fact rows inserted (drawn with
+    replacement from the fact table) and as many distinct positions
+    deleted."""
+    import numpy as np
+
+    from repro_torch.data.relations import DeltaBatchUpdate
+
+    rng = np.random.default_rng(seed)
+    fact = ds.tables[ds.fact]
+    n = len(next(iter(fact.values())))
+    k = max(int(n * IVM_FRAC), 1)
+    out = []
+    for _ in range(n_ticks):
+        pick = rng.integers(0, n, k)
+        out.append(DeltaBatchUpdate()
+                   .insert(ds.fact, {a: np.asarray(c)[pick] for a, c in fact.items()})
+                   .delete(ds.fact, rng.choice(n, k, replace=False)))
+    return out
+
+
+def ivm_phase(ds, db, seed: int, card_line: str):
+    """``OnlineRidge`` (the covar batch, every query rooted at the fact
+    table) maintained under IVM_TICKS 1% fact ticks; the steady ticks
+    under ``set_sync_debug_mode("error")``; the state against the host's
+    ``apply_delta`` sequence, a float64 oracle of the post-update join and
+    a fresh batch pass; a pinned epoch across a tick; a snapshot's round
+    trip; then ``StreamingCube`` over two of the ticks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import relations as TR
+    from repro_torch.data.relations import _resident_advance
+    from repro_torch.kernels import ops
+    from repro_torch.ml import ridge
+    from repro_torch.ml.covar import assemble_covar, covar_queries
+    from repro_torch.ml.cubes import StreamingCube
+    from repro_torch.ml.online import OnlineRidge
+
+    fact = ds.fact
+    t0 = time.perf_counter()
+    updates = fact_updates(ds, seed, IVM_TICKS + 1)
+    updates_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_db = TR.from_numpy(ds.schema, ds.tables, "cpu")
+    host_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    olr = OnlineRidge(ds, database=db)
+    olr.fit()
+    fit_s = time.perf_counter() - t0
+    mb = olr.maintained
+    fit_launches = ops.LAUNCHES["fused_scan_block"]
+    sizes = db.sizes()
+    B = db.config.block_size
+    fit_blocks = sum(-(-sizes[st.rel] // min(B, sizes[st.rel]))
+                     for st in mb.batch.schedule.steps)
+    check(fit_launches == fit_blocks,
+          f"ivm fit launched fused_scan_block {fit_launches} times, expected {fit_blocks}")
+    dp = mb.delta_program(fact)
+    check(len(dp.steps) == 1 and dp.steps[0].scans_delta and not dp.base_rels,
+          f"ivm: the fact's delta program is not one delta scan: {dp.summary()}")
+
+    walls, solves, launches, builds, host_apply = [], [], [], [], []
+    profile = None
+    for i, upd in enumerate(updates[:IVM_TICKS]):
+        steady = i >= IVM_WARM
+        before, built = ops.LAUNCHES["fused_scan_block"], mb.n_fold_traces
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if steady:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = olr.view.apply(upd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        olr.refresh(host)
+        solves.append(time.perf_counter() - t0)
+        launches.append(ops.LAUNCHES["fused_scan_block"] - before)
+        builds.append(mb.n_fold_traces - built)
+        t0 = time.perf_counter()
+        host_db = TR.apply_delta(host_db, upd)
+        host_apply.append(time.perf_counter() - t0)
+    steady_walls = walls[IVM_WARM:]
+    median = float(np.median(steady_walls))
+    check(sum(builds[IVM_WARM:]) == 0, f"ivm: steady ticks built tick runners: {builds}")
+    n_ins = updates[0].updates[fact].n_inserts
+    delta_rows = TR.next_pow2(n_ins) + TR.next_pow2(updates[0].updates[fact].n_deletes)
+    tick_blocks = -(-delta_rows // B)
+    check(all(n == tick_blocks for n in launches),
+          f"ivm: fused_scan_block launches per tick {launches}, expected {tick_blocks}")
+
+    # (a) the resident fact table against the host's apply_delta sequence
+    rr = mb.epoch_state().relations[fact]
+    want = host_db.relation(fact)
+    check(rr.n_valid == want.n_rows, f"ivm: {rr.n_valid} resident rows, host {want.n_rows}")
+    for a, c in rr.columns().items():
+        check(torch.equal(c.cpu(), want.columns[a]),
+              f"ivm: resident {fact}.{a} differs from the host apply_delta sequence")
+    del host_db, want
+
+    # (b) against a float64 oracle of the post-update join
+    C, N = olr.C, olr.N
+    G, n_o = oracle_covar(FactJoin(mb.db), olr.layout)
+    err_oracle = scaled_err(C, G)
+    th, th_o = ridge.closed_form(C, N, olr.layout), ridge.closed_form(G, n_o, olr.layout)
+    theta_err = float(np.linalg.norm(th - th_o) / np.linalg.norm(th_o))
+    check(n_o == sizes[fact] and N == float(np.float32(n_o)),
+          f"ivm: N={N}, oracle {n_o}, fact rows {sizes[fact]}")
+    check(err_oracle <= COVAR_TOL, f"ivm: covar vs oracle {err_oracle:.3e} > {COVAR_TOL}")
+    check(theta_err <= THETA_TOL, f"ivm: θ vs oracle {theta_err:.3e} > {THETA_TOL}")
+
+    # (c) against fresh passes over the post-update relations, warm (the
+    # fit's scan built the maintained batch's kernel plans): the maintained
+    # batch itself, every query rooted at the fact, and the session's
+    # ordinary batch of the same queries (roots found by the planner); the
+    # faster of the two walls is the full recompute
+    post = mb.db
+    qs, _ = covar_queries(ds)
+    ordinary = db.views(qs).compiled
+    ordinary(post)
+    fresh_s, errs_fresh = {}, {}
+    for label, batch in (("rooted", mb.batch), ("ordinary", ordinary)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = batch(post)
+        fresh_host = {k: v.cpu().numpy() for k, v in fresh.items()}
+        fresh_s[label] = time.perf_counter() - t0
+        C_f, N_f = assemble_covar(fresh_host, olr.layout)
+        errs_fresh[label] = scaled_err(C, C_f)
+        check(N_f == N, f"ivm: fresh {label} pass N={N_f}, maintained {N}")
+        check(errs_fresh[label] <= COVAR_TOL,
+              f"ivm: covar vs a fresh {label} pass {errs_fresh[label]:.3e} > {COVAR_TOL}")
+    full_s = min(fresh_s.values())
+    del post, ordinary, fresh, fresh_host
+
+    # a profiled tick, and the compaction alone on its inputs
+    extra = updates[IVM_TICKS]
+    d = extra.updates[fact]
+    rr = mb.epoch_state().relations[fact]
+    del_dev = torch.from_numpy(np.sort(d.delete_idx)).cuda()
+    ins_dev = {a: torch.from_numpy(np.asarray(c)).cuda() for a, c in d.inserts.items()}
+    compaction_ms = cuda_ms(lambda: _resident_advance(
+        rr.buffers, rr.n_valid, ins_dev, del_dev, d.n_inserts, d.n_deletes, rr.capacity),
+        reps=5)
+    del rr, del_dev, ins_dev
+
+    # (d) a pinned epoch stays bitwise unchanged across a further tick
+    with mb.pinned() as e:
+        before = {k: v.clone() for k, v in mb.results(epoch=e).items()}
+        profile = device_breakdown(lambda: olr.view.apply(extra), classify=ivm_group)
+        check(mb.epoch == e + 1, f"ivm: epoch {mb.epoch} after a tick from {e}")
+        check(all(torch.equal(v, before[k]) for k, v in mb.results(epoch=e).items()),
+              "ivm: a pinned epoch's results changed across a tick")
+    del before
+
+    # (e) snapshot, then restore into a fresh maintained handle
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        olr.view.snapshot(tmp)
+        snapshot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        other = db.views(qs, maintain=True, roots={q.name: fact for q in qs})
+        check(other.restore(tmp) == mb.step, "ivm: restored a different step")
+        restore_s = time.perf_counter() - t0
+    want_res = mb.results()
+    got_res = other.results()
+    check(want_res.keys() == got_res.keys()
+          and all(torch.equal(got_res[k], v) for k, v in want_res.items()),
+          "ivm: restored results differ from the snapshot's")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches_total = dict(ops.LAUNCHES)
+    del other, want_res, got_res, olr, mb
+
+    emit("ivm", card=card_line, fact_rows=sizes[fact], inserts=n_ins,
+         deletes=updates[0].updates[fact].n_deletes, delta_rows=delta_rows,
+         fit_blocks=fit_blocks, tick_blocks=tick_blocks, fit_s=fit_s,
+         tick_walls_s=walls, steady_median_s=median, solve_s=solves,
+         full_recompute_s=full_s, full_rooted_s=fresh_s["rooted"],
+         full_ordinary_s=fresh_s["ordinary"], tick_over_full=median / full_s,
+         ratio_limit=IVM_TICK_RATIO, launches_per_tick=launches,
+         fit_launches=fit_launches, runner_builds_per_tick=builds,
+         compaction_ms=compaction_ms, snapshot_s=snapshot_s, restore_s=restore_s,
+         covar_vs_oracle=err_oracle, covar_vs_fresh=errs_fresh, theta_vs_oracle=theta_err,
+         N=N, tol=COVAR_TOL, theta_tol=THETA_TOL, peak_mem_gb=peak,
+         launches=launches_total, updates_s=updates_s, host_tables_s=host_s,
+         host_apply_delta_s=host_apply)
+    emit("ivm.tick.profile", **profile)
+    check(median < IVM_TICK_RATIO * full_s,
+          f"ivm: median steady tick {median:.4f} s is not below {IVM_TICK_RATIO} "
+          f"of the faster full recompute ({full_s:.4f} s; rooted "
+          f"{fresh_s['rooted']:.4f}, ordinary {fresh_s['ordinary']:.4f})")
+
+    # StreamingCube over two of the same ticks
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cube = StreamingCube(ds, CUBE_DIMS, CUBE_MEASURES, database=db)
+    cube_fit_s = time.perf_counter() - t0
+    cube_walls = []
+    for upd in updates[:IVM_CUBE_TICKS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cells = cube.update(upd)
+        cube_walls.append(time.perf_counter() - t0)
+    worst = cube_error("ivm.cube", cells, cube_oracle(ds, FactJoin(cube.maintained.db)))
+    cube_launches = dict(ops.LAUNCHES)
+    emit("ivm.cube", fit_s=cube_fit_s, tick_walls_s=cube_walls, n_cells=len(cells),
+         launches=cube_launches, max_err_over_abs=worst, tol=STAT_TOL)
+    check(cube_launches["fused_scan_block"] > 0, f"ivm.cube launches {cube_launches}")
+    del cube
+    torch.cuda.empty_cache()
+    return launches_total
 
 
 # ---------------------------------------------------------------- LM
@@ -1795,9 +2156,17 @@ def lm_bf16_phase(seed: int):
 def plan_specs_for(scale: float, block_size: int):
     """The fused specs of the covar plan's fact step and of its Items step
     with the histogram view, and of the tree plan's fact step for
-    TREE_NODES frontier nodes, compiled at this run's relation sizes."""
+    TREE_NODES frontier nodes, compiled at this run's relation sizes; and
+    the one reduction of the fact's delta step of ``OnlineRidge``'s batch
+    (every covar query rooted at the fact) as the lowering passes it:
+    ``(segments, parts, width)``, a part ``(columns, first output column,
+    output column stride)`` per aggregate column with products, of its
+    view's pulled width, at a stride of the view's aggregates."""
+    import math
+
     from repro_torch.core.engine import Engine
-    from repro_torch.core.lowering.cuda import fused_layout
+    from repro_torch.core.ivm import build_delta_program
+    from repro_torch.core.lowering.cuda import flat_width, fused_layout, step_split
     from repro_torch.data import datasets as TD
     from repro_torch.ml.covar import covar_queries
     from repro_torch.ml.trees import build_tree_features, tree_queries
@@ -1821,6 +2190,18 @@ def plan_specs_for(scale: float, block_size: int):
     for step, prog in zip(tree.schedule.steps, tree.plan.step_programs):
         if step.rel == dims.fact:
             out["tree_fact"], _ = fused_layout(prog, TREE_NODES)
+    maintained = eng._compile(qs, block_size=block_size,
+                              root_override={q.name: dims.fact for q in qs})
+    (delta,) = build_delta_program(dims.schema, maintained.plan.views, dims.fact).steps
+    hist_views, buckets = step_split(delta.prog)
+    check(not hist_views and len(buckets) == 1 and not buckets[0][0],
+          "ivm: the fact's delta step is not one 1-segment reduction")
+    parts, o = [], 0
+    for vp in buckets[0][1]:
+        parts += [(math.prod(vp.pulled_dims), o + a, vp.n_aggs)
+                  for a, cp in enumerate(vp.cols) if cp.products]
+        o += flat_width(vp)
+    out["ivm_fact"] = (1, tuple(parts), o)
     return out
 
 
@@ -1899,7 +2280,10 @@ def main() -> int:
         polyreg_phase(ds, db, join)
         moments_phase(ds, db, join, args.seed)
 
-        # 12.-13. the LM prefill and serving path, after freeing Retailer
+        # 12. incremental view maintenance, while Retailer is on the card
+        ivm_phase(ds, db, args.seed, card_line)
+
+        # 13.-14. the LM prefill and serving path, after freeing Retailer
         del ds, db, join
         torch.cuda.empty_cache()
         lm_f32_phase(args.seed)

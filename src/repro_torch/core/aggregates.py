@@ -60,6 +60,15 @@ class Term:
         """True if any referenced param carries the param-batch axis."""
         return any(p.batched for p in self.params())
 
+    def is_invertible(self) -> bool:
+        """True if the term's contribution can be *retracted*: deleting a
+        row must subtract exactly what inserting it added.  Every built-in
+        term is a per-row function folded by SUM, which commutes with signed
+        multiplicities; only UDAFs with MIN/MAX-style semantics (declared
+        via ``Lambda(invertible=False)``) break this, and maintained views
+        reject them at compile time."""
+        return True
+
     def key(self) -> Tuple:
         """Structural identity for view merging/dedup."""
         raise NotImplementedError
@@ -171,8 +180,10 @@ class Lambda(Term):
     its result with the node axis leading (``params[p][..., x]`` turns an
     ``(N, D)`` lookup table into an ``(N, *x.shape)`` output).  ``tag``
     provides structural identity (callables do not hash stably across
-    sessions); ``invertible`` is carried for key equality with the
-    reference."""
+    sessions).  ``invertible=False`` declares MIN/MAX-style semantics: the
+    aggregate cannot be maintained under deletions by signed
+    multiplicities, so ``Database.views(..., maintain=True)`` rejects the
+    batch; the batch path is unaffected."""
 
     attr_order: Tuple[str, ...]
     fn: Callable
@@ -189,6 +200,9 @@ class Lambda(Term):
 
     def params(self) -> Tuple[Param, ...]:
         return self.param_refs
+
+    def is_invertible(self) -> bool:
+        return self.invertible
 
     def key(self) -> Tuple:
         return ("lambda", self.attr_order, self.tag or id(self.fn),

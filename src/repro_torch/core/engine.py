@@ -1,5 +1,6 @@
 """Engine internals: compile a batch of aggregate queries into an executable;
-counterpart of ``repro/core/engine.py`` (batch subset).
+counterpart of ``repro/core/engine.py`` (no deprecated ``compile`` shims,
+no mesh).
 
 The public entry point is the session facade (``repro_torch.connect`` →
 ``Database.views``); this module is what it drives:
@@ -8,6 +9,7 @@ The public entry point is the session facade (``repro_torch.connect`` →
     batch = eng._compile(queries)             # layers 1-6
     results = batch(db)                       # {query name: dense tensor}
     results = batch.run_batched(db, params)   # N parameter settings at once
+    mb = eng._compile_maintained(queries)     # incrementally maintained
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ class CompiledBatch:
         return self._runners[key]
 
     def __call__(self, db, params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
-        params = _params_on(params, db)
+        params = _params_on(params, db.device)
         cols = {name: dict(rel.columns) for name, rel in db.relations.items()}
         run = self._runner(db, None)
         self.n_dispatches += 1
@@ -128,7 +130,7 @@ class CompiledBatch:
         if not self.plan.batched_params:
             raise ValueError("batch was compiled without batched params; "
                              "declare Param(..., batched=True) terms first")
-        params = _params_on(params, db)
+        params = _params_on(params, db.device)
         if n_nodes is None:
             n_nodes = int(params[sorted(self.plan.batched_params)[0]].shape[0])
         n_run = n_nodes
@@ -151,10 +153,9 @@ class CompiledBatch:
         return out
 
 
-def _params_on(params: Optional[Params], db) -> Dict[str, object]:
-    """The params with every array (numpy or torch) on the relations'
-    device, moved once per call; Python scalars stay on the host."""
-    device = next(iter(next(iter(db.relations.values())).columns.values())).device
+def _params_on(params: Optional[Params], device) -> Dict[str, object]:
+    """The params with every array (numpy or torch) on ``device`` (the
+    relations'), moved once per call; Python scalars stay on the host."""
     out = {}
     for k, v in (params or {}).items():
         if isinstance(v, (np.ndarray, torch.Tensor)):
@@ -179,14 +180,17 @@ class Engine:
 
     def _compile(self, queries: Sequence[Query], *,
                  block_size: int = 1 << 20, backend: str = "cuda",
-                 fuse_kernels: bool = True,
-                 multi_root: bool = True) -> CompiledBatch:
+                 fuse_kernels: bool = True, multi_root: bool = True,
+                 root_override: Optional[Dict[str, str]] = None) -> CompiledBatch:
         """Compile a query batch: multi-root pushdown (``multi_root=False``:
-        every query at the one root of ``roots.single_root``) and shared-scan
-        fusion as in the reference's defaults; ``fuse_kernels`` gives one
-        fused launch per step and row block; ``block_size`` is the rows per
-        launch."""
-        if multi_root:
+        every query at the one root of ``roots.single_root``;
+        ``root_override``: query name -> root relation, for every query)
+        and shared-scan fusion as in the reference's defaults;
+        ``fuse_kernels`` gives one fused launch per step and row block;
+        ``block_size`` is the rows per launch."""
+        if root_override is not None:
+            roots = dict(root_override)
+        elif multi_root:
             roots = roots_mod.find_roots(self.tree, queries, self.sizes)
         else:
             roots = roots_mod.single_root(self.tree, queries, self.sizes)
@@ -196,3 +200,39 @@ class Engine:
                          fuse_kernels=fuse_kernels)
         return CompiledBatch(self.schema, self.tree, result, groups, cfg,
                              roots)
+
+    def _compile_maintained(self, queries: Sequence[Query], *,
+                            root_override: Optional[Dict[str, str]] = None,
+                            warm_rels: Sequence[str] = (), device=None,
+                            **compile_kw):
+        """Compile a query batch for incremental view maintenance (the
+        reference's ``Engine._compile_incremental``): returns a
+        :class:`~repro_torch.core.ivm.MaintainedBatch` whose ``init(db)``
+        materializes every view as state and whose ``apply`` folds a
+        :class:`~repro_torch.data.relations.DeltaBatchUpdate` into it by
+        delta scans.  ``warm_rels`` builds those relations' delta programs
+        now instead of at their first update; ``device`` is where a state
+        restored before any ``init`` lies (the session's).
+
+        Rejects non-invertible (MIN/MAX-style) aggregates up front: signed
+        multiplicities maintain SUM-like aggregates only."""
+        from repro_torch.core.ivm import MaintainedBatch
+
+        for q in queries:
+            for a in q.aggregates:
+                for prod in a.products:
+                    for t in prod.terms:
+                        if not t.is_invertible():
+                            raise ValueError(
+                                f"query {q.name!r}: aggregate term {t.key()!r} "
+                                "is not invertible under retraction (MIN/MAX-"
+                                "style UDAF) — incremental maintenance by "
+                                "signed multiplicities would produce wrong "
+                                "results on deletes; register a batch view "
+                                "(maintain=False) instead")
+        batch = self._compile(queries, root_override=root_override,
+                              **compile_kw)
+        mb = MaintainedBatch(batch, device=device)
+        for rel in warm_rels:
+            mb.delta_program(rel)
+        return mb

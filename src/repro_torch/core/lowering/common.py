@@ -1,5 +1,5 @@
 """Lowering primitives over the group-program IR, in torch; counterpart of
-``repro/core/lowering/common.py`` (batch subset: no row weights or offsets).
+``repro/core/lowering/common.py`` (no offsets: the port shards nothing).
 
 Payload construction — gathers of incoming views, term evaluation in the
 product's axis frame, marginalization of extra axes, validity masking — is
@@ -25,30 +25,42 @@ from repro_torch.core.ir import (ColProgram, GatherSpec, ProductProgram,
 
 Cols = Mapping[str, torch.Tensor]
 
+#: synthetic column carrying per-row signed multiplicities through the
+#: blocked scan (maintained views' delta weights are blocked like the
+#: relation's own columns)
+ROW_WEIGHT = "__row_weight__"
 
-def block_columns(rel_cols: Cols, block_size: int):
-    """Reshape relation columns into scan blocks: returns
-    ``(cols_blocked, n_blocks, B, n_pad)`` where every column becomes
-    ``(n_blocks, B)``, the last block padded with zeros."""
+
+def block_columns(rel_cols: Cols, block_size: int,
+                  weights: Optional[torch.Tensor] = None):
+    """Reshape relation columns (and optional ``(n,)`` row weights, under
+    :data:`ROW_WEIGHT`) into scan blocks: returns ``(cols_blocked,
+    n_blocks, B, n_pad)`` where every column becomes ``(n_blocks, B)``,
+    the last block padded with zeros."""
     n_pad = int(next(iter(rel_cols.values())).shape[0])
     B = min(block_size, max(n_pad, 1))
     n_blocks = max(-(-n_pad // B), 1)
     pad = n_blocks * B - n_pad
+    cols = dict(rel_cols)
+    if weights is not None:
+        cols[ROW_WEIGHT] = weights.to(torch.float32)
     cols_blocked = {}
-    for a, c in rel_cols.items():
+    for a, c in cols.items():
         if pad:
             c = torch.cat([c, c.new_zeros(pad)])
         cols_blocked[a] = c.reshape(n_blocks, B)
     return cols_blocked, n_blocks, B, n_pad
 
 
-def block_validity(blk_i: int, B: int, n_valid: int,
-                   device: torch.device) -> torch.Tensor:
+def block_validity(blk_i: int, B: int, n_valid: int, device: torch.device,
+                   weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,) float mask of the block's rows below ``n_valid`` — zero on the
     padded rows of the last block, whose codes are 0 and would otherwise
-    land in segment 0."""
+    land in segment 0 — times the block's signed row ``weight`` if
+    given."""
     row_idx = blk_i * B + torch.arange(B, device=device)
-    return (row_idx < n_valid).to(torch.float32)
+    valid = (row_idx < n_valid).to(torch.float32)
+    return valid if weight is None else valid * weight
 
 
 def align(x: torch.Tensor, src_axes: Tuple[str, ...],

@@ -108,9 +108,16 @@ class CudaBackend:
 
     def run_step(self, prog: StepProgram, rel_cols: Mapping[str, torch.Tensor],
                  arrays: Dict[int, torch.Tensor], params: Params, *,
-                 n_valid: int, config, n_nodes: Optional[int] = None) -> None:
+                 n_valid: int, config, n_nodes: Optional[int] = None,
+                 weights: Optional[torch.Tensor] = None) -> None:
+        """``weights`` (optional, (n_rows,) float) multiply each row's
+        contribution — signed multiplicities of a maintained view's delta
+        scan (+1 insert, -1 delete, 0 padding).  They fold into the
+        validity before any payload or cond is formed, so every kernel
+        sees the same contract as on an unweighted scan."""
         cols_blocked, n_blocks, B, _ = common.block_columns(
-            rel_cols, config.block_size)
+            rel_cols, config.block_size, weights)
+        w_blocked = cols_blocked.pop(common.ROW_WEIGHT, None)
         device = next(iter(rel_cols.values())).device
         hist_views, buckets = step_split(prog)
 
@@ -118,7 +125,9 @@ class CudaBackend:
             """Per row block: (columns, gathered child slices, validity)."""
             for blk_i in range(n_blocks):
                 blk_cols = {a: c[blk_i] for a, c in cols_blocked.items()}
-                valid = common.block_validity(blk_i, B, n_valid, device)
+                valid = common.block_validity(
+                    blk_i, B, n_valid, device,
+                    None if w_blocked is None else w_blocked[blk_i])
                 gathered = common.gather_children(prog.gathers, blk_cols,
                                                   arrays, B)
                 yield blk_cols, gathered, valid

@@ -1,6 +1,6 @@
 """Executable plan: IR build -> shared-scan schedule -> backend lowering;
-counterpart of ``repro/core/plan.py`` (batch subset: no autotune, no plan
-verifier, no sharded psum, no ``bind_arrays``).
+counterpart of ``repro/core/plan.py`` (no autotune, no plan verifier, no
+sharded psum).
 
   * ``ir.py`` compiles each view group into a typed :class:`GroupProgram`;
   * ``schedule.py`` fuses same-relation, dependency-independent groups into
@@ -70,6 +70,7 @@ class ExecutablePlan:
         # param-batch (node) axis bookkeeping
         self.batched_vids = compute_batched_vids(result.views)
         self.batched_params = batched_param_names(result.views)
+        self._col_indices: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
     def n_kernel_launches(self) -> int:
         """Static kernel-launch *sites* per full pass (distinct kernels one
@@ -95,6 +96,27 @@ class ExecutablePlan:
 
         return run
 
+    def bind_arrays(self, n_rows: Dict[str, int]):
+        """Like :meth:`bind`, but the returned fn(columns, params) yields
+        *every* materialized view tensor keyed by vid, not just the query
+        outputs: the full scan of a maintained batch (``core/ivm.py``),
+        which keeps these tensors as its state.  ``n_rows`` are the
+        relations' valid row counts (their columns may run past them).
+        Maintained batches have no param-batch axis."""
+        n_rows = dict(n_rows)
+
+        def run(columns: Columns, params: Params):
+            return self._run_steps(columns, params, n_rows, None)
+
+        return run
+
+    def resolve_delta_configs(self, steps, n_rows: Sequence[int]) -> List[PlanConfig]:
+        """One :class:`PlanConfig` per delta step of a maintained batch
+        (``core/ivm.py``); ``n_rows[i]`` is step i's scan length.  The port
+        has no autotuner, so every step runs the session's config (the
+        reference's fixed-blocking branch)."""
+        return [self.config] * len(steps)
+
     def _run_steps(self, columns: Columns, params: Params,
                    n_rows: Dict[str, int],
                    n_nodes: Optional[int]) -> Dict[int, torch.Tensor]:
@@ -111,7 +133,7 @@ class ExecutablePlan:
         out = {}
         for qname, qo in self.result.outputs.items():
             arr = arrays[qo.vid]
-            cols = arr[..., list(qo.cols)]
+            cols = arr.index_select(-1, self._col_index(qname, arr.device))
             # canonical axis order -> user group-by order; a leading node
             # axis (batched outputs) stays in front
             lead = 1 if qo.vid in self.batched_vids else 0
@@ -120,6 +142,18 @@ class ExecutablePlan:
             perm = list(range(lead)) + perm + [lead + len(qo.query.group_by)]
             out[qname] = cols.permute(perm)
         return out
+
+    def _col_index(self, qname: str, device: torch.device) -> torch.Tensor:
+        """The output's view columns as an index tensor on ``device``, made
+        once: a Python list as an index would cross to the card (and sync)
+        on every read."""
+        key = (qname, device)
+        idx = self._col_indices.get(key)
+        if idx is None:
+            idx = torch.tensor(self.result.outputs[qname].cols,
+                               dtype=torch.int64, device=device)
+            self._col_indices[key] = idx
+        return idx
 
 
 # ---------------------------------------------------------------------------

@@ -66,8 +66,7 @@
 //     once straight from global memory (a row is read once, whole, in
 //     128-byte passes; a HIST lane loads one cond and forms its three
 //     values), the rows of one segment summed in registers, and each
-//     segment's sum added with compare-and-swaps issued together, retrying
-//     only those another warp got to first.  Sorting matters on skewed
+//     segment's sum added with atomicAdd.  Sorting matters on skewed
 //     keys: Retailer's locn puts a quarter of the fact rows on 124 of the
 //     4,960 segments, and rows of one segment in flight at once made each
 //     other retry.  A row is whole only where its values lie together: the
@@ -232,7 +231,7 @@ __device__ __forceinline__ Col column(const Src& s, int c) {
 
 // Adds v[i] into *dst[i] for every dst[i] that is set, each with the
 // compiler's shared-memory atomicAdd (a spin on a compare-and-swap, one add
-// after another): the one-block modes, whose adds meet few others.
+// after another): the one-block modes.
 template <int M>
 __device__ __forceinline__ void add_each(float* (&dst)[M], const float (&v)[M]) {
 #pragma unroll
@@ -453,9 +452,11 @@ struct Walk {
 // flight.  Accumulator column of (pass q, lane, value k): c0 + U (32 q +
 // lane) + k within the tile.  It loads kBatch rows' values at once
 // straight from global memory, sums the rows of one segment in registers,
-// then adds each segment's sums: it reads the accumulator words, issues the
-// compare-and-swaps at once, and retries only those another add got to
-// first.
+// then adds each segment's sums with atomicAdd.  (Compare-and-swaps issued
+// together, retrying only those another add got to first, ran about as
+// fast on the covar plan's reductions of random values, but slowed down
+// many times on values whose sums repeat, as small integers do: a
+// maintained covar's one-hot columns times +-1 row weights.)
 template <int U, int P>
 __device__ __forceinline__ void walk(const Params& p, const Item& m, const Walk<U>& w,
                                      float* acc, const int2* lst, int lo, int hi, int64_t a,
@@ -524,23 +525,9 @@ __device__ __forceinline__ void walk(const Params& p, const Item& m, const Walk<
 #pragma unroll
         for (int k = 0; k < U; ++k) {
           const int c = c0 + U * (32 * q + lane) + k;
-          unsigned seen[kBatch], got[kBatch];
 #pragma unroll
           for (int u = 0; u < kBatch; ++u)
-            if (dst[u]) seen[u] = __float_as_uint(dst[u][c]);
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u)
-            if (dst[u])
-              got[u] = atomicCAS(reinterpret_cast<unsigned*>(dst[u] + c), seen[u],
-                                 __float_as_uint(__uint_as_float(seen[u]) + v[u][q][k]));
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u)
-            if (dst[u])
-              while (got[u] != seen[u]) {
-                seen[u] = got[u];
-                got[u] = atomicCAS(reinterpret_cast<unsigned*>(dst[u] + c), seen[u],
-                                   __float_as_uint(__uint_as_float(seen[u]) + v[u][q][k]));
-              }
+            if (dst[u]) atomicAdd(dst[u] + c, v[u][q][k]);
         }
       }
     }

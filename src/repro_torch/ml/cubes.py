@@ -1,16 +1,18 @@
 """Data cubes (paper §2, eq. (6)): 2^k group-by aggregates, v measures each;
-counterpart of ``repro/ml/cubes.py`` (batch part).
+counterpart of ``repro/ml/cubes.py``.
 
-Two evaluation paths:
+Three evaluation paths:
   * ``cube_via_engine`` — all 2^k subset queries as one LMFAO batch (the
     paper's path; view merging shares the per-edge count views across cells);
   * ``cube_rollup`` — beyond-paper: compute only the finest cell with the
     engine, then roll coarser cells up the lattice by marginalizing axes
-    (classic Harinarayan-style reuse, exact for SUM measures).
-Tests assert the paths agree.  The reference's third path, the incremental
-``StreamingCube``, needs view maintenance, which the port does not have yet.
+    (classic Harinarayan-style reuse, exact for SUM measures);
+  * ``StreamingCube`` — incremental mode: every cell stays live under
+    insert/delete batches through maintained views (``core/ivm.py``),
+    exact for the SUM measures the cube is built from.
+Tests assert the paths agree.
 
-Both thread the session's :class:`~repro_torch.api.ExecutionConfig`:
+All three thread the session's :class:`~repro_torch.api.ExecutionConfig`:
 ``backend``/``block_size``/``multi_root`` select the execution path, or an
 open ``database`` session is reused (its config and device win).
 """
@@ -25,6 +27,7 @@ import numpy as np
 from repro_torch.api import Database, ExecutionConfig, connect
 from repro_torch.core.aggregates import query, sum_of
 from repro_torch.data.datasets import Dataset
+from repro_torch.data.relations import DeltaBatchUpdate
 
 
 def cube_name(subset: Sequence[str]) -> str:
@@ -63,6 +66,37 @@ def cube_via_engine(ds: Dataset, dims: Sequence[str], measures: Sequence[str],
                     device="cuda") -> Dict[str, np.ndarray]:
     return _run(_session(ds, database, config, multi_root, block_size,
                          backend, device), cube_queries(dims, measures))
+
+
+class StreamingCube:
+    """All 2^k cube cells maintained incrementally under data changes.
+
+        cube = StreamingCube(ds, dims, measures)   # full scan once
+        cube.update(DeltaBatchUpdate().insert(...))
+        cube.cells()[cube_name(("city",))]
+
+    Queries are rooted at the fact table, so fact-only streams maintain every
+    cell by scanning just the delta tuples."""
+
+    def __init__(self, ds: Dataset, dims: Sequence[str], measures: Sequence[str],
+                 backend: str = "cuda", block_size: int = 1 << 20,
+                 config: Optional[ExecutionConfig] = None,
+                 database: Optional[Database] = None, device="cuda"):
+        qs = cube_queries(dims, measures)
+        db = _session(ds, database, config, True, block_size, backend, device)
+        self.view = db.views(qs, maintain=True,
+                             roots={q.name: ds.fact for q in qs},
+                             warm_rels=(ds.fact,))
+        self.maintained = self.view.maintained
+        self.view.run()                        # full scan -> epoch 0
+
+    def update(self, update: DeltaBatchUpdate) -> Dict[str, np.ndarray]:
+        self.view.apply(update)
+        return self.cells()
+
+    def cells(self) -> Dict[str, np.ndarray]:
+        return {k: v.cpu().numpy().astype(np.float64)
+                for k, v in self.view.results().items()}
 
 
 def cube_rollup(ds: Dataset, dims: Sequence[str], measures: Sequence[str],

@@ -17,12 +17,18 @@ import torch
 
 from repro_torch import configs
 from repro_torch.api import ExecutionConfig, connect
+from repro_torch.core.aggregates import (COUNT, Delta, Pow, Var, agg, query,
+                                         sum_of)
+from repro_torch.core.schema import schema
 from repro_torch.data import datasets as TD
+from repro_torch.data.relations import (DeltaBatchUpdate, Relation,
+                                        ResidentRelation, next_pow2)
 from repro_torch.kernels import covar_xtx as kxtx
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import seg_aggregate as kseg
-from repro_torch.ml.covar import compute_covar
+from repro_torch.ml.covar import assemble_covar, compute_covar
 from repro_torch.ml.covar_fused import make_fused_covar
+from repro_torch.ml.online import OnlineRidge
 from repro_torch.ml.trees import DecisionTree
 from repro_torch.models import model as M
 from repro_torch.models.layers import init_params
@@ -550,6 +556,147 @@ def test_covar_on_card_matches_cpu(cuda_device, fuse_kernels):
         assert launched["fused_scan_block"] > 0
     else:
         assert launched["seg_aggregate"] > 0 and launched["tree_hist"] > 0
+
+
+def _fact_updates(ds, n_ticks, seed=0, frac=0.01):
+    """``frac`` of the fact rows inserted (drawn with replacement) and as
+    many distinct rows deleted, ``n_ticks`` times (benchmarks/bench_ivm.py)."""
+    rng = np.random.default_rng(seed)
+    fact = ds.tables[ds.fact]
+    n = len(next(iter(fact.values())))
+    k = max(int(n * frac), 1)
+    out = []
+    for _ in range(n_ticks):
+        pick = rng.integers(0, n, k)
+        out.append(DeltaBatchUpdate()
+                   .insert(ds.fact, {a: c[pick] for a, c in fact.items()})
+                   .delete(ds.fact, rng.choice(n, k, replace=False)))
+    return out
+
+
+def test_ivm_steady_tick_syncs_nothing(cuda_device):
+    """OnlineRidge's maintained covar on the card: after two warm ticks,
+    four equal-shape 1% fact ticks run under sync_debug_mode "error" (no
+    host sync) and build no tick runner; the maintained covar then agrees
+    with a fresh pass over the post-update relations."""
+    ds = TD.make("retailer", scale=1.0)
+    db = connect(ds, config=ExecutionConfig(block_size=1 << 14), device=cuda_device)
+    olr = OnlineRidge(ds, database=db)
+    olr.fit()
+    mb = olr.maintained
+    updates = _fact_updates(ds, 6)
+    for upd in updates[:2]:
+        olr.view.apply(upd)
+    builds = mb.n_fold_traces
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for upd in updates[2:]:
+            out = olr.view.apply(upd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert mb.n_fold_traces == builds
+    # a tick's 1,024 + 1,024 delta rows are one block of 2¹⁴
+    assert ops.LAUNCHES["fused_scan_block"] == 4
+    C, N = assemble_covar({k: v.cpu().numpy() for k, v in out.items()}, olr.layout)
+    Cf, Nf = assemble_covar({k: v.cpu().numpy() for k, v in mb.batch(mb.db).items()},
+                            olr.layout)
+    assert N == Nf == 60_000
+    d = np.sqrt(np.outer(np.diag(Cf), np.diag(Cf)))
+    assert (np.abs(C - Cf) / d).max() <= 1e-4
+
+
+def test_compaction_at_capacity_2_24(cuda_device):
+    """ResidentRelation.advance at a capacity of 2²⁴: 1% of the rows
+    deleted (pads at the capacity) and as many appended, row for row
+    against a numpy boolean-mask delete; the old buffers untouched."""
+    n, k = 12_000_000, 120_000
+    rng = np.random.default_rng(0)
+    cols = {"a": rng.integers(0, 1000, n).astype(np.int32),
+            "u": rng.normal(size=n).astype(np.float32)}
+    ins = {"a": rng.integers(0, 1000, k).astype(np.int32),
+           "u": rng.normal(size=k).astype(np.float32)}
+    dels = rng.choice(n, k, replace=False)
+    rr = ResidentRelation.from_relation(Relation(
+        "T", {a: torch.from_numpy(c).to(cuda_device) for a, c in cols.items()}))
+    assert rr.capacity == 1 << 24
+    pad = next_pow2(k)
+    got = rr.advance(
+        {a: torch.from_numpy(np.pad(c, (0, pad - k))).to(cuda_device) for a, c in ins.items()},
+        torch.from_numpy(np.pad(dels, (0, pad - k), constant_values=rr.capacity)).to(cuda_device),
+        k, k)
+    keep = np.ones(n, bool)
+    keep[dels] = False
+    assert got.n_valid == n and got.capacity == rr.capacity
+    for a, c in cols.items():
+        np.testing.assert_array_equal(got.columns()[a].cpu().numpy(),
+                                      np.concatenate([c[keep], ins[a]]), err_msg=a)
+        np.testing.assert_array_equal(rr.columns()[a].cpu().numpy(), c, err_msg=a)
+
+
+@pytest.mark.parametrize("fuse_kernels", [True, False])
+def test_weighted_delta_scan_matches_plain(cuda_device, fuse_kernels):
+    """Every step of a batch scanned with row weights of -1, 0 and +1,
+    through fused_scan_block (fused) or seg_aggregate (unfused) on the
+    card and through the plain versions on the CPU.  Integer-valued data:
+    every sum is an integer below 2²⁴, exact in float32 in any order, so
+    the two agree exactly."""
+    rng = np.random.default_rng(1)
+    spec = ([("x1", "categorical", 3), ("x2", "key", 40), ("x3", "key", 50),
+             ("x4", "categorical", 7), ("u", "continuous", 0)],
+            [("R1", ["x1", "x2"]), ("R2", ["x2", "x3", "u"]), ("R3", ["x3", "x4"])])
+    sizes = {"R1": 517, "R2": 70_001, "R3": 313}
+    tables = {"R1": {"x1": rng.integers(0, 3, 517), "x2": rng.integers(0, 40, 517)},
+              "R2": {"x2": rng.integers(0, 40, 70_001), "x3": rng.integers(0, 50, 70_001),
+                     "u": rng.integers(-3, 4, 70_001).astype(np.float32)},
+              "R3": {"x3": rng.integers(0, 50, 313), "x4": rng.integers(0, 7, 313)}}
+    qs = [query("q_count", [], [COUNT]),
+          query("q_sums", [], [sum_of("u"), agg(Pow("u", 2))]),
+          query("q_g", ["x1", "x4"], [COUNT, sum_of("u")]),
+          query("q_delta", ["x4"], [agg(Var("u"), Delta("x1", "==", 1))])]
+    weights = {r: rng.integers(-1, 2, n).astype(np.float32) for r, n in sizes.items()}
+    cfg = ExecutionConfig(block_size=1 << 14, fuse_kernels=fuse_kernels)
+    arrays = {}
+    for device in ("cpu", cuda_device):
+        sess = connect(schema(*spec), tables=tables, config=cfg, device=device)
+        plan = sess.views(qs).compiled.plan
+        out = {}
+        ops.reset_launches()
+        for step, prog in zip(plan.schedule.steps, plan.step_programs):
+            plan.backend.run_step(
+                prog, sess.data.relation(step.rel).columns, out, {},
+                n_valid=sizes[step.rel], config=plan.config,
+                weights=torch.from_numpy(weights[step.rel]).to(device))
+        arrays[str(device)] = {vid: v.cpu() for vid, v in out.items()}
+    launched = dict(ops.LAUNCHES)
+    assert launched["fused_scan_block" if fuse_kernels else "seg_aggregate"] > 0
+    cpu, card = arrays["cpu"], arrays[str(cuda_device)]
+    assert cpu.keys() == card.keys()
+    for vid in cpu:
+        assert torch.equal(card[vid], cpu[vid]), vid
+
+
+def test_ivm_pinned_epoch_bitwise_across_apply(cuda_device):
+    """A pinned epoch's results and relation buffers on the card are
+    bitwise unchanged after an apply publishes the next epoch."""
+    ds = TD.make("retailer", scale=0.5)
+    db = connect(ds, config=ExecutionConfig(block_size=4096), device=cuda_device)
+    olr = OnlineRidge(ds, database=db)
+    olr.fit()
+    mb = olr.maintained
+    upd, = _fact_updates(ds, 1, seed=3)
+    with mb.pinned() as e:
+        before = {k: v.clone() for k, v in mb.results(epoch=e).items()}
+        bufs = {name: {a: c.clone() for a, c in rr.buffers.items()}
+                for name, rr in mb.epoch_state(e).relations.items()}
+        olr.view.apply(upd)
+        assert mb.epoch == e + 1
+        for k, v in mb.results(epoch=e).items():
+            assert torch.equal(v, before[k]), k
+        for name, rr in mb.epoch_state(e).relations.items():
+            for a, c in rr.buffers.items():
+                assert torch.equal(c, bufs[name][a]), (name, a)
 
 
 @pytest.mark.parametrize("fuse_kernels", [True, False])
