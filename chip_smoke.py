@@ -63,7 +63,24 @@ Phases, one JSON line each (``{"phase": ...}``):
                a snapshot restored into a fresh handle bitwise; then
                ``StreamingCube`` over the cubes phase's cube for two of the
                ticks, per cell against a float64 ``index_add_`` oracle.
- 13. lm.f32  — internlm2-1.8b at full width and depth in float32, random
+ 13. serve   — ad-hoc query serving over the same resident tables: a second
+               session (route cache of 2) with ``wide`` (date × locn × sku:
+               COUNT, Σinventoryunits, Σmaxtemp) maintained and served and
+               ``by_cat`` a batch view; routed requests in every tier
+               (exact and subsumed from the maintained epoch, exact on the
+               batch view's scan, compiled misses churning the cache, an
+               untagged UDAF's fallback scan) against float64 oracles of the
+               gathered join, with ``fused_scan_block`` launches per request
+               (none on the hit tiers) and the widest launch of the first
+               miss held against its plain version; caller latencies with the
+               writer idle and running; 1% fact ticks through
+               ``ViewServer.apply`` while the hit tiers route, all under
+               ``set_sync_debug_mode("error")``, the routed answers against a
+               float64 re-aggregation of their own epoch's view; a snapshot
+               held across publishes (bitwise), a checkpoint taken while the
+               writer runs and restored bitwise; a traced round whose chrome
+               export (``build/serve_trace.json``) holds the engine's spans.
+ 14. lm.f32  — internlm2-1.8b at full width and depth in float32, random
                weights from ``--seed`` on the card: the prefill
                ``forward(impl="flash")`` against ``forward(impl="dense")``
                (B = 2, S = 4096), ``BatchedServer.generate`` (batch 8,
@@ -71,7 +88,7 @@ Phases, one JSON line each (``{"phase": ...}``):
                ``decode_step`` logits at all 128 positions against the flash
                forward over the same sequence; 24 kernel launches a forward,
                none in decode.
- 14. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
+ 15. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
                tokens/s at B = 4, S = 4096 against the dense prefill, warm
                ``generate`` walls (ms per decode step), peak memory, and a
                device breakdown of one prefill and of a short decode; then
@@ -199,6 +216,19 @@ IVM_CUBE_TICKS = 2
 #: ivm: the median steady tick must take less than this share of a full
 #: recompute's wall (a tick scans 2 of the pass's 81 fact blocks)
 IVM_TICK_RATIO = 0.5
+#: serve: rounds of the four maintained requests behind the idle
+#: percentiles, the writer's ticks in each concurrent window, and the most
+#: routes a window's reader makes (each q_exact answer is a copy of the
+#: 28.6 MB view, kept until the window's checks)
+SERVE_ROUNDS = 50
+SERVE_TICKS = 4
+SERVE_MAX_ROUTES = 200
+#: serve: the spans its traced round must hold: tests/test_obs.py's set,
+#: the verifier's and the checkpoint's
+SERVE_SPANS = frozenset({
+    "compile", "compile.roots", "compile.pushdown", "compile.group", "compile.ir",
+    "compile.schedule", "compile.bind", "ivm.init", "ivm.apply", "ivm.validate",
+    "ivm.tick", "ivm.publish", "serve.read", "compile.verify", "serve.checkpoint"})
 #: polyreg: the training RMSE of θ (on the oracle's statistics) against the
 #: oracle θ's, relative.  θ itself is not held to a bound: 45 monomials of 8
 #: features that take 30 to 4,960 distinct values are nearly collinear, and
@@ -689,6 +719,7 @@ class FactJoin:
         self.home = {a: r for r, cols in (("Weather", wea), ("Location", loc), ("Census", cen), ("Items", itm))
                      for a in cols}
         self.n = inv["date"].shape[0]
+        self.device = inv["date"].device
         self.chunk = chunk
 
     def chunks(self):
@@ -1711,6 +1742,489 @@ def ivm_phase(ds, db, seed: int, card_line: str):
     return launches_total
 
 
+# ---------------------------------------------------------------- serve
+
+def serve_requests():
+    """The routed requests of the serve phase: (query, expected tier); one
+    round is these five in order."""
+    from repro_torch.core.aggregates import COUNT, query, sum_of
+
+    return {
+        "q_exact": (query("q_exact", ["sku", "locn", "date"],
+                          [sum_of("maxtemp"), COUNT, sum_of("inventoryunits")]), "exact"),
+        "q_locn": (query("q_locn", ["locn"], [COUNT, sum_of("inventoryunits")]), "subsumed"),
+        "q_date_sku": (query("q_date_sku", ["sku", "date"], [sum_of("maxtemp")]), "subsumed"),
+        "q_total": (query("q_total", [], [COUNT]), "subsumed"),
+        "q_cat": (query("q_cat", ["category"], [sum_of("prize"), COUNT]), "exact"),
+    }
+
+
+def group_oracle(join, schema, specs):
+    """Float64 group-bys of the gathered join, on its device, in one pass:
+    ``specs`` maps a name to ``(group_by, values)``, a value ``None`` (a
+    count) or an attribute; returns per name ``(sums, Σ|terms|)`` shaped
+    ``(*domains, len(values))``."""
+    import math
+
+    import torch
+
+    out = {}
+    for name, (gb, vals) in specs.items():
+        dom = [schema.domain(a) for a in gb]
+        out[name] = torch.zeros((math.prod(dom), 2 * len(vals)), dtype=torch.float64,
+                                device=join.device)
+    for m, col in join.chunks():
+        for name, (gb, vals) in specs.items():
+            flat = torch.zeros((m,), dtype=torch.int64, device=join.device)
+            for a in gb:
+                flat = flat * schema.domain(a) + col(a).long()
+            v = torch.stack([torch.ones((m,), dtype=torch.float64, device=join.device)
+                             if a is None else col(a).double() for a in vals], 1)
+            out[name].index_add_(0, flat, torch.cat([v, v.abs()], 1))
+    res = {}
+    for name, (gb, vals) in specs.items():
+        t = out[name].view(*[schema.domain(a) for a in gb], 2 * len(vals))
+        res[name] = (t[..., :len(vals)], t[..., len(vals):])
+    return res
+
+
+def reaggregate(t, src_dims, dims, cols):
+    """``t`` (*src domains, k) summed over the source dims not in ``dims``,
+    its axes put in ``dims`` order and its columns ``cols`` picked."""
+    import torch
+
+    drop = tuple(i for i, d in enumerate(src_dims) if d not in dims)
+    if drop:
+        t = t.sum(dim=drop)
+    kept = [d for d in src_dims if d in dims]
+    t = t.permute(*[kept.index(d) for d in dims], len(kept))
+    return t.index_select(-1, torch.tensor(cols, device=t.device))
+
+
+def held(what, got, want, scale):
+    """|got − want| ≤ STAT_TOL · Σ|terms| in every cell; returns the worst
+    ratio."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = (got.double() - want).abs()
+    worst = float((err / scale.clamp_min(1e-300)).max()) if err.numel() else 0.0
+    check(bool((err <= STAT_TOL * scale).all()),
+          f"{what}: {worst:.3e} of Σ|terms| off the float64 oracle > {STAT_TOL}")
+    return worst
+
+
+def percentiles(us):
+    import numpy as np
+
+    return dict(n=len(us), p50_us=float(np.percentile(us, 50)) if us else None,
+                p99_us=float(np.percentile(us, 99)) if us else None)
+
+
+class CaptureLaunch:
+    """``with CaptureLaunch() as cap:`` keeps the reductions of the widest
+    ``fused_scan_parts`` launch made in the block (the main path's launch
+    itself runs and counts as it would)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._ops, self._orig = ops, ops.fused_scan_parts
+        self.reds = None
+
+        def capture(reds):
+            reds = tuple(reds)
+            if self.reds is None or reds[0].codes.shape[0] > self.reds[0].codes.shape[0]:
+                self.reds = reds
+            return self._orig(reds)
+
+        ops.fused_scan_parts = capture
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.fused_scan_parts = self._orig
+        return False
+
+
+def captured_case(reds, label, rates):
+    """A captured launch of the main path against its plain version on the
+    same inputs, timed with the plain version, the sum of one
+    ``index_add_`` per reduction on payloads packed beforehand, and the
+    least time the card could take."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    bw, flops = rates[0], rates[1]
+    n = reds[0].codes.shape[0]
+    absr = tuple(ops.Parts(r.kind, r.codes, (r.parts[0], r.parts[1].abs()), r.n_segments)
+                 if r.kind == "hist" else
+                 ops.Parts(r.kind, r.codes, tuple(ops.Part(p.values.abs(), p.ocol, p.ostride)
+                                                  for p in r.parts), r.n_segments, r.width)
+                 for r in reds)
+    got = ops.fused_scan_parts(reds)
+    want = ref.fused_scan_parts_ref(reds)
+    abs_want = ref.fused_scan_parts_ref(absr)
+    torch.cuda.synchronize()
+    max_abs, max_rel = compare(got, want, abs_want, f"fused_scan_parts[{label}]")
+    sids, pays, outs, nbytes, n_ops, codes_seen = [], [], [], 0, 0, set()
+    for r, o in zip(reds, got):
+        ok = (r.codes >= 0) & (r.codes < r.n_segments)
+        sids.append(torch.where(ok, r.codes, torch.zeros_like(r.codes)).long())
+        if r.kind == "hist":
+            cond, y = r.parts
+            yk = torch.stack([torch.ones_like(y), y, y * y], 1)
+            pay = (cond[:, :, None] * yk[:, None, :]).reshape(n, -1)
+            nbytes += 4 * (cond.numel() + y.numel())
+        else:
+            pay = torch.zeros((n, r.out_width), device=r.codes.device)
+            for p in r.parts:
+                v = p.values.reshape(n, -1)
+                pay[:, p.ocol + p.ostride * torch.arange(v.shape[1], device=v.device)] = v
+                nbytes += 4 * v.shape[1] * (n if p.values.stride(0) != 0 else 1)
+        pays.append((pay * ok[:, None].float()).contiguous())
+        outs.append(torch.zeros_like(o))
+        if r.codes.data_ptr() not in codes_seen:
+            codes_seen.add(r.codes.data_ptr())
+            nbytes += 4 * n
+        nbytes += 4 * o.numel()
+        n_ops += int(ok.sum()) * r.out_width * (2 if r.kind == "hist" else 1)
+
+    def library():
+        for o, i, p in zip(outs, sids, pays):
+            o.index_add_(0, i, p)
+
+    case = dict(case=label, form="parts", n=n,
+                specs=[[r.kind, r.n_segments, len(r.parts), r.out_width] for r in reds],
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                ms=cuda_ms(lambda: ops.fused_scan_parts(reds)),
+                plain_ms=cuda_ms(lambda: ref.fused_scan_parts_ref(reds)),
+                library_ms=cuda_ms(library),
+                library_call="the sum of one index_add_ per reduction on payloads packed beforehand",
+                **bound(nbytes, n_ops, bw, flops))
+    return case
+
+
+def serve_phase(ds, db, join, seed: int, card_line: str, rates):
+    """Ad-hoc query serving over the resident Retailer tables: a second
+    session (route cache of 2) with ``wide`` maintained and served and
+    ``by_cat`` registered as a batch view; the routed requests of
+    ``serve_requests`` in every tier against float64 oracles of the
+    gathered join; compiled misses churning the cache; latencies with the
+    writer idle and running; 1% fact ticks through ``ViewServer.apply``
+    while the hit tiers route, all under ``set_sync_debug_mode("error")``;
+    a snapshot held across publishes; a checkpoint taken while the writer
+    runs and restored bitwise; a traced round and its chrome export."""
+    import json as _json
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.api import ExecutionConfig, connect
+    from repro_torch.core import subsume
+    from repro_torch.core.aggregates import COUNT, Lambda, agg, query, sum_of
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    schema = ds.schema
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    updates = fact_updates(ds, seed + 1, 3 + 2 * SERVE_TICKS + 1)
+    fact = ds.fact
+
+    # the routing session over the same resident tables (no copy)
+    db2 = connect(db.data, config=ExecutionConfig(block_size=db.config.block_size,
+                                                  route_cache_capacity=2),
+                  edges=ds.edges)
+    check(db2.data is db.data, "serve: the routing session copied the tables")
+    wide_q = query("wide", ["date", "locn", "sku"],
+                   [COUNT, sum_of("inventoryunits"), sum_of("maxtemp")])
+    wide_dims = tuple(wide_q.group_by)
+    t0 = time.perf_counter()
+    wide_h = db2.views([wide_q], maintain=True)
+    srv = wide_h.serve(max_pinned_epochs=4, warn_epoch_lag=2)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    by_cat = db2.views([query("by_cat", ["category"], [COUNT, sum_of("prize")])])
+    mb = wide_h.maintained
+    reqs = serve_requests()
+
+    # float64 oracles of the gathered join (the tables before any tick)
+    t0 = time.perf_counter()
+    misses = {"q_rgn": ["rgn_cd"], "q_clim": ["clim_zn"], "q_subcat": ["subcategory"]}
+    orc = group_oracle(join, schema, dict(
+        wide=(list(wide_dims), [None, "inventoryunits", "maxtemp"]),
+        q_cat=(["category"], ["prize", None]),
+        q_anon=(["rain"], ["inventoryunits"]),
+        **{k: (gb, [None]) for k, gb in misses.items()}))
+    W, Wa = orc["wide"]
+    cols_of = {"q_exact": (["sku", "locn", "date"], [2, 0, 1]),
+               "q_locn": (["locn"], [0, 1]), "q_date_sku": (["sku", "date"], [2]),
+               "q_total": ([], [0])}
+    for name, (dims, cols) in cols_of.items():
+        orc[name] = (reaggregate(W, wide_dims, dims, cols),
+                     reaggregate(Wa, wide_dims, dims, cols))
+    orc["q_anon"] = (2 * orc["q_anon"][0], 2 * orc["q_anon"][1])
+    oracle_s = time.perf_counter() - t0
+    errs = {"wide": held("serve: wide", srv.read("wide"), W, Wa)}
+
+    def route(q, sync=True):
+        """One routed request: (result, caller wall µs, kernel launches)."""
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r = db2.route(q)
+        if sync:
+            torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e6, dict(ops.LAUNCHES)
+
+    # round 1 (cold): every tier against its oracle, launches per request
+    first = {}
+    for name, (q, tier) in reqs.items():
+        r, us, launched = route(q)
+        check(r.tier == tier, f"serve: {name} routed {r.tier}, expected {tier}")
+        errs[name] = held(f"serve: {name}", r.value, *orc[name])
+        scans = launched["fused_scan_block"]
+        check(r.scanned == (scans > 0) and (scans > 0) == (name == "q_cat"),
+              f"serve: {name} ({r.tier}, scanned={r.scanned}) launched fused_scan_block {scans}")
+        first[name] = dict(tier=r.tier, us=us, launches=scans, epoch=r.epoch)
+
+    # the cache churned: three distinct misses through capacity 2, the
+    # first again; the widest launch of the first miss kept for the kernel
+    # check below
+    churn = {}
+    for i, name in enumerate(list(misses) + ["q_rgn"]):
+        q = query(name, misses[name], [COUNT])
+        with CaptureLaunch() as cap:
+            r, us, launched = route(q)
+        if i == 0:
+            miss_reds = cap.reds
+        check(r.tier == "compiled" and launched["fused_scan_block"] > 0,
+              f"serve: miss {name} routed {r.tier}, launches {launched}")
+        errs[name] = held(f"serve: {name}", r.value, *orc[name])
+        churn[f"{name}#{i}"] = dict(us=us, launches=launched["fused_scan_block"])
+    st = db2.routing_stats()
+    check(st["n_plans_compiled"] == 4 and st["n_evictions"] >= 1
+          and st["n_admission_failures"] == 0,
+          f"serve: compiled {st['n_plans_compiled']}, evicted {st['n_evictions']}, "
+          f"admission failures {st['n_admission_failures']}")
+    anon = query("q_anon", ["rain"], [agg(Lambda(("inventoryunits",), lambda u, p: u * 2.0))])
+    r, us, launched = route(anon)
+    check(r.tier == "fallback_scan" and launched["fused_scan_block"] > 0
+          and db2.routing_stats()["cache_size"] <= 2,
+          f"serve: untagged UDAF routed {r.tier}, launches {launched}")
+    errs["q_anon"] = held("serve: q_anon", r.value, *orc["q_anon"])
+    churn["q_anon"] = dict(us=us, launches=launched["fused_scan_block"], tier=r.tier)
+    kernel_case = captured_case(miss_reds, "serve_miss_rgn_cd", rates)
+    emit("serve.kernel", name="fused_scan_block", card=card_line, **kernel_case)
+    del miss_reds
+
+    # warm, then SERVE_ROUNDS rounds of the four maintained requests, the
+    # caller syncing on each answer
+    hit = [k for k in reqs if k != "q_cat"]
+    for _ in range(2):
+        for name in reqs:
+            route(reqs[name][0])
+    idle = {name: [] for name in reqs}
+    for _ in range(SERVE_ROUNDS):
+        for name in hit:
+            r, us, launched = route(reqs[name][0])
+            check(sum(launched.values()) == 0, f"serve: {name} launched {launched}")
+            idle[name].append(us)
+    for _ in range(3):
+        idle["q_cat"].append(route(reqs["q_cat"][0])[1])
+    # one round of the hit tiers under sync-debug "error": no host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nosync = {name: db2.route(reqs[name][0]) for name in hit}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name, r in nosync.items():
+        check(r.tier == reqs[name][1], f"serve: {name} under sync-debug routed {r.tier}")
+        held(f"serve: {name} (no sync)", r.value, *orc[name])
+    del nosync
+
+    # one q_locn re-aggregation on the card against its bound: the wide
+    # view read once
+    wide_out = srv.read("wide")
+    reagg = subsume.lower_secondary(subsume.build_secondary_program(
+        subsume.view_shape_of(wide_q, schema), subsume.view_shape_of(reqs["q_locn"][0], schema)))
+    wide_bytes = wide_out.numel() * wide_out.element_size()
+    reagg_ms = cuda_ms(lambda: reagg(wide_out), reps=20)
+    reagg_bound_ms = wide_bytes / rates[0] * 1e3
+    del wide_out
+
+    # ticks with no reader: one warm, then timed from apply to the card done
+    def tick(upd):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.apply(upd)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    it = iter(updates)
+    tick(next(it))
+    idle_ticks = [tick(next(it)) for _ in range(2)]
+
+    # window 1: a writer thread folds SERVE_TICKS ticks while this thread
+    # routes q_exact / q_locn and holds a snapshot, everything under
+    # sync-debug "error"; the answers are checked after the mode is lifted
+    views_at = {mb.epoch: dict(mb.epoch_state().views)}
+    errors = []
+
+    def writer(ticks, walls, sync):
+        try:
+            for upd in ticks:
+                t0 = time.perf_counter()
+                e = srv.apply(upd)
+                if sync:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                views_at[e] = dict(mb.epoch_state().views)
+        except Exception as exc:           # surfaced by the main thread
+            errors.append(exc)
+
+    w1 = [next(it) for _ in range(SERVE_TICKS)]
+    w1_walls, routed = [], []
+    e_first = srv.epoch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = threading.Thread(target=writer, args=(w1, w1_walls, False))
+        with srv.snapshot() as snap:
+            snap_epoch = snap.epoch
+            held_first = snap["wide"]
+            held_again = None
+            t.start()
+            i = 0
+            while (t.is_alive() or i < 4) and i < SERVE_MAX_ROUTES:
+                name = ("q_exact", "q_locn")[i % 2]
+                r = db2.route(reqs[name][0])
+                routed.append((name, r.tier, r.epoch, r.value))
+                if held_again is None and srv.epoch > snap_epoch:
+                    held_again = srv.maintained.results(epoch=snap_epoch)["wide"]
+                i += 1
+                time.sleep(0.002)
+            t.join()
+            if held_again is None:
+                held_again = srv.maintained.results(epoch=snap_epoch)["wide"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(not errors, f"serve: the writer failed: {errors}")
+    e_last = srv.epoch
+    check(e_last == e_first + SERVE_TICKS, f"serve: epochs {e_first} -> {e_last}")
+    check(torch.equal(held_first, held_again),
+          "serve: two reads through a held snapshot differ across a publish")
+    post = {}
+    for name, tier, epoch, value in routed:
+        check(tier == reqs[name][1] and e_first <= epoch <= e_last,
+              f"serve: {name} routed {tier} at epoch {epoch}, published {e_first}..{e_last}")
+        w = mb.plan.extract_outputs(views_at[epoch])["wide"].double()
+        dims, cols = cols_of[name]
+        post[name] = max(post.get(name, 0.0), held(
+            f"serve: {name} at epoch {epoch}", value,
+            reaggregate(w, wide_dims, dims, cols), reaggregate(w.abs(), wide_dims, dims, cols)))
+    n_window1 = len(routed)
+    del routed, held_first, held_again
+
+    # window 2: the same with the caller syncing on each answer (latency
+    # with the writer running), the writer syncing on each tick, and a
+    # checkpoint taken while the writer runs
+    w2 = [next(it) for _ in range(SERVE_TICKS)]
+    w2_walls, busy, w2_epochs = [], {"q_exact": [], "q_locn": []}, set()
+    e2_first = srv.epoch
+    with tempfile.TemporaryDirectory() as tmp:
+        t = threading.Thread(target=writer, args=(w2, w2_walls, True))
+        t.start()
+        i, ckpt_s = 0, None
+        while t.is_alive() and i < SERVE_MAX_ROUTES:
+            name = ("q_exact", "q_locn")[i % 2]
+            r, us, _ = route(reqs[name][0])
+            check(r.tier == reqs[name][1], f"serve: {name} routed {r.tier} beside the writer")
+            busy[name].append(us)
+            w2_epochs.add(r.epoch)
+            if ckpt_s is None and w2_walls:
+                t0 = time.perf_counter()
+                srv.checkpoint(tmp)
+                ckpt_s = time.perf_counter() - t0
+            i += 1
+        t.join()
+        check(not errors, f"serve: the writer failed: {errors}")
+        check(ckpt_s is not None, "serve: no checkpoint taken while the writer ran")
+        check(all(e2_first <= e <= srv.epoch for e in w2_epochs),
+              f"serve: routed epochs {sorted(w2_epochs)} outside {e2_first}..{srv.epoch}")
+        other = db2.views([wide_q], maintain=True, register=False)
+        t0 = time.perf_counter()
+        other.restore(tmp)
+        restore_s = time.perf_counter() - t0
+    e_ck = other.maintained.epoch
+    want = mb.plan.extract_outputs(views_at[e_ck])["wide"]
+    check(torch.equal(other.results()["wide"], want),
+          f"serve: the checkpoint of epoch {e_ck} restores a different wide view")
+    del other, want
+
+    # a traced round: the five requests, a served read, a tick, a
+    # checkpoint, and a fresh maintained view compiled with the verifier on
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    trace_path = os.path.join(build, "serve_trace.json")
+    obs.clear_trace()
+    obs.enable_tracing()
+    try:
+        for name in reqs:
+            db2.route(reqs[name][0])
+        srv.read("wide")
+        traced_tick = tick(next(it))
+        with tempfile.TemporaryDirectory() as tmp:
+            srv.checkpoint(tmp)
+        db2.views([query("q_traced", ["rain"], [COUNT])], maintain=True,
+                  register=False, debug=True).run()
+    finally:
+        obs.disable_tracing()
+    obs.export_chrome(trace_path)
+    obs.clear_trace()
+    with open(trace_path) as f:
+        names = {e["name"] for e in _json.load(f)["traceEvents"]}
+    missing = sorted(SERVE_SPANS - names)
+    check(not missing, f"serve: the traced round lacks spans {missing}")
+
+    sst = srv.stats()
+    rst = db2.routing_stats()
+    tiers_idle = {}
+    for name, us in idle.items():
+        tiers_idle.setdefault(reqs[name][1] if name != "q_cat" else "exact (batch scan)",
+                              []).extend(us)
+    emit("serve", card=card_line, fact_rows=db.sizes()[fact],
+         wide_cells=int(np.prod([schema.domain(a) for a in wide_dims])),
+         wide_mb=wide_bytes / 1e6, start_s=start_s, oracle_s=oracle_s,
+         first_round=first, churn=churn,
+         first_miss_wall_us=churn["q_rgn#0"]["us"],
+         latency_idle={k: percentiles(v) for k, v in idle.items()},
+         latency_idle_by_tier={k: percentiles(v) for k, v in tiers_idle.items()},
+         latency_writer_running={k: percentiles(v) for k, v in busy.items()},
+         err_over_abs=errs, err_over_abs_after_ticks=post,
+         reagg_q_locn_ms=reagg_ms, reagg_bound_ms=reagg_bound_ms,
+         reagg_over_bound=reagg_ms / reagg_bound_ms,
+         tick_idle_s=idle_ticks, tick_window1_host_s=w1_walls,
+         tick_under_routing_s=w2_walls, tick_traced_s=traced_tick,
+         window1_routes=n_window1, epochs=[e_first, e_last],
+         checkpoint_s=ckpt_s, restore_s=restore_s, checkpoint_epoch=e_ck,
+         hit_rate=rst["hit_rate"], tiers=rst["tiers"],
+         n_plans_compiled=rst["n_plans_compiled"], n_evictions=rst["n_evictions"],
+         n_admission_checks=rst["n_admission_checks"],
+         n_admission_failures=rst["n_admission_failures"],
+         route_us=rst["route_us"], read_us=sst["read_us"], tick_us=sst["tick_us"],
+         pinned_epochs_hwm=sst["pinned_epochs_hwm"], n_lag_warnings=sst["n_lag_warnings"],
+         trace=os.path.relpath(trace_path, HERE), trace_spans=sorted(names),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         phase_s=time.perf_counter() - t_phase)
+    check(rst["n_admission_failures"] == 0, "serve: admission failures")
+    del db2, wide_h, srv, by_cat, mb, views_at, orc, W, Wa
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- LM
 
 #: flash_attention's cases: (label, B, H, H_kv, S, D, causal, window, dtype);
@@ -2283,7 +2797,10 @@ def main() -> int:
         # 12. incremental view maintenance, while Retailer is on the card
         ivm_phase(ds, db, args.seed, card_line)
 
-        # 13.-14. the LM prefill and serving path, after freeing Retailer
+        # 13. ad-hoc query serving over the same resident tables
+        serve_phase(ds, db, join, args.seed, card_line, rates)
+
+        # 14.-15. the LM prefill and serving path, after freeing Retailer
         del ds, db, join
         torch.cuda.empty_cache()
         lm_f32_phase(args.seed)

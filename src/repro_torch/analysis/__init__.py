@@ -1,0 +1,21 @@
+"""Static analysis over the port's compiled artifacts; counterpart of
+``repro/analysis``.
+
+:mod:`repro_torch.analysis.verify` — the execution-free plan verifier,
+plan and route half: it walks a compiled batch plan (group-program IR,
+shared-scan schedule, fused step programs) and the router's secondary
+programs, and raises structured
+:class:`~repro_torch.analysis.verify.PlanInvariantError`\\ s before
+anything runs.  The reference's linter (``repro/analysis/lint.py``) already
+covers ``src/repro_torch`` and has no copy here.
+"""
+
+from repro_torch.analysis.verify import (PlanInvariantError,
+                                         VerificationReport,
+                                         verification_enabled, verify_plan,
+                                         verify_secondary_program)
+
+__all__ = [
+    "PlanInvariantError", "VerificationReport", "verification_enabled",
+    "verify_plan", "verify_secondary_program",
+]

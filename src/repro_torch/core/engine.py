@@ -27,6 +27,7 @@ from repro_torch.core.jointree import JoinTree
 from repro_torch.core.plan import ExecutablePlan, PlanConfig
 from repro_torch.core.pushdown import PushdownResult, push_down
 from repro_torch.core.schema import DatabaseSchema
+from repro_torch.obs.trace import span
 
 
 @dataclasses.dataclass
@@ -181,25 +182,36 @@ class Engine:
     def _compile(self, queries: Sequence[Query], *,
                  block_size: int = 1 << 20, backend: str = "cuda",
                  fuse_kernels: bool = True, multi_root: bool = True,
-                 root_override: Optional[Dict[str, str]] = None) -> CompiledBatch:
+                 root_override: Optional[Dict[str, str]] = None,
+                 verify_plans: Optional[bool] = None) -> CompiledBatch:
         """Compile a query batch: multi-root pushdown (``multi_root=False``:
         every query at the one root of ``roots.single_root``;
         ``root_override``: query name -> root relation, for every query)
         and shared-scan fusion as in the reference's defaults;
         ``fuse_kernels`` gives one fused launch per step and row block;
-        ``block_size`` is the rows per launch."""
-        if root_override is not None:
-            roots = dict(root_override)
-        elif multi_root:
-            roots = roots_mod.find_roots(self.tree, queries, self.sizes)
-        else:
-            roots = roots_mod.single_root(self.tree, queries, self.sizes)
-        result = push_down(self.tree, queries, roots)
-        groups = group_views(result)
-        cfg = PlanConfig(block_size=block_size, backend=backend,
-                         fuse_kernels=fuse_kernels)
-        return CompiledBatch(self.schema, self.tree, result, groups, cfg,
-                             roots)
+        ``block_size`` is the rows per launch; ``verify_plans`` runs the
+        static plan verifier (None: under pytest or ``REPRO_VERIFY``)."""
+        with span("compile", n_queries=len(queries), backend=backend):
+            with span("compile.roots"):
+                if root_override is not None:
+                    roots = dict(root_override)
+                elif multi_root:
+                    roots = roots_mod.find_roots(self.tree, queries,
+                                                 self.sizes)
+                else:
+                    roots = roots_mod.single_root(self.tree, queries,
+                                                  self.sizes)
+            with span("compile.pushdown"):
+                result = push_down(self.tree, queries, roots)
+            with span("compile.group"):
+                groups = group_views(result)
+            cfg = PlanConfig(block_size=block_size, backend=backend,
+                             fuse_kernels=fuse_kernels,
+                             verify_plans=verify_plans)
+            # CompiledBatch builds the ExecutablePlan, which emits the
+            # compile.ir / compile.schedule / compile.verify child spans
+            return CompiledBatch(self.schema, self.tree, result, groups, cfg,
+                                 roots)
 
     def _compile_maintained(self, queries: Sequence[Query], *,
                             root_override: Optional[Dict[str, str]] = None,

@@ -1,6 +1,8 @@
 """Incremental view maintenance: delta programs over the materialized view
 DAG; counterpart of ``repro/core/ivm.py`` (single device: no mesh path, no
-static verifier hooks, no tracing spans or tick histogram).
+static verifier hooks).  The reference's spans (``ivm.init``,
+``ivm.apply``, ``ivm.validate``, ``ivm.tick``, ``ivm.publish``) and its
+``ivm.tick_us`` histogram ride along, on host clocks only.
 
 A maintained batch (``Database.views(queries, maintain=True)``) keeps every
 view's dense accumulator as **persistent state** and, per base relation,
@@ -42,6 +44,7 @@ import collections
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -57,6 +60,8 @@ from repro_torch.data.relations import (Database, DeltaBatchUpdate, Relation,
                                         ResidentRelation, _resident_advance,
                                         check_delete_idx,
                                         check_update_columns, next_pow2)
+from repro_torch.obs.metrics import Registry
+from repro_torch.obs.trace import span
 
 
 # ----------------------------------------------------------- delta derivation
@@ -309,6 +314,10 @@ class MaintainedBatch:
         self._evicted: "collections.OrderedDict[int, None]" = \
             collections.OrderedDict()
         self._evicted_floor = -1      # every evicted epoch <= this is trimmed
+        #: per-batch telemetry: ``ivm.tick_us`` is the host dispatch wall of
+        #: each ``apply`` — no sync, so it reads what the host spends
+        self.metrics = Registry()
+        self._tick_hist = self.metrics.histogram("ivm.tick_us")
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -346,16 +355,17 @@ class MaintainedBatch:
         Re-init on a live batch publishes a fresh epoch (the epoch clock
         keeps counting so pinned readers stay unambiguous).  Scans read
         each relation's live rows only."""
-        self.device = db.device
-        rels = {name: ResidentRelation.from_relation(r)
-                for name, r in db.relations.items()}
-        run = self.plan.bind_arrays({name: rr.n_valid
-                                     for name, rr in rels.items()})
-        views = dict(run({name: rr.columns() for name, rr in rels.items()},
-                         _params_on(params, self.device)))
-        prev = self._current
-        self._current = EpochState(epoch=prev.epoch + 1 if prev else 0,
-                                   step=0, views=views, relations=rels)
+        with span("ivm.init"):
+            self.device = db.device
+            rels = {name: ResidentRelation.from_relation(r)
+                    for name, r in db.relations.items()}
+            run = self.plan.bind_arrays({name: rr.n_valid
+                                         for name, rr in rels.items()})
+            views = dict(run({name: rr.columns() for name, rr in rels.items()},
+                             _params_on(params, self.device)))
+            prev = self._current
+            self._current = EpochState(epoch=prev.epoch + 1 if prev else 0,
+                                       step=0, views=views, relations=rels)
         return self.results()
 
     def epoch_state(self, epoch: Optional[int] = None) -> EpochState:
@@ -434,6 +444,12 @@ class MaintainedBatch:
         with self._pin_lock:
             return len(self._pins)
 
+    def pinned_epochs(self) -> Tuple[int, ...]:
+        """Currently pinned epoch ids (ascending) — the server derives
+        epoch lag (head minus oldest pin) from this."""
+        with self._pin_lock:
+            return tuple(sorted(self._pins))
+
     # -- delta path ----------------------------------------------------------
 
     def delta_program(self, rel: str) -> DeltaProgram:
@@ -464,58 +480,77 @@ class MaintainedBatch:
         one ``apply``; concurrent writers need external serialization."""
         cur = self._require()
         params = _params_on(params, self.device)
+        t_tick = time.perf_counter()
 
-        # phase 1 — validate the whole batch against the current epoch
-        # (host numpy on the update only; state untouched)
-        prepared = []
-        for rel in update.relations():
-            if rel not in cur.relations:
-                raise ValueError(f"update targets unknown relation {rel!r}")
-            rr = cur.relations[rel]
-            d = update.updates[rel]
-            ins = (check_update_columns(self.batch.schema, rel, d.inserts)
-                   if d.n_inserts else None)
-            del_idx = (check_delete_idx(rel, d.delete_idx, rr.n_valid)
-                       if d.n_deletes else None)
-            prepared.append((rel, ins, del_idx))
+        with span("ivm.apply", epoch=cur.epoch):
+            # phase 1 — validate the whole batch against the current epoch
+            # (host numpy on the update only; state untouched)
+            with span("ivm.validate"):
+                prepared = []
+                for rel in update.relations():
+                    if rel not in cur.relations:
+                        raise ValueError(
+                            f"update targets unknown relation {rel!r}")
+                    rr = cur.relations[rel]
+                    d = update.updates[rel]
+                    ins = (check_update_columns(self.batch.schema, rel,
+                                                d.inserts)
+                           if d.n_inserts else None)
+                    del_idx = (check_delete_idx(rel, d.delete_idx, rr.n_valid)
+                               if d.n_deletes else None)
+                    prepared.append((rel, ins, del_idx))
 
-        # phase 2 — functional fold: new tensors only, the current epoch
-        # readable throughout; the update's columns cross to the device
-        # once, relation columns never cross back
-        views = dict(cur.views)
-        rels = dict(cur.relations)
-        n_scans = 0
-        for rel, ins, del_idx in prepared:
-            rr = rels[rel]
-            n_ins = 0 if ins is None else len(next(iter(ins.values())))
-            n_del = 0 if del_idx is None else len(del_idx)
-            ins_pad = next_pow2(n_ins) if n_ins else 0
-            del_pad = next_pow2(n_del) if n_del else 0
-            ins_dev = {a: _to_device(np.pad(c, (0, ins_pad - n_ins)), self.device)
-                       for a, c in (ins or {}).items()}
-            # delete pads point at the capacity, as the reference's do: the
-            # compaction reads only the first n_del, the gather clamps them
-            del_dev = (_to_device(np.pad(del_idx.astype(np.int64),
-                                         (0, del_pad - n_del),
-                                         constant_values=rr.capacity),
-                                  self.device) if n_del else None)
-            dp = self.delta_program(rel)
-            if not dp.steps:
-                rels[rel] = rr.advance(ins_dev, del_dev, n_ins, n_del)
-                continue
-            cap = max(rr.capacity, next_pow2(max(rr.n_valid - n_del + n_ins, 1)))
-            runner = self._tick_runner(dp, cap, ins_pad, del_pad, rels, params)
-            new_views, rels[rel] = runner(
-                {vid: views[vid] for vid in dp.state_vids}, rr, rels,
-                ins_dev, del_dev, n_ins, n_del, params)
-            views.update(new_views)
-            n_scans += dp.n_scans
+            # phase 2 — functional fold: new tensors only, the current epoch
+            # readable throughout; the update's columns cross to the device
+            # once, relation columns never cross back
+            views = dict(cur.views)
+            rels = dict(cur.relations)
+            n_scans = 0
+            for rel, ins, del_idx in prepared:
+                with span("ivm.tick", rel=rel):
+                    n_scans += self._apply_rel(views, rels, rel, ins, del_idx,
+                                               params)
 
-        # phase 3 — publish: one reference swap
-        self._current = EpochState(epoch=cur.epoch + 1, step=cur.step + 1,
-                                   views=views, relations=rels)
-        self.n_delta_scan_steps += n_scans
+            # phase 3 — publish: one reference swap
+            with span("ivm.publish"):
+                self._current = EpochState(epoch=cur.epoch + 1,
+                                           step=cur.step + 1,
+                                           views=views, relations=rels)
+                self.n_delta_scan_steps += n_scans
+        # host dispatch wall of the whole tick (validate + fold + publish);
+        # no synchronize — the no-sync instrumentation rule
+        self._tick_hist.observe((time.perf_counter() - t_tick) * 1e6)
         return self.results()
+
+    def _apply_rel(self, views: Dict[int, torch.Tensor],
+                   rels: Dict[str, ResidentRelation], rel: str, ins, del_idx,
+                   params) -> int:
+        """Fold one relation's validated delta into ``views`` and ``rels``
+        (new tensors only); returns the delta scan steps it ran."""
+        rr = rels[rel]
+        n_ins = 0 if ins is None else len(next(iter(ins.values())))
+        n_del = 0 if del_idx is None else len(del_idx)
+        ins_pad = next_pow2(n_ins) if n_ins else 0
+        del_pad = next_pow2(n_del) if n_del else 0
+        ins_dev = {a: _to_device(np.pad(c, (0, ins_pad - n_ins)), self.device)
+                   for a, c in (ins or {}).items()}
+        # delete pads point at the capacity, as the reference's do: the
+        # compaction reads only the first n_del, the gather clamps them
+        del_dev = (_to_device(np.pad(del_idx.astype(np.int64),
+                                     (0, del_pad - n_del),
+                                     constant_values=rr.capacity),
+                              self.device) if n_del else None)
+        dp = self.delta_program(rel)
+        if not dp.steps:
+            rels[rel] = rr.advance(ins_dev, del_dev, n_ins, n_del)
+            return 0
+        cap = max(rr.capacity, next_pow2(max(rr.n_valid - n_del + n_ins, 1)))
+        runner = self._tick_runner(dp, cap, ins_pad, del_pad, rels, params)
+        new_views, rels[rel] = runner(
+            {vid: views[vid] for vid in dp.state_vids}, rr, rels,
+            ins_dev, del_dev, n_ins, n_del, params)
+        views.update(new_views)
+        return dp.n_scans
 
     def _tick_runner(self, dp: DeltaProgram, cap: int, ins_pad: int,
                      del_pad: int, rels: Mapping[str, ResidentRelation],
@@ -585,6 +620,11 @@ class MaintainedBatch:
 
         self._runners[key] = run
         return run
+
+    def shard_topology(self) -> Optional[Dict[str, object]]:
+        """Shard facts for the server's stats: ``None``, as the reference
+        gives when unsharded (the port maintains views on one device)."""
+        return None
 
     # -- snapshots (checkpoint/store.py hooks) -------------------------------
 

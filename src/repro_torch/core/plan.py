@@ -1,6 +1,7 @@
 """Executable plan: IR build -> shared-scan schedule -> backend lowering;
-counterpart of ``repro/core/plan.py`` (no autotune, no plan verifier, no
-sharded psum).
+counterpart of ``repro/core/plan.py`` (no autotune, no sharded psum).
+With ``PlanConfig.verify_plans`` on (auto: under pytest or ``REPRO_VERIFY``)
+the static verifier checks every plan at compile time.
 
   * ``ir.py`` compiles each view group into a typed :class:`GroupProgram`;
   * ``schedule.py`` fuses same-relation, dependency-independent groups into
@@ -16,6 +17,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.verify import verification_enabled
 from repro_torch.core.aggregates import Params
 from repro_torch.core.groups import ViewGroup
 from repro_torch.core.ir import (StepProgram, batched_param_names,
@@ -26,6 +28,7 @@ from repro_torch.core.lowering import get_backend
 from repro_torch.core.pushdown import PushdownResult
 from repro_torch.core.schedule import Schedule, build_schedule
 from repro_torch.core.schema import DatabaseSchema
+from repro_torch.obs.trace import span
 
 Columns = Mapping[str, Mapping[str, torch.Tensor]]  # rel -> attr -> (n,)
 
@@ -44,9 +47,15 @@ class PlanConfig:
     block_size: int = 1 << 20
     backend: str = "cuda"
     fuse_kernels: bool = True       # whole-step fused kernel launch
+    verify_plans: Optional[bool] = None   # static plan verification;
+                                          # None = auto: on under pytest /
+                                          # REPRO_VERIFY
 
     def __post_init__(self):
         validate_block_size(self.block_size)
+        if self.verify_plans not in (None, True, False):
+            raise ValueError("verify_plans must be True, False, or None "
+                             f"(auto); got {self.verify_plans!r}")
 
 
 class ExecutablePlan:
@@ -61,11 +70,20 @@ class ExecutablePlan:
         self.views = result.views
         self.groups = list(groups)
         self.config = config or PlanConfig()
-        self.programs = build_programs(schema, result.views, self.groups)
-        self.schedule: Schedule = build_schedule(self.groups, fuse=True)
-        self.step_programs: List[StepProgram] = [
-            fuse_programs([self.programs[gid] for gid in step.gids])
-            for step in self.schedule.steps]
+        with span("compile.ir", n_groups=len(self.groups)):
+            self.programs = build_programs(schema, result.views, self.groups)
+        with span("compile.schedule", fuse=True):
+            self.schedule: Schedule = build_schedule(self.groups, fuse=True)
+            self.step_programs: List[StepProgram] = [
+                fuse_programs([self.programs[gid] for gid in step.gids])
+                for step in self.schedule.steps]
+        #: :class:`~repro_torch.analysis.verify.VerificationReport` of the
+        #: static plan check, or None when verification is off
+        self.last_verification = None
+        if verification_enabled(self.config.verify_plans):
+            from repro_torch.analysis.verify import verify_plan
+            with span("compile.verify"):
+                self.last_verification = verify_plan(self)
         self.backend = get_backend(self.config.backend)
         # param-batch (node) axis bookkeeping
         self.batched_vids = compute_batched_vids(result.views)
@@ -89,10 +107,10 @@ class ExecutablePlan:
                 f"plan has batched params {sorted(self.batched_params)}; "
                 "bind with n_nodes (use CompiledBatch.run_batched)")
         n_rows = dict(n_rows)
-
-        def run(columns: Columns, params: Params):
-            return self.extract_outputs(
-                self._run_steps(columns, params, n_rows, n_nodes))
+        with span("compile.bind", n_steps=len(self.schedule.steps)):
+            def run(columns: Columns, params: Params):
+                return self.extract_outputs(
+                    self._run_steps(columns, params, n_rows, n_nodes))
 
         return run
 
@@ -104,9 +122,10 @@ class ExecutablePlan:
         relations' valid row counts (their columns may run past them).
         Maintained batches have no param-batch axis."""
         n_rows = dict(n_rows)
-
-        def run(columns: Columns, params: Params):
-            return self._run_steps(columns, params, n_rows, None)
+        with span("compile.bind", n_steps=len(self.schedule.steps),
+                  arrays=True):
+            def run(columns: Columns, params: Params):
+                return self._run_steps(columns, params, n_rows, None)
 
         return run
 

@@ -699,6 +699,83 @@ def test_ivm_pinned_epoch_bitwise_across_apply(cuda_device):
                 assert torch.equal(c, bufs[name][a]), (name, a)
 
 
+def _route_session(device):
+    ds = TD.make("retailer", scale=1.0)
+    db = connect(ds, config=ExecutionConfig(block_size=1 << 14,
+                                            route_cache_capacity=2), device=device)
+    wide = query("wide", ["date", "locn", "sku"],
+                 [COUNT, sum_of("inventoryunits"), sum_of("maxtemp")])
+    return ds, db, db.views([wide], maintain=True).serve(max_pinned_epochs=4)
+
+
+HIT_ROUTES = {"q_exact": (["sku", "locn", "date"],
+                          [sum_of("maxtemp"), COUNT, sum_of("inventoryunits")]),
+              "q_locn": (["locn"], [COUNT, sum_of("inventoryunits")]),
+              "q_date_sku": (["sku", "date"], [sum_of("maxtemp")]),
+              "q_total": ([], [COUNT])}
+
+
+def test_hit_routes_launch_nothing_and_sync_nothing(cuda_device):
+    """Routed queries answered from a maintained view on the card: after a
+    warm round, the exact and subsumed tiers run under sync_debug_mode
+    "error" (no host sync) and launch no kernel; their answers (tensors on
+    the card) equal the same routes on the CPU session; a compiled miss
+    launches fused_scan_block."""
+    answers = {}
+    for device in ("cpu", cuda_device):
+        _, db, _ = _route_session(device)
+        for name, (gb, aggs) in HIT_ROUTES.items():     # warm: index tensors
+            db.route(query(name, gb, aggs))
+        ops.reset_launches()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            routed = {name: db.route(query(name, gb, aggs))
+                      for name, (gb, aggs) in HIT_ROUTES.items()}
+        finally:
+            if device != "cpu":
+                torch.cuda.set_sync_debug_mode(0)
+        assert sum(ops.LAUNCHES.values()) == 0
+        assert {n: r.tier for n, r in routed.items()} == {
+            "q_exact": "exact", "q_locn": "subsumed", "q_date_sku": "subsumed",
+            "q_total": "subsumed"}
+        assert all(r.value.device.type == torch.device(device).type
+                   for r in routed.values())
+        answers[str(device)] = {n: r.value.cpu() for n, r in routed.items()}
+        miss = db.route(query("q_rgn", ["rgn_cd"], [COUNT]))
+        assert miss.tier == "compiled"
+        if device != "cpu":
+            assert ops.LAUNCHES["fused_scan_block"] > 0
+    for name in HIT_ROUTES:
+        torch.testing.assert_close(answers[str(cuda_device)][name], answers["cpu"][name],
+                                   **TOL)
+
+
+def test_view_server_tick_and_pinned_read_on_card(cuda_device):
+    """ViewServer.apply of a 1% fact tick under sync_debug_mode "error"
+    (after a warm tick), a snapshot held across it reads bitwise the same,
+    and the routed subsumed answer reports the new epoch."""
+    ds, db, srv = _route_session(cuda_device)
+    updates = _fact_updates(ds, 2, seed=4)
+    srv.apply(updates[0])
+    q = query("q_locn", ["locn"], [COUNT, sum_of("inventoryunits")])
+    db.route(q)
+    with srv.snapshot() as snap:
+        first = snap["wide"].clone()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            srv.apply(updates[1])
+            r = db.route(q)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(srv.maintained.results(epoch=snap.epoch)["wide"], first)
+        assert r.epoch == snap.epoch + 1 and r.tier == "subsumed"
+    st = srv.stats()
+    assert st["n_updates"] == 2 and st["tick_us"]["count"] == 2
+
+
 @pytest.mark.parametrize("fuse_kernels", [True, False])
 def test_tree_fit_on_card_matches_cpu(cuda_device, fuse_kernels):
     """A frontier-batched regression tree over Retailer (30,000 fact rows):

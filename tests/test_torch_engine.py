@@ -165,6 +165,19 @@ def test_port_imports_neither_jax_nor_the_reference():
         out = BatchedServer(cfg, params, max_len=12, batch=2, device="cpu"
                             ).generate(toks[:, :4].numpy(), 8)
         assert out.shape == (2, 12)
+        from repro_torch import COUNT, query, sum_of
+        from repro_torch.data.relations import DeltaBatchUpdate
+        wide = query("wide", ["date", "locn", "sku"],
+                     [COUNT, sum_of("inventoryunits"), sum_of("maxtemp")])
+        sdb = repro_torch.connect(db.data, edges=ds.edges)   # same tables
+        srv = sdb.views([wide], maintain=True).serve(max_pinned_epochs=4)
+        tiers = [sdb.route(query(n, g, [COUNT])).tier
+                 for n, g in (("q_locn", ["locn"]), ("q_rgn", ["rgn_cd"]))]
+        assert tiers == ["subsumed", "compiled"], tiers
+        fact = ds.tables[ds.fact]
+        srv.apply(DeltaBatchUpdate().insert(ds.fact, {a: c[:5] for a, c in fact.items()}))
+        with srv.snapshot() as snap:
+            assert snap.epoch == 1 and snap["wide"].shape == (124, 40, 60, 3)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
