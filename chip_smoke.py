@@ -21,7 +21,20 @@ Phases, one JSON line each (``{"phase": ...}``):
                against a float64 oracle computed on the card from the
                gathered join; ridge (closed form and BGD) against ridge on
                the oracle's covar.
-  5. fused_covar — ``make_fused_covar`` over the same session: one
+  4b. config — the choices at ``connect`` over the same tables, against
+               the main oracle: ``backend="torch"`` (the covar batch's cold
+               and warm walls beside ``main.fused``'s and its device
+               breakdown, no launch; the depth-4 tree fit held as the
+               ``trees`` phase holds it); ``block_size="auto"`` on a fresh
+               cache under ``build/`` (the block chosen per step, the
+               tuning seconds, ``fused_scan_block`` launches equal to the
+               blocks those choices give, a second session that times
+               nothing, a maintained copy rooted at the fact whose delta
+               lane tunes at its first 1% tick and whose three steady ticks
+               run under ``set_sync_debug_mode("error")`` with no runner
+               built, against a fresh pass); ``explain().summary()`` of a
+               batch, a maintained and a served handle.
+ 5. fused_covar — ``make_fused_covar`` over the same session: one
                ``covar_xtx`` launch per block of fact rows; the covar
                against the main phase's float64 oracle (N and C[0, 0]
                exact), ridge on it, a profile and peak memory.
@@ -866,7 +879,7 @@ def main_phase(ds, db, join):
         stats = batch.stats
         n_blocks = sum(-(-sizes[st.rel] // min(cfg.block_size, sizes[st.rel]))
                        for st in batch.schedule.steps)
-        runs[label] = dict(C=C, N=N, layout=layout, launches=launches)
+        runs[label] = dict(C=C, N=N, layout=layout, launches=launches, warm=warm)
         emit(f"main.{label}", wall_s=wall, warm_wall_s=warm, launches=launches,
              static_launches=stats.n_kernel_launches, scan_steps=stats.n_scan_steps,
              row_blocks=n_blocks, summary=stats.summary(),
@@ -908,7 +921,7 @@ def main_phase(ds, db, join):
     launches = {"fused_scan_block": runs["fused"]["launches"]["fused_scan_block"],
                 "seg_aggregate": runs["unfused"]["launches"]["seg_aggregate"],
                 "tree_hist": runs["unfused"]["launches"]["tree_hist"]}
-    return launches, dict(G=G, n=n_o, layout=layout, C=C)
+    return launches, dict(G=G, n=n_o, layout=layout, C=C, warm_s=runs["fused"]["warm"])
 
 
 def ridge_checks(phase: str, C, N, layout, G, n_o):
@@ -1022,10 +1035,16 @@ def rmse_and_std(join, trees, features, label):
     return math.sqrt(sse / n), math.sqrt(max(syy / n - (sy / n) ** 2, 0.0))
 
 
-def tree_phase(ds, db, join, n_fact: int):
-    """A depth-4 regression tree (the reference's defaults), fused then
-    unfused, level by level through the stepping API; each level's
-    statistics against the float64 oracle."""
+#: the tree fits of the ``trees`` phase: (phase, config overrides, static
+#: launch sites)
+TREE_VARIANTS = (("trees.fused", dict(fuse_kernels=True), 9),
+                 ("trees.unfused", dict(fuse_kernels=False), 19))
+
+
+def tree_phase(ds, db, join, n_fact: int, variants=TREE_VARIANTS):
+    """A depth-4 regression tree (the reference's defaults) per variant
+    (fused, then unfused), level by level through the stepping API; each
+    level's statistics against the float64 oracle."""
     import numpy as np
     import torch
 
@@ -1034,9 +1053,9 @@ def tree_phase(ds, db, join, n_fact: int):
     from repro_torch.ml.trees import DecisionTree, split_stats, stack_mask_params
 
     launches = {}
-    for label, fuse, sites in (("fused", True, 9), ("unfused", False, 19)):
+    for phase, overrides, sites in variants:
         sess = connect(ds.schema, data=db.data, edges=ds.edges,
-                       config=db.config.replace(fuse_kernels=fuse))
+                       config=db.config.replace(**overrides))
         t0 = time.perf_counter()
         dt = DecisionTree(ds, database=sess)
         compile_s = time.perf_counter() - t0
@@ -1053,7 +1072,7 @@ def tree_phase(ds, db, join, n_fact: int):
             levels.append((masks, stats))
             dt.advance(stats)
         wall = time.perf_counter() - t0
-        launches[label] = dict(ops.LAUNCHES)
+        launches[phase] = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         last = stack_mask_params(dt.features, levels[-1][0])
         prof = device_breakdown(lambda: dt.view.run_batched(last))
@@ -1069,13 +1088,13 @@ def tree_phase(ds, db, join, n_fact: int):
                 o, sc = orc[f.attr]
                 err = np.abs(stats[f.attr] - o)
                 check(bool((err <= STAT_TOL * sc).all()),
-                      f"trees.{label}: level {d} {f.attr} statistics off the oracle "
+                      f"{phase}: level {d} {f.attr} statistics off the oracle "
                       f"by {float((err / np.maximum(sc, 1e-300)).max()):.3e} of Σ|terms|")
                 worst_stat = max(worst_stat, float((err / np.maximum(sc, 1e-300)).max()))
         worst_gain, n_splits = 0.0, 0
         for d, orc in enumerate(oracles):
             ids = [n.node_id for n in dt.nodes if n.depth == d]
-            check(len(ids) == level_n[d], f"trees.{label}: level {d} has {level_n[d]} "
+            check(len(ids) == level_n[d], f"{phase}: level {d} has {level_n[d]} "
                   f"frontier nodes but the tree {len(ids)}")
             for i, nid in enumerate(ids):
                 node = dt.nodes[nid]
@@ -1086,14 +1105,14 @@ def tree_phase(ds, db, join, n_fact: int):
                 chosen = float(gains[node.feature][node.threshold])
                 rel = (best - chosen) / abs(best)
                 check(math.isfinite(chosen) and rel <= GAIN_TOL,
-                      f"trees.{label}: node {nid} splits on {node.feature}<={node.threshold} "
+                      f"{phase}: node {nid} splits on {node.feature}<={node.threshold} "
                       f"with oracle gain {chosen} against the best {best}")
                 worst_gain = max(worst_gain, rel)
                 n_splits += 1
         rmse, std = rmse_and_std(join, [dt], dt.features, ds.label)
         root_n = dt.nodes[0].n
-        emit(f"trees.{label}", fit_s=wall, compile_s=compile_s, levels=level_n,
-             dispatches=dt.batch.n_dispatches, launches=launches[label],
+        emit(phase, fit_s=wall, compile_s=compile_s, levels=level_n,
+             dispatches=dt.batch.n_dispatches, launches=launches[phase],
              static_launches=stats_.n_kernel_launches, scan_steps=stats_.n_scan_steps,
              summary=stats_.summary(), peak_mem_gb=peak, n_nodes=len(dt.nodes),
              n_splits=n_splits, root_n=root_n, rmse=rmse, label_std=std,
@@ -1101,19 +1120,21 @@ def tree_phase(ds, db, join, n_fact: int):
              oracle_s=oracle_s, tol=dict(stat=STAT_TOL, gain=GAIN_TOL,
                                          root_n=ROOT_N_TOL, rmse_ratio=RMSE_RATIO),
              splits=[[n.feature, n.threshold] for n in dt.nodes if not n.is_leaf])
-        emit(f"trees.{label}.profile", n_nodes=level_n[-1], **prof)
+        emit(f"{phase}.profile", n_nodes=level_n[-1], **prof)
         check(stats_.n_kernel_launches == sites,
-              f"trees.{label}: static launches {stats_.n_kernel_launches} != {sites}")
+              f"{phase}: static launches {stats_.n_kernel_launches} != {sites}")
         check(dt.batch.n_dispatches == len(levels) + 1,
-              f"trees.{label}: {dt.batch.n_dispatches} passes for {len(levels)} levels "
+              f"{phase}: {dt.batch.n_dispatches} passes for {len(levels)} levels "
               "and the profiled one")
         check(abs(root_n - n_fact) <= ROOT_N_TOL * n_fact,
-              f"trees.{label}: root count {root_n} is not {n_fact} fact rows")
-        check(all(n.n > 0 for n in dt.nodes), f"trees.{label}: a node holds no rows")
-        check(n_splits > 0, f"trees.{label}: the tree did not split")
-        check(rmse <= RMSE_RATIO * std, f"trees.{label}: RMSE {rmse} vs label std {std}")
-        got = launches[label]
-        if fuse:
+              f"{phase}: root count {root_n} is not {n_fact} fact rows")
+        check(all(n.n > 0 for n in dt.nodes), f"{phase}: a node holds no rows")
+        check(n_splits > 0, f"{phase}: the tree did not split")
+        check(rmse <= RMSE_RATIO * std, f"{phase}: RMSE {rmse} vs label std {std}")
+        got = launches[phase]
+        if overrides.get("backend") == "torch":
+            check(sum(got.values()) == 0, f"{phase}: the torch backend launched {got}")
+        elif overrides["fuse_kernels"]:
             check(got["fused_scan_block"] > 0 and got["seg_aggregate"] == 0
                   and got["tree_hist"] == 0 and got["tree_hist_batched"] == 0,
                   f"trees.fused launches {got}")
@@ -1152,6 +1173,191 @@ def forest_phase(ds, db, join, seed: int):
           and sum(launches.values()) == launches["fused_scan_block"],
           f"forest launches {launches}")
     check(rmse <= RMSE_RATIO * std, f"forest: RMSE {rmse} vs label std {std}")
+
+
+# ---------------------------------------------------------------- config
+
+def config_phase(ds, db, join, orc, seed: int):
+    """The choices a user makes at ``connect``, over the main session's
+    tables: ``backend="torch"`` (the covar batch and the depth-4 tree fit
+    reduced by ``index_add_``: the whole-path library baseline, no kernel
+    launched), ``block_size="auto"`` on a fresh cache (the tuned block per
+    step, the launches it implies, a second session that tunes nothing, a
+    maintained copy whose delta lane tunes at its first tick and whose
+    steady ticks sync nothing), and ``explain()`` of a batch, a maintained
+    and a served handle."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.data.relations import next_pow2
+    from repro_torch.kernels import ops
+    from repro_torch.ml.covar import assemble_covar, covar_queries
+
+    sizes = db.sizes()
+    fact, n_fact = ds.fact, sizes[ds.fact]
+    qs, layout = covar_queries(ds)
+
+    def covar_run(handle):
+        """One pass of the covar views to C and N on the host."""
+        out = handle.run()
+        return assemble_covar({k: v.cpu().numpy() for k, v in out.items()}, layout)
+
+    def warm_wall(handle):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def covar_checks(phase, C, N, err):
+        """Run after the phase's line is printed, so a failure shows it."""
+        check(np.isfinite(C).all() and C.shape == (layout.p, layout.p),
+              f"{phase}: covar not finite or of shape {C.shape}")
+        check(N == float(np.float32(n_fact)), f"{phase}: N={N} is not {n_fact} fact rows")
+        check(err <= COVAR_TOL, f"{phase}: covar vs oracle {err:.3e} > {COVAR_TOL}")
+
+    # config.torch — the whole-path library baseline
+    tdb = db.with_config(backend="torch")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    th = tdb.views(qs)
+    C, N = covar_run(th)
+    cold = time.perf_counter() - t0
+    warm = warm_wall(th)
+    launches = dict(ops.LAUNCHES)
+    prof = device_breakdown(lambda: th.run(), classify=kernel_group)
+    err = scaled_err(C, orc["G"])
+    emit("config.torch", cold_wall_s=cold, warm_wall_s=warm,
+         main_fused_warm_wall_s=orc["warm_s"], over_fused=warm / orc["warm_s"],
+         launches=launches, static_launches=th.stats.n_kernel_launches,
+         summary=th.explain().summary(), vs_oracle=err, N=N, tol=COVAR_TOL)
+    emit("config.torch.profile", **prof)
+    covar_checks("config.torch", C, N, err)
+    check(sum(launches.values()) == 0 and th.stats.n_kernel_launches == 0,
+          f"config.torch: the torch backend launched {launches}")
+    del th
+    tree_phase(ds, db, join, n_fact, variants=(("config.torch.tree", dict(backend="torch"), 0),))
+
+    # config.autotune — a fresh cache under build/
+    cache = os.path.join(HERE, "build", "autotune_smoke.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    adb = db.with_config(block_size="auto", autotune_cache=cache)
+    obs.clear_trace()
+    obs.enable_tracing()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ah = adb.views(qs)
+        C, N = covar_run(ah)
+        cold = time.perf_counter() - t0
+        tune_s = sum(e["dur"] for e in obs.get_tracer().events()
+                     if e["name"] == "compile.autotune") / 1e6
+    finally:
+        obs.disable_tracing()
+        obs.clear_trace()
+    plan = ah.compiled.plan
+    choices = [[r["rel"], r["block_size"]] for r in ah.explain().autotune]
+    ops.reset_launches()
+    warm = warm_wall(ah)
+    launches = dict(ops.LAUNCHES)
+    expected = sum(-(-sizes[st.rel] // min(bs, sizes[st.rel]))
+                   for st, (_, bs) in zip(plan.schedule.steps, choices))
+    err = scaled_err(C, orc["G"])
+    second = db.with_config(block_size="auto", autotune_cache=cache).views(qs)
+    C2, N2 = covar_run(second)
+    emit("config.autotune", choices=choices, n_timed=plan.autotuner.n_timed,
+         tune_s=tune_s, cold_wall_s=cold, warm_wall_s=warm,
+         static_warm_wall_s=orc["warm_s"], launches=launches,
+         expected_launches=expected, vs_oracle=err, N=N,
+         second_session_n_timed=second.compiled.plan.autotuner.n_timed,
+         second_session_vs_first=scaled_err(C2, C), tol=COVAR_TOL)
+    covar_checks("config.autotune", C, N, err)
+    check(plan.autotuner.n_timed > 0, "config.autotune: nothing was timed on a fresh cache")
+    check(launches["fused_scan_block"] == expected
+          and sum(launches.values()) == expected,
+          f"config.autotune: launches {launches}, expected {expected} fused_scan_block")
+    check(second.compiled.plan.autotuner.n_timed == 0
+          and all(r["from_cache"] for r in second.explain().autotune),
+          "config.autotune: a second session on the same cache tuned again")
+    check(N2 == N and scaled_err(C2, C) <= COVAR_TOL,
+          "config.autotune: the second session's covar differs")
+    del second
+
+    # the maintained copy under "auto": delta lane, steady ticks
+    roots = {q.name: fact for q in qs}
+    mh = adb.views(qs, maintain=True, roots=roots)
+    mb = mh.maintained
+    t0 = time.perf_counter()
+    mh.run()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    updates = fact_updates(ds, seed + 2, 4)
+    d0 = updates[0].updates[fact]
+    n_delta = next_pow2(d0.n_inserts) + next_pow2(d0.n_deletes)
+    walls, launches_tick, builds, timed = [], [], [], []
+    for i, upd in enumerate(updates):
+        steady = i >= 1
+        before, built = ops.LAUNCHES["fused_scan_block"], mb.n_fold_traces
+        n_timed = mb.plan.autotuner.n_timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if steady:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = mh.apply(upd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        walls.append(time.perf_counter() - t0)
+        launches_tick.append(ops.LAUNCHES["fused_scan_block"] - before)
+        builds.append(mb.n_fold_traces - built)
+        timed.append(mb.plan.autotuner.n_timed - n_timed)
+    Cm, Nm = assemble_covar(host, layout)
+    delta = mb.plan.last_autotune_delta
+    delta_bs = [r["block_size"] for r in delta if r["delta"]]
+    fresh = adb.views(qs).compiled(mb.db)
+    Cf, Nf = assemble_covar({k: v.cpu().numpy() for k, v in fresh.items()}, layout)
+    del fresh
+    summary_m = mh.explain().summary()
+    emit("config.autotune.ivm", init_s=init_s, tick_walls_s=walls,
+         launches_per_tick=launches_tick, runner_builds=builds,
+         timed_per_tick=timed, delta_choices=[[r["rel"], r["block_size"], r["delta"]]
+                                             for r in delta],
+         batch_choices=[[r["rel"], r["block_size"]] for r in mb.plan.last_autotune],
+         vs_fresh=scaled_err(Cm, Cf), N=Nm, summary=summary_m)
+    check("autotune[delta]:" in summary_m, "config.autotune: no autotune[delta] line")
+    check(len(delta_bs) == 1, f"config.autotune: delta lane {delta}")
+    check(builds[0] == 1 and sum(builds[1:]) == 0 and sum(timed[1:]) == 0,
+          f"config.autotune: runner builds {builds}, probes {timed} per tick")
+    # the first tick's count also holds the delta lane's probes
+    check(all(n == -(-n_delta // min(delta_bs[0], n_delta)) for n in launches_tick[1:]),
+          f"config.autotune: launches per steady tick {launches_tick[1:]} for "
+          f"blocks of {delta_bs[0]} over {n_delta} delta rows")
+    check(Nm == Nf and scaled_err(Cm, Cf) <= COVAR_TOL,
+          f"config.autotune: maintained covar vs a fresh pass {scaled_err(Cm, Cf):.3e}")
+
+    # config.explain — one report across the three modes
+    srv = mh.serve(max_pinned_epochs=4)
+    for _ in range(3):
+        srv.read()
+    summaries = {"batch": ah.explain().summary(), "maintained": summary_m,
+                 "served": mh.explain().summary()}
+    emit("config.explain", **summaries)
+    check(summaries["batch"].startswith("[batch] backend=cuda dispatches=")
+          and "autotune[batch]:" in summaries["batch"],
+          f"config.explain: batch summary {summaries['batch']!r}")
+    check(summaries["maintained"].startswith("[maintained] backend=cuda")
+          and "ivm: epoch=4 step=4" in summaries["maintained"],
+          f"config.explain: maintained summary {summaries['maintained']!r}")
+    check(summaries["served"].startswith("[served] backend=cuda")
+          and "serve: reads=3" in summaries["served"],
+          f"config.explain: served summary {summaries['served']!r}")
+    del mh, mb, srv, ah, adb, tdb
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- batch workloads
@@ -2139,7 +2345,10 @@ def serve_phase(ds, db, join, seed: int, card_line: str, rates):
         t = threading.Thread(target=writer, args=(w2, w2_walls, True))
         t.start()
         i, ckpt_s = 0, None
-        while t.is_alive() and i < SERVE_MAX_ROUTES:
+        # routes back to back can hold the interpreter for SERVE_MAX_ROUTES
+        # routes before the writer's first tick lands: route on past the
+        # cap, while the writer runs, until the checkpoint is taken
+        while t.is_alive() and (i < SERVE_MAX_ROUTES or ckpt_s is None):
             name = ("q_exact", "q_locn")[i % 2]
             r, us, _ = route(reqs[name][0])
             check(r.tier == reqs[name][1], f"serve: {name} routed {r.tier} beside the writer")
@@ -2779,13 +2988,16 @@ def main() -> int:
         join = FactJoin(db.data)
         launches, orc = main_phase(ds, db, join)
 
+        # 4b. the execution choices at connect, against the same oracle
+        config_phase(ds, db, join, orc, args.seed)
+
         # 5. the gathered-XᵀX covar path, against the main phase's oracle
         launches["covar_xtx"] = fused_covar_phase(ds, db, orc)
         del orc
 
         # 6.-7. the tree path: a decision tree fused and unfused, a forest
         tree_launches = tree_phase(ds, db, join, db.sizes()[ds.fact])
-        launches["tree_hist_batched"] = tree_launches["unfused"]["tree_hist_batched"]
+        launches["tree_hist_batched"] = tree_launches["trees.unfused"]["tree_hist_batched"]
         forest_phase(ds, db, join, args.seed)
 
         # 8.-11. the batch workloads on the engine

@@ -14,7 +14,7 @@ The session facade loads lazily, so ``import repro_torch`` stays cheap.
 from repro_torch.core.aggregates import (COUNT, agg, query, sum_of,
                                          sum_prod)
 
-_API = ("connect", "Database", "ExecutionConfig", "ViewHandle")
+_API = ("connect", "Database", "ExecutionConfig", "ViewHandle", "ViewReport")
 
 __all__ = list(_API) + ["COUNT", "agg", "query", "sum_of", "sum_prod"]
 

@@ -1,10 +1,10 @@
 """Static analysis over the port's compiled artifacts; counterpart of
 ``repro/analysis``.
 
-:mod:`repro_torch.analysis.verify` — the execution-free plan verifier,
-plan and route half: it walks a compiled batch plan (group-program IR,
-shared-scan schedule, fused step programs) and the router's secondary
-programs, and raises structured
+:mod:`repro_torch.analysis.verify` — the execution-free plan verifier: it
+walks a compiled batch plan (group-program IR, shared-scan schedule, fused
+step programs), IVM's delta and tick programs and resident relations, and
+the router's secondary programs, and raises structured
 :class:`~repro_torch.analysis.verify.PlanInvariantError`\\ s before
 anything runs.  The reference's linter (``repro/analysis/lint.py``) already
 covers ``src/repro_torch`` and has no copy here.
@@ -12,10 +12,14 @@ covers ``src/repro_torch`` and has no copy here.
 
 from repro_torch.analysis.verify import (PlanInvariantError,
                                          VerificationReport,
-                                         verification_enabled, verify_plan,
-                                         verify_secondary_program)
+                                         verification_enabled,
+                                         verify_delta_program, verify_plan,
+                                         verify_resident,
+                                         verify_secondary_program,
+                                         verify_tick_program)
 
 __all__ = [
     "PlanInvariantError", "VerificationReport", "verification_enabled",
-    "verify_plan", "verify_secondary_program",
+    "verify_delta_program", "verify_plan", "verify_resident",
+    "verify_secondary_program", "verify_tick_program",
 ]

@@ -1,14 +1,21 @@
-"""Plan verifier of the port, the plan and route half: execution-free
-invariant checking over compiled batch plans and the router's secondary
-programs; counterpart of ``repro/analysis/verify.py``.
+"""Plan verifier of the port: execution-free invariant checking over
+compiled batch plans, IVM's delta and tick programs, resident relations and
+the router's secondary programs; counterpart of
+``repro/analysis/verify.py``.
 
 The checks are copies of the reference's, identical apart from imports:
 ``verify_plan`` re-derives every ``GroupProgram``, the shared-scan
 ``Schedule`` and the fused ``StepProgram``s from the schema and the plan
-alone, and ``verify_secondary_program`` gates a routed re-aggregation; each
-raises a structured :class:`PlanInvariantError` naming the violated rule.
-The IVM hooks (``verify_delta_program``, ``verify_tick_program``,
-``verify_resident``) and their rule ids are not ported yet.
+alone, ``verify_delta_program`` a maintenance plan's first-order
+soundness, and ``verify_secondary_program`` gates a routed
+re-aggregation; each raises a structured :class:`PlanInvariantError`
+naming the violated rule.  Two are the port's own, for one device:
+``verify_tick_program`` makes the reference's checks of an unsharded tick
+under its rule ids, less those of mesh fields the port's tick does not
+have (a partitioned step psums its views before the fold: that waits for
+sharding), and ``verify_resident`` checks the port's
+:class:`ResidentRelation`, whose live rows ``[0, n_valid)`` are counted
+on the host, with the reference's rule id and check count.
 
 Enablement: ``verification_enabled(flag)`` — an explicit ``True``/``False``
 (from ``ExecutionConfig.verify_plans`` / ``PlanConfig.verify_plans``) wins;
@@ -41,11 +48,16 @@ AXIS_FRAME = "axis-frame"             # product axis frames: pulled ++ extra
 DTYPE_FLOW = "dtype-flow"             # attr existence/kind + column bindings
 SCHEDULE_TOPO = "schedule-topo"       # shared-scan fusion + dependency order
 BATCHED_FLAG = "batched-flag"         # param-batch flags vs the fixpoint
+DELTA_FIRST_ORDER = "delta-first-order"  # one affected factor per product
+WEIGHT_COMPAT = "weight-compat"       # signed ±1 weights only on delta scans
+RESIDENT_CAPACITY = "resident-capacity"  # pow2 capacity, n_valid bounds
+PSUM_BEFORE_FOLD = "psum-before-fold"    # tick vs its delta program
 ROUTE_SUBSUME = "route-subsume"          # secondary re-aggregation soundness
 
 ALL_INVARIANTS = (
     GATHER_PREFIX, SEGMENT_LAYOUT, ACC_SHAPE, AXIS_FRAME, DTYPE_FLOW,
-    SCHEDULE_TOPO, BATCHED_FLAG, ROUTE_SUBSUME,
+    SCHEDULE_TOPO, BATCHED_FLAG, DELTA_FIRST_ORDER, WEIGHT_COMPAT,
+    RESIDENT_CAPACITY, PSUM_BEFORE_FOLD, ROUTE_SUBSUME,
 )
 
 
@@ -359,6 +371,136 @@ def _verify_schedule(ctx: _Ctx, sched, groups) -> None:
                           f"group dependency {dep_g} (step "
                           f"{sid_of[dep_g]}) missing from step deps "
                           f"{s.deps}")
+
+
+def verify_delta_program(plan, dp) -> VerificationReport:
+    """Verify one relation's maintenance plan: every delta step's scan
+    program, first-order soundness (exactly one affected factor per kept
+    product, none on tier-1 scans), step ordering over the affected
+    sub-DAG, and the weight/state contracts the tick runner relies on."""
+    ctx = _Ctx()
+    schema, views = plan.schema, plan.views
+    batched = _batched_fixpoint(views)
+    art = f"Δ{dp.rel}"
+    ctx.check(dp.rel in schema.relations, DTYPE_FLOW, art,
+              f"maintains unknown relation {dp.rel!r}")
+    if not dp.steps:
+        ctx.check(not dp.affected, DELTA_FIRST_ORDER, art,
+                  f"views {sorted(dp.affected)} are affected but no step "
+                  "maintains them")
+        return ctx.report(art)
+    produced = set()
+    out_vids = []
+    for i, st in enumerate(dp.steps):
+        sart = f"{art} step {i} ({st.rel})"
+        ctx.check(st.scans_delta == (st.rel == dp.rel), WEIGHT_COMPAT, sart,
+                  f"scans_delta={st.scans_delta} but the step scans "
+                  f"{st.rel!r} and the update targets {dp.rel!r} — signed "
+                  "±1 multiplicities are only sound on the update's own "
+                  "delta tuples")
+        _verify_scan_program(ctx, schema, views, st.prog, batched, sart)
+        for gs in st.prog.gathers:
+            if gs.vid in dp.affected:
+                ctx.check(not st.scans_delta, DELTA_FIRST_ORDER, sart,
+                          f"tier-1 delta scan gathers affected child "
+                          f"v{gs.vid} — a second-order term (join-tree "
+                          "subtrees below the update relation are disjoint "
+                          "from it)")
+                ctx.check(gs.vid in produced, DELTA_FIRST_ORDER, sart,
+                          f"gathers affected child v{gs.vid} before its "
+                          "delta is computed — it would read stale state")
+        for vp in st.prog.views:
+            ctx.check(vp.vid in dp.affected, DELTA_FIRST_ORDER, sart,
+                      f"computes v{vp.vid}, which the update does not "
+                      "affect")
+            out_vids.append(vp.vid)
+            if not st.scans_delta:
+                for ci, col in enumerate(vp.cols):
+                    for pi, prod in enumerate(col.products):
+                        hits = [r.vid for r in prod.child_refs
+                                if r.vid in dp.affected]
+                        ctx.check(len(hits) == 1, DELTA_FIRST_ORDER,
+                                  f"{sart}: v{vp.vid} col {ci} product "
+                                  f"{pi}",
+                                  f"{len(hits)} {dp.rel}-dependent child "
+                                  "factors (affected children "
+                                  f"{hits or '[]'}) — first-order "
+                                  "Δ(product) needs exactly one")
+        produced.update(vp.vid for vp in st.prog.views)
+    ctx.check(sorted(out_vids) == sorted(dp.affected), DELTA_FIRST_ORDER,
+              art, f"steps compute {sorted(out_vids)} but the affected set "
+              f"is {sorted(dp.affected)} (each exactly once)")
+    exp_base = tuple(sorted({s.rel for s in dp.steps if not s.scans_delta}))
+    ctx.check(tuple(dp.base_rels) == exp_base, DELTA_FIRST_ORDER, art,
+              f"base_rels {dp.base_rels} != rescanned relations {exp_base}")
+    gathered = {gs.vid for s in dp.steps for gs in s.prog.gathers}
+    ctx.check(set(dp.state_vids) >= (set(dp.affected) | gathered),
+              DELTA_FIRST_ORDER, art,
+              f"state inputs {sorted(dp.state_vids)} miss affected or "
+              "gathered views — the fold would read undefined arrays")
+    return ctx.report(art)
+
+
+def verify_tick_program(tp, dp) -> VerificationReport:
+    """Verify a single-device tick program against its delta program: the
+    same steps in the same order, signed weights exactly on the update's
+    own delta-tuple scan, and a fold over exactly the affected views.
+    These are the reference's checks of an unsharded tick, under its rule
+    ids, less the ones that read its mesh fields (a partitioned relation
+    with its axis, each step's ``partitioned`` flag and ``psum_vids``):
+    the port's tick has no such fields until views are sharded.  The
+    port's steps carry no separate ``weighted`` flag — the runner weights
+    a step where it ``scans_delta`` — so the weight check reads that."""
+    ctx = _Ctx()
+    where = f"tick Δ{tp.rel}"
+    ctx.check(tp.rel == dp.rel, PSUM_BEFORE_FOLD, where,
+              f"tick targets {tp.rel!r} but the delta program maintains "
+              f"{dp.rel!r}")
+    ctx.check(len(tp.steps) == len(dp.steps), PSUM_BEFORE_FOLD, where,
+              f"{len(tp.steps)} tick steps for {len(dp.steps)} delta steps")
+    for i, (ts, st) in enumerate(zip(tp.steps, dp.steps)):
+        sart = f"{where} step {i} ({ts.rel})"
+        ctx.check(ts.scans_delta == (ts.rel == tp.rel), WEIGHT_COMPAT, sart,
+                  f"scans_delta={ts.scans_delta} on a step over {ts.rel!r} "
+                  f"in a tick of {tp.rel!r} — signed ±1 update weights must "
+                  "be folded into the validity mask exactly on the "
+                  "delta-tuple scan")
+        ctx.check(ts.prog is st.prog and ts.rel == st.rel
+                  and ts.scans_delta == st.scans_delta, PSUM_BEFORE_FOLD,
+                  sart, "tick step diverges from its delta step")
+    ctx.check(tuple(tp.fold_vids) == tuple(sorted(dp.affected)),
+              PSUM_BEFORE_FOLD, where,
+              f"state fold covers {tuple(tp.fold_vids)} != affected views "
+              f"{tuple(sorted(dp.affected))}")
+    return ctx.report(where)
+
+
+def verify_resident(rr) -> VerificationReport:
+    """Verify a resident relation's capacity contract: pow2 capacity,
+    uniform column buffers, ``0 ≤ n_valid ≤ capacity`` (the live rows
+    ``[0, n_valid)`` lie within every buffer), a host row count, one
+    device.  Metadata only — never touches device values."""
+    ctx = _Ctx()
+    art = f"resident {rr.name!r}"
+    lens = {a: int(c.shape[0]) for a, c in rr.buffers.items()}
+    ctx.check(len(rr.buffers) > 0, RESIDENT_CAPACITY, art,
+              "no column buffers")
+    ctx.check(len(set(lens.values())) == 1, RESIDENT_CAPACITY, art,
+              f"ragged column buffers {lens}")
+    cap = rr.capacity
+    ctx.check(cap >= 1 and (cap & (cap - 1)) == 0, RESIDENT_CAPACITY, art,
+              f"capacity {cap} is not a power of two — growth doubling and "
+              "pad-bucket runner caches assume pow2")
+    ctx.check(0 <= rr.n_valid <= cap, RESIDENT_CAPACITY, art,
+              f"n_valid {rr.n_valid} outside [0, {cap}]")
+    ctx.check(isinstance(rr.n_valid, int) and not isinstance(rr.n_valid, bool),
+              RESIDENT_CAPACITY, art,
+              f"row count {rr.n_valid!r} is not a host int — the scans "
+              "slice [0, n_valid) on the host")
+    devices = {c.device for c in rr.buffers.values()}
+    ctx.check(len(devices) == 1, RESIDENT_CAPACITY, art,
+              f"column buffers on {sorted(map(str, devices))}")
+    return ctx.report(art)
 
 
 def verify_secondary_program(sp) -> VerificationReport:

@@ -1,11 +1,13 @@
 """Session API of the port: one ``Database`` facade over the engine;
-counterpart of ``repro/api.py`` (no mesh, ``explain``, ``with_config``,
-``tree``/``relation`` or ``schedule``/``batched_params``).
+counterpart of ``repro/api.py`` (no mesh).
 
     import repro_torch
     db = repro_torch.connect(dataset)              # relations on the card
-    out = db.views(queries).run()                  # {name: dense tensor}
-    outs = db.views(queries).run_batched(params)   # N param settings at once
+    v = db.views(queries)
+    out = v.run()                                  # {name: dense tensor}
+    outs = v.run_batched(params)                   # N param settings at once
+    print(v.explain().summary())                   # unified stats report
+    base = db.with_config(backend="torch")         # same tables, plain torch
 
     m = db.views(queries, maintain=True)           # incremental views
     m.run()                                        # full scan -> epoch 0
@@ -32,14 +34,15 @@ import torch
 from repro_torch.core.aggregates import Params, Query
 from repro_torch.core.engine import BatchStats, CompiledBatch, Engine
 from repro_torch.core.lowering import BACKENDS
-from repro_torch.core.plan import validate_block_size
+from repro_torch.core.plan import validate_blocking
 from repro_torch.core.schema import DatabaseSchema
 from repro_torch.data import relations as rel_mod
 from repro_torch.data.datasets import Dataset
 from repro_torch.device import resolve_device
 from repro_torch.obs.workload import WorkloadRecorder, signature_of
 
-__all__ = ["ExecutionConfig", "Database", "ViewHandle", "connect"]
+__all__ = ["ExecutionConfig", "Database", "ViewHandle", "ViewReport",
+           "connect"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,11 +50,22 @@ class ExecutionConfig:
     """One frozen execution policy for a whole session.
 
     ``backend`` selects the lowering path ("cuda": the hand-written
-    kernels); ``fuse_kernels`` collapses each step's reductions into ONE
-    fused launch per row block (off: one launch per reduction, the
-    comparison baseline); ``block_size`` is the rows per launch;
+    kernels; "torch": the same blocked scan reduced by plain torch ops,
+    ``index_add_``, the library baseline — chosen only here, never in
+    place of a kernel); ``fuse_scans`` toggles shared-scan fusion (off:
+    one scan per view group, the paper's Fig. 5 ablation);
+    ``fuse_kernels`` collapses each step's reductions into ONE fused launch
+    per row block (off: one launch per reduction, the comparison baseline);
     ``multi_root`` enables the paper's find-roots layer (off: every query
     of a batch is rooted at one relation, the paper's ablation).
+
+    Blocking: ``block_size`` is the rows per launch, or ``"auto"``: each
+    scan step's block size is then resolved at bind time by the autotuner
+    (``core/autotune.py``), which times candidates against the step's
+    signature and keeps the winners in a JSON cache (``autotune_cache``
+    path > ``REPRO_TORCH_AUTOTUNE_CACHE`` env >
+    ``~/.cache/repro_torch/autotune.json``), so warm sessions never
+    re-tune; ``ViewHandle.explain()`` shows the resolution.
 
     Serving: ``max_pinned_epochs`` bounds how many epochs concurrent readers
     may keep on the device; beyond it the least-recently-used pin is
@@ -79,8 +93,10 @@ class ExecutionConfig:
     ``verify_plans``."""
 
     backend: str = "cuda"
-    block_size: int = 1 << 20
+    block_size: object = 1 << 20            # int | "auto"
+    fuse_scans: bool = True
     fuse_kernels: bool = True
+    autotune_cache: Optional[str] = None
     multi_root: bool = True
     max_pinned_epochs: Optional[int] = None
     warn_epoch_lag: Optional[int] = None
@@ -92,7 +108,7 @@ class ExecutionConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(expected one of {BACKENDS})")
-        validate_block_size(self.block_size)
+        validate_blocking(self.block_size)
         if self.max_pinned_epochs is not None and self.max_pinned_epochs < 1:
             raise ValueError("max_pinned_epochs must be >= 1 (or None)")
         if self.warn_epoch_lag is not None and self.warn_epoch_lag < 1:
@@ -118,9 +134,110 @@ class ExecutionConfig:
     def compile_kwargs(self) -> Dict[str, object]:
         """The compile-stage subset, as `Engine._compile` keywords."""
         return dict(block_size=self.block_size, backend=self.backend,
+                    fuse_scans=self.fuse_scans,
                     fuse_kernels=self.fuse_kernels,
                     multi_root=self.multi_root,
+                    autotune_cache=self.autotune_cache,
                     verify_plans=self.verify_plans)
+
+
+@dataclasses.dataclass
+class ViewReport:
+    """Unified ``explain()`` report across execution modes: the compile-time
+    layer statistics (paper Table 2) always, plus the IVM epoch counters for
+    maintained views and the server counters once ``serve()`` is live."""
+
+    mode: str                    # "batch" | "maintained" | "served"
+    backend: str
+    batch: BatchStats
+    # batch-mode passes; None for maintained views (their unit of work is
+    # the delta tick: see step / n_delta_scan_steps / n_fold_traces)
+    n_dispatches: Optional[int]
+    # maintained-view counters (None in batch mode)
+    epoch: Optional[int] = None
+    step: Optional[int] = None
+    n_delta_scan_steps: Optional[int] = None
+    n_fold_traces: Optional[int] = None
+    n_pinned_epochs: Optional[int] = None
+    n_evicted_pins: Optional[int] = None
+    max_pinned_epochs: Optional[int] = None
+    # full server stats dict (None until serve()) — counters plus the
+    # read/tick latency distributions and epoch lag
+    serving: Optional[Dict[str, object]] = None
+    # per-step blocking resolution from the last bind with "auto" blocking
+    # (None when blocking is static or nothing has bound yet); the delta
+    # variant is the IVM tick resolution — both render, labeled, when set
+    autotune: Optional[list] = None
+    autotune_delta: Optional[list] = None
+    # static-verification coverage: joined summaries of the plan / delta /
+    # tick reports, or None when verification is off
+    verification: Optional[str] = None
+    # session query-router stats: tier hit mix, cache occupancy, eviction
+    # count — None until Database.query has routed something
+    routing: Optional[Dict[str, object]] = None
+
+    @staticmethod
+    def _render_autotune(report: list) -> str:
+        return ", ".join(
+            f"{a['rel']}: bs={a['block_size']}"
+            + (" (cached)" if a["from_cache"] else "")
+            + (" (fallback)" if a.get("fallback") else "")
+            for a in report)
+
+    @staticmethod
+    def _render_latency(label: str, snap: Optional[Dict[str, float]]) -> str:
+        if not snap or not snap.get("count"):
+            return ""
+        return (f" {label}_p50={snap['p50']:.0f}us"
+                f" {label}_p99={snap['p99']:.0f}us")
+
+    def summary(self) -> str:
+        """Every populated field renders — the line set is keyed on what the
+        report carries, not on the mode label, so batch / maintained / served
+        handles print consistently."""
+        lines = [f"[{self.mode}] backend={self.backend}"
+                 + (f" dispatches={self.n_dispatches}"
+                    if self.n_dispatches is not None else ""),
+                 "  " + self.batch.summary()]
+        if self.step is not None:
+            lines.append(
+                "  ivm: epoch="
+                + ("-" if self.epoch is None else str(self.epoch))
+                + f" step={self.step} "
+                f"delta_scans={self.n_delta_scan_steps} "
+                f"fold_traces={self.n_fold_traces} "
+                f"pinned={self.n_pinned_epochs}"
+                + (f"/{self.max_pinned_epochs}"
+                   if self.max_pinned_epochs else "")
+                + f" evicted={self.n_evicted_pins}")
+        if self.serving is not None:
+            s = self.serving
+            lines.append(f"  serve: reads={s['n_reads']} "
+                         f"updates={s['n_updates']} "
+                         f"rejected={s['n_rejected_updates']} "
+                         f"lag={s.get('epoch_lag', 0)}"
+                         + self._render_latency("read", s.get("read_us"))
+                         + self._render_latency("tick", s.get("tick_us")))
+        if self.routing is not None and self.routing.get("n_queries"):
+            r = self.routing
+            tiers = r["tiers"]
+            lines.append(
+                f"  routing: n={r['n_queries']} "
+                + " ".join(f"{t}={tiers[t]}" for t in
+                           ("exact", "subsumed", "compiled", "fallback_scan")
+                           if tiers.get(t))
+                + f" hit_rate={r['hit_rate']:.2f}"
+                  f" cache={r['cache_size']}/{r['capacity']}"
+                  f" evicted={r['n_evictions']}")
+        if self.verification:
+            lines.append("  verify: " + self.verification)
+        if self.autotune:
+            lines.append("  autotune[batch]: "
+                         + self._render_autotune(self.autotune))
+        if self.autotune_delta:
+            lines.append("  autotune[delta]: "
+                         + self._render_autotune(self.autotune_delta))
+        return "\n".join(lines)
 
 
 class ViewHandle:
@@ -132,7 +249,9 @@ class ViewHandle:
     a full scan (later calls read the current epoch), ``apply(update)``
     folds a delta batch and publishes the next epoch, ``serve()`` wraps the
     state in an epoch-pinning :class:`~repro_torch.serve.views.ViewServer`,
-    and ``snapshot()``/``restore()`` checkpoint one epoch."""
+    and ``snapshot()``/``restore()`` checkpoint one epoch.
+
+    ``explain()`` returns one :class:`ViewReport` for all of it."""
 
     def __init__(self, database: "Database", compiled: CompiledBatch,
                  maintained=None):
@@ -175,6 +294,16 @@ class ViewHandle:
     def stats(self) -> BatchStats:
         """Compile-time layer statistics (paper Table 2 analogue)."""
         return self.compiled.stats
+
+    @property
+    def schedule(self):
+        """The fused scan schedule the views execute."""
+        return self.compiled.schedule
+
+    @property
+    def batched_params(self):
+        """Names of the views' ``Param(batched=True)`` declarations."""
+        return self.compiled.batched_params
 
     @property
     def is_maintained(self) -> bool:
@@ -285,6 +414,45 @@ class ViewHandle:
         ``run()`` — the state skeleton comes from the compiled plan)."""
         return self.maintained.restore(ckpt_dir, step=step)
 
+    # -- unified report ------------------------------------------------------
+
+    def explain(self) -> ViewReport:
+        """One report across modes: compile-time layer stats (always), the
+        blocking resolution, IVM epoch counters (maintained views), serving
+        counters (after ``serve()``), verification coverage and the
+        session's routing stats.  Reads host counters only."""
+        plan = self.compiled.plan
+        rep = ViewReport(
+            mode="batch", backend=self.config.backend,
+            batch=self.compiled.stats,
+            n_dispatches=self.compiled.n_dispatches,
+            autotune=plan.last_autotune)
+        mb = self._maintained
+        if mb is not None:
+            rep.mode = "served" if self._server is not None else "maintained"
+            rep.n_dispatches = None
+            rep.epoch = mb.epoch if mb.initialized else None
+            rep.step = mb.step
+            rep.n_delta_scan_steps = mb.n_delta_scan_steps
+            rep.n_fold_traces = mb.n_fold_traces
+            rep.n_pinned_epochs = mb.n_pinned_epochs
+            rep.n_evicted_pins = mb.n_evicted_pins
+            rep.max_pinned_epochs = mb.max_pinned_epochs
+            # both resolutions, labeled: the delta lane does not shadow
+            # the init full scan's
+            rep.autotune_delta = plan.last_autotune_delta
+            if self._server is not None:
+                rep.serving = self._server.stats()
+        pieces = []
+        if plan.last_verification is not None:
+            pieces.append(plan.last_verification.summary())
+        if mb is not None:
+            pieces.extend(r.summary() for _, r in
+                          sorted(mb.last_verifications.items()))
+        rep.verification = "; ".join(pieces) if pieces else None
+        rep.routing = self._database.routing_stats()
+        return rep
+
 
 class Database:
     """The session facade: schema + join tree + resident relations + one
@@ -294,11 +462,14 @@ class Database:
 
     def __init__(self, schema: DatabaseSchema, data: rel_mod.Database,
                  edges: Optional[Sequence[Tuple[str, str]]] = None,
-                 config: Optional[ExecutionConfig] = None):
+                 config: Optional[ExecutionConfig] = None,
+                 _engine: Optional[Engine] = None):
         self.schema = schema
         self.data = data                      #: resident relations
         self.config = config or ExecutionConfig()
-        self._engine = Engine(schema, edges=edges, sizes=data.sizes())
+        self.edges = list(edges) if edges is not None else None
+        self._engine = _engine or Engine(schema, edges=edges,
+                                         sizes=data.sizes())
         #: session-wide workload recorder: every view run, served read and
         #: routed query lands here (``workload.export_json(path)``)
         self.workload = WorkloadRecorder(self.config.workload_capacity)
@@ -307,8 +478,31 @@ class Database:
         self._registered = []
         self._router = None
 
+    # -- data access ---------------------------------------------------------
+
+    @property
+    def tree(self):
+        """The join tree every view batch is pushed down over."""
+        return self._engine.tree
+
     def sizes(self) -> Dict[str, int]:
         return self.data.sizes()
+
+    def relation(self, name: str):
+        return self.data.relation(name)
+
+    # -- configuration -------------------------------------------------------
+
+    def with_config(self, **overrides) -> "Database":
+        """A sibling session over the same schema, resident tables and join
+        tree with some config fields changed (e.g.
+        ``db.with_config(backend="torch")``) — the cheap way to compare
+        backends: nothing is copied to the device."""
+        return Database(self.schema, self.data, edges=self.edges,
+                        config=self.config.replace(**overrides),
+                        _engine=self._engine)
+
+    # -- view registration ---------------------------------------------------
 
     def views(self, queries: Sequence[Query], maintain: bool = False, *,
               roots: Optional[Dict[str, str]] = None,

@@ -98,7 +98,8 @@ class CompiledBatch:
     def _runner(self, db, n_nodes: Optional[int]):
         key = (n_nodes, tuple(sorted(db.sizes().items())))
         if key not in self._runners:
-            self._runners[key] = self.plan.bind(db.sizes(), n_nodes=n_nodes)
+            self._runners[key] = self.plan.bind(db.sizes(), n_nodes=n_nodes,
+                                                device=db.device)
         return self._runners[key]
 
     def __call__(self, db, params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
@@ -180,17 +181,23 @@ class Engine:
             self.tree = JoinTree.build(schema, self.sizes)
 
     def _compile(self, queries: Sequence[Query], *,
-                 block_size: int = 1 << 20, backend: str = "cuda",
-                 fuse_kernels: bool = True, multi_root: bool = True,
+                 block_size=1 << 20, backend: str = "cuda",
+                 fuse_scans: bool = True, fuse_kernels: bool = True,
+                 multi_root: bool = True,
+                 autotune_cache: Optional[str] = None,
                  root_override: Optional[Dict[str, str]] = None,
                  verify_plans: Optional[bool] = None) -> CompiledBatch:
         """Compile a query batch: multi-root pushdown (``multi_root=False``:
         every query at the one root of ``roots.single_root``;
-        ``root_override``: query name -> root relation, for every query)
-        and shared-scan fusion as in the reference's defaults;
-        ``fuse_kernels`` gives one fused launch per step and row block;
-        ``block_size`` is the rows per launch; ``verify_plans`` runs the
-        static plan verifier (None: under pytest or ``REPRO_VERIFY``)."""
+        ``root_override``: query name -> root relation, for every query);
+        ``fuse_scans`` toggles the scheduler's shared-scan fusion;
+        ``backend`` selects the lowering (``"cuda"``: the kernels;
+        ``"torch"``: plain torch reductions); ``fuse_kernels`` gives one
+        fused launch per step and row block; ``block_size`` is the rows per
+        launch, or ``"auto"`` to defer it to the bind-time autotuner
+        (``core/autotune.py``, cache path overridable via
+        ``autotune_cache``); ``verify_plans`` runs the static plan verifier
+        (None: under pytest or ``REPRO_VERIFY``)."""
         with span("compile", n_queries=len(queries), backend=backend):
             with span("compile.roots"):
                 if root_override is not None:
@@ -206,7 +213,8 @@ class Engine:
             with span("compile.group"):
                 groups = group_views(result)
             cfg = PlanConfig(block_size=block_size, backend=backend,
-                             fuse_kernels=fuse_kernels,
+                             fuse_scans=fuse_scans, fuse_kernels=fuse_kernels,
+                             autotune_cache=autotune_cache,
                              verify_plans=verify_plans)
             # CompiledBatch builds the ExecutablePlan, which emits the
             # compile.ir / compile.schedule / compile.verify child spans

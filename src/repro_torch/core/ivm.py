@@ -1,6 +1,9 @@
 """Incremental view maintenance: delta programs over the materialized view
-DAG; counterpart of ``repro/core/ivm.py`` (single device: no mesh path, no
-static verifier hooks).  The reference's spans (``ivm.init``,
+DAG; counterpart of ``repro/core/ivm.py`` (single device: no mesh path).
+The static verifier checks every delta and tick program once, when it is
+built, and every resident relation at init, publish and restore, when
+``verify_plans`` is on (``MaintainedBatch.last_verifications``).  The
+reference's spans (``ivm.init``,
 ``ivm.apply``, ``ivm.validate``, ``ivm.tick``, ``ivm.publish``) and its
 ``ivm.tick_us`` histogram ride along, on host clocks only.
 
@@ -50,6 +53,10 @@ from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.verify import (verification_enabled,
+                                         verify_delta_program,
+                                         verify_resident,
+                                         verify_tick_program)
 from repro_torch.core.engine import _params_on
 from repro_torch.core.groups import ViewGroup
 from repro_torch.core.ir import StepProgram, build_programs, fuse_programs
@@ -141,7 +148,7 @@ def build_tick_program(dp: DeltaProgram) -> TickProgram:
 
 
 def build_delta_program(schema: DatabaseSchema, views: Mapping[int, ViewDef],
-                        rel: str) -> DeltaProgram:
+                        rel: str, fuse: bool = True) -> DeltaProgram:
     """Derive the delta program for updates to base relation ``rel``."""
     reach = relation_reach(views)
     affected = frozenset(vid for vid, rs in reach.items() if rel in rs)
@@ -210,7 +217,7 @@ def build_delta_program(schema: DatabaseSchema, views: Mapping[int, ViewDef],
     merged = dict(views)
     merged.update(delta_defs)
     progs = build_programs(schema, merged, groups)
-    sched = build_schedule(groups)
+    sched = build_schedule(groups, fuse=fuse)
     # a fused step scans one relation, so it is either all-delta (rel == R:
     # every view scanning R is tier-1) or all-base — never mixed
     steps = tuple(DeltaStep(prog=fuse_programs([progs[gid] for gid in st.gids]),
@@ -297,6 +304,13 @@ class MaintainedBatch:
         self.n_fold_traces = 0
         self._delta_programs: Dict[str, DeltaProgram] = {}
         self._tick_programs: Dict[str, TickProgram] = {}
+        # static verification: checked once per compiled artifact when it
+        # is built — never on the per-tick hot path
+        self._verify = verification_enabled(self.plan.config.verify_plans)
+        #: artifact name -> :class:`~repro_torch.analysis.verify.
+        #: VerificationReport` for every delta/tick program verified so far
+        #: (``explain()`` shows them); empty when verification is off
+        self.last_verifications: Dict[str, object] = {}
         self._runners: Dict[Tuple, object] = {}
         # epoch -> [EpochState, refs]; ordered LRU-first (reads/pins
         # move_to_end) so the pin budget can evict the coldest epoch
@@ -359,8 +373,12 @@ class MaintainedBatch:
             self.device = db.device
             rels = {name: ResidentRelation.from_relation(r)
                     for name, r in db.relations.items()}
+            if self._verify:
+                for rr in rels.values():
+                    verify_resident(rr)
             run = self.plan.bind_arrays({name: rr.n_valid
-                                         for name, rr in rels.items()})
+                                         for name, rr in rels.items()},
+                                        device=self.device)
             views = dict(run({name: rr.columns() for name, rr in rels.items()},
                              _params_on(params, self.device)))
             prev = self._current
@@ -455,16 +473,24 @@ class MaintainedBatch:
     def delta_program(self, rel: str) -> DeltaProgram:
         """The (cached) maintenance plan for updates to ``rel``."""
         if rel not in self._delta_programs:
-            self._delta_programs[rel] = build_delta_program(
-                self.batch.schema, self.plan.views, rel)
+            dp = build_delta_program(self.batch.schema, self.plan.views, rel,
+                                     fuse=self.plan.config.fuse_scans)
+            if self._verify:
+                self.last_verifications[f"Δ{rel}"] = \
+                    verify_delta_program(self.plan, dp)
+            self._delta_programs[rel] = dp
         return self._delta_programs[rel]
 
     def tick_program(self, rel: str) -> TickProgram:
-        """The (cached) tick form of ``rel``'s delta program, the artifact
-        the tick runner executes."""
+        """The (cached, verified) tick form of ``rel``'s delta program, the
+        artifact the tick runner executes."""
         if rel not in self._tick_programs:
-            self._tick_programs[rel] = build_tick_program(
-                self.delta_program(rel))
+            dp = self.delta_program(rel)
+            tp = build_tick_program(dp)
+            if self._verify:
+                self.last_verifications[f"tick Δ{rel}"] = \
+                    verify_tick_program(tp, dp)
+            self._tick_programs[rel] = tp
         return self._tick_programs[rel]
 
     def apply(self, update: DeltaBatchUpdate, params=None) -> Dict[str, torch.Tensor]:
@@ -511,7 +537,11 @@ class MaintainedBatch:
                     n_scans += self._apply_rel(views, rels, rel, ins, del_idx,
                                                params)
 
-            # phase 3 — publish: one reference swap
+            # phase 3 — publish: one reference swap; capacity contracts
+            # re-checked on the advanced relations first (host metadata)
+            if self._verify:
+                for rel, _, _ in prepared:
+                    verify_resident(rels[rel])
             with span("ivm.publish"):
                 self._current = EpochState(epoch=cur.epoch + 1,
                                            step=cur.step + 1,
@@ -574,7 +604,7 @@ class MaintainedBatch:
         tp = self.tick_program(dp.rel)
         step_cfgs = self.plan.resolve_delta_configs(
             dp.steps, [n_delta if st.scans_delta else base_caps[st.rel]
-                       for st in dp.steps])
+                       for st in dp.steps], device=self.device)
 
         def run(state, rr, rels, ins, del_idx, n_ins, n_del, p):
             if del_pad:
@@ -666,6 +696,9 @@ class MaintainedBatch:
         rels = {name: ResidentRelation.from_relation(
                     Relation(name, {a: on(c) for a, c in cols.items()}))
                 for name, cols in tree["relations"].items()}
+        if self._verify:
+            for rr in rels.values():
+                verify_resident(rr)
         self._current = EpochState(epoch=int(np.asarray(tree["epoch"])),
                                    step=int(np.asarray(tree["step"])),
                                    views=views, relations=rels)

@@ -1,12 +1,16 @@
 """Executable plan: IR build -> shared-scan schedule -> backend lowering;
-counterpart of ``repro/core/plan.py`` (no autotune, no sharded psum).
+counterpart of ``repro/core/plan.py`` (no sharded psum).
 With ``PlanConfig.verify_plans`` on (auto: under pytest or ``REPRO_VERIFY``)
 the static verifier checks every plan at compile time.
 
   * ``ir.py`` compiles each view group into a typed :class:`GroupProgram`;
   * ``schedule.py`` fuses same-relation, dependency-independent groups into
-    single shared scans and fixes execution order;
-  * ``lowering/`` runs each fused step on the device (``cuda`` backend).
+    single shared scans (``PlanConfig.fuse_scans``) and fixes execution
+    order;
+  * ``lowering/`` runs each fused step on the device (``cuda``: the
+    hand-written kernels; ``torch``: plain torch reductions), each step in
+    row blocks of its own size: ``block_size="auto"`` resolves one per step
+    at bind time through ``autotune.py``.
 """
 
 from __future__ import annotations
@@ -33,26 +37,34 @@ from repro_torch.obs.trace import span
 Columns = Mapping[str, Mapping[str, torch.Tensor]]  # rel -> attr -> (n,)
 
 
-def validate_block_size(block_size) -> None:
-    if (not isinstance(block_size, int) or isinstance(block_size, bool)
+def validate_blocking(block_size) -> None:
+    """Shared validation of the blocking knob (PlanConfig and the session
+    ExecutionConfig raise identically).  ``"auto"`` defers it to the
+    bind-time autotuner (``core/autotune.py``)."""
+    if block_size != "auto" and (
+            not isinstance(block_size, int) or isinstance(block_size, bool)
             or block_size < 1):
-        raise ValueError(f"block_size must be a positive int; got {block_size!r}")
+        raise ValueError("block_size must be a positive int or 'auto'; "
+                         f"got {block_size!r}")
 
 
 @dataclasses.dataclass
 class PlanConfig:
-    #: rows per kernel launch: each scan step walks its relation in blocks
-    #: of this many rows, and every block costs one launch per reduction
-    #: (fused: one) plus the eager torch ops that build its payloads
-    block_size: int = 1 << 20
-    backend: str = "cuda"
+    #: rows per kernel launch (int | "auto"): each scan step walks its
+    #: relation in blocks of this many rows, and every block costs one
+    #: launch per reduction (fused: one) plus the eager torch ops that
+    #: build its payloads
+    block_size: object = 1 << 20
+    backend: str = "cuda"           # lowering backend: "cuda" | "torch"
+    fuse_scans: bool = True         # shared-scan fusion across view groups
     fuse_kernels: bool = True       # whole-step fused kernel launch
+    autotune_cache: Optional[str] = None  # autotuner cache path override
     verify_plans: Optional[bool] = None   # static plan verification;
                                           # None = auto: on under pytest /
                                           # REPRO_VERIFY
 
     def __post_init__(self):
-        validate_block_size(self.block_size)
+        validate_blocking(self.block_size)
         if self.verify_plans not in (None, True, False):
             raise ValueError("verify_plans must be True, False, or None "
                              f"(auto); got {self.verify_plans!r}")
@@ -72,8 +84,9 @@ class ExecutablePlan:
         self.config = config or PlanConfig()
         with span("compile.ir", n_groups=len(self.groups)):
             self.programs = build_programs(schema, result.views, self.groups)
-        with span("compile.schedule", fuse=True):
-            self.schedule: Schedule = build_schedule(self.groups, fuse=True)
+        with span("compile.schedule", fuse=self.config.fuse_scans):
+            self.schedule: Schedule = build_schedule(
+                self.groups, fuse=self.config.fuse_scans)
             self.step_programs: List[StepProgram] = [
                 fuse_programs([self.programs[gid] for gid in step.gids])
                 for step in self.schedule.steps]
@@ -89,32 +102,144 @@ class ExecutablePlan:
         self.batched_vids = compute_batched_vids(result.views)
         self.batched_params = batched_param_names(result.views)
         self._col_indices: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+        self._autotuner = None
+        #: per-step record of the last blocking resolution (``bind`` fills
+        #: it when the config carries "auto"); surfaced by ``explain()``
+        self.last_autotune: Optional[List[Dict[str, object]]] = None
+        #: same, for the IVM delta tick (``resolve_delta_configs``)
+        self.last_autotune_delta: Optional[List[Dict[str, object]]] = None
+
+    # ------------------------------------------------------------- autotune
+
+    @property
+    def autotuner(self):
+        """Lazily constructed (loads the on-disk cache once per plan)."""
+        if self._autotuner is None:
+            from repro_torch.core.autotune import Autotuner
+            self._autotuner = Autotuner(self.config.autotune_cache)
+        return self._autotuner
+
+    def resolve_step_configs(self, n_rows: Mapping[str, int],
+                             n_nodes: Optional[int] = None,
+                             device=None) -> List[PlanConfig]:
+        """One concrete :class:`PlanConfig` per scan step.  A static
+        ``block_size`` passes the session config through untouched;
+        ``"auto"`` resolves through the autotuner, keyed per step on
+        (relation row count, widest segment layout, total payload width,
+        node axis, backend, the type of ``device``, where the relations
+        lie) — at bind time, so its timing probes never land in a steady
+        run."""
+        steps = self.schedule.steps
+        return self._resolve(
+            [(step.rel, prog, n_rows[step.rel], False)
+             for step, prog in zip(steps, self.step_programs)],
+            n_nodes, device, delta_lane=False)
+
+    def resolve_delta_configs(self, steps, n_rows: Sequence[int],
+                              n_nodes: Optional[int] = None,
+                              device=None) -> List[PlanConfig]:
+        """One concrete :class:`PlanConfig` per IVM delta step (objects with
+        ``.prog`` / ``.rel`` / ``.scans_delta``, see ``core/ivm.py``).
+        ``n_rows[i]`` is step i's scan length: the |update| pad bucket for
+        delta scans, the rescanned relation's capacity otherwise.  Delta
+        scans tune under ``delta=True`` signatures, their own cache lane.
+        Runs at tick-runner *build* time, so a steady tick never probes."""
+        return self._resolve(
+            [(st.rel, st.prog, max(int(rows), 1), st.scans_delta)
+             for st, rows in zip(steps, n_rows)],
+            n_nodes, device, delta_lane=True)
+
+    def _resolve(self, items, n_nodes: Optional[int], device,
+                 delta_lane: bool) -> List[PlanConfig]:
+        """``items``: (relation, step program, rows, delta) per step; the
+        report goes to ``last_autotune_delta`` for the delta lane, else to
+        ``last_autotune``."""
+        cfg = self.config
+        if cfg.block_size != "auto":
+            return [cfg] * len(items)
+        from repro_torch.core import autotune as at
+
+        if device is None:
+            raise ValueError("block_size='auto' tunes on the relations' "
+                             "device: pass device= to bind")
+        platform = torch.device(device).type
+        out, report = [], []
+        with span("compile.autotune", n_steps=len(items),
+                  **({"delta": True} if delta_lane else {})):
+            for rel, prog, rows, delta in items:
+                n_seg, width = self._prog_tune_dims(prog, n_nodes)
+                sig = at.signature_for_step(cfg.backend, platform, rows,
+                                            n_seg, width, n_nodes,
+                                            delta=delta)
+                res = self.autotuner.tune(sig)
+                out.append(dataclasses.replace(cfg,
+                                               block_size=res.block_size))
+                rec = {"rel": rel, "key": sig.key(),
+                       "block_size": res.block_size,
+                       "from_cache": res.from_cache,
+                       "fallback": res.fallback}
+                if delta_lane:
+                    rec["delta"] = delta
+                report.append(rec)
+        if delta_lane:
+            self.last_autotune_delta = report
+        else:
+            self.last_autotune = report
+        return out
+
+    def _prog_tune_dims(self, prog: StepProgram, n_nodes: Optional[int]):
+        """(widest segment layout, total payload width) of one fused step —
+        the shape facts a tuning signature carries besides the row count."""
+        n_seg, width = 1, 0
+        for vp in prog.views:
+            lead = (n_nodes or 1) if vp.batched else 1
+            if vp.hist is not None:
+                n_seg = max(n_seg, vp.hist.n_buckets)
+                width += 3 * lead
+            else:
+                if vp.seg is not None:
+                    n_seg = max(n_seg, vp.seg.n_segments)
+                w = vp.n_aggs * lead
+                for d in vp.pulled_dims:
+                    w *= d
+                width += w
+        return n_seg, max(width, 1)
 
     def n_kernel_launches(self) -> int:
         """Static kernel-launch *sites* per full pass (distinct kernels one
-        scan block dispatches, summed over steps)."""
-        return sum(self.backend.count_launches(prog, self.config)
-                   for prog in self.step_programs)
+        scan block dispatches, summed over steps); 0 for the ``torch``
+        backend (no hand-written kernels)."""
+        count = getattr(self.backend, "count_launches", None)
+        if count is None:
+            return 0
+        return sum(count(prog, self.config) for prog in self.step_programs)
 
-    def bind(self, n_rows: Dict[str, int], n_nodes: Optional[int] = None):
+    # ------------------------------------------------------------------ api
+
+    def bind(self, n_rows: Dict[str, int], n_nodes: Optional[int] = None,
+             device=None):
         """Returns fn(columns, params) -> {query: tensor} for relations of
-        ``n_rows`` rows.  ``n_nodes`` is the param-batch (node) axis size —
-        required iff the plan has batched params, in which case each batched
-        param carries a leading axis of that size and batched query outputs
-        gain a leading node axis."""
+        ``n_rows`` rows on ``device``.  ``n_nodes`` is the param-batch
+        (node) axis size — required iff the plan has batched params, in
+        which case each batched param carries a leading axis of that size
+        and batched query outputs gain a leading node axis.  ``"auto"``
+        blocking resolves here, once per bind, by probes on ``device``
+        (required then)."""
         if self.batched_params and n_nodes is None:
             raise ValueError(
                 f"plan has batched params {sorted(self.batched_params)}; "
                 "bind with n_nodes (use CompiledBatch.run_batched)")
         n_rows = dict(n_rows)
         with span("compile.bind", n_steps=len(self.schedule.steps)):
-            def run(columns: Columns, params: Params):
-                return self.extract_outputs(
-                    self._run_steps(columns, params, n_rows, n_nodes))
+            step_configs = self.resolve_step_configs(n_rows, n_nodes, device)
+
+        def run(columns: Columns, params: Params):
+            return self.extract_outputs(self._run_steps(
+                columns, params, n_rows, n_nodes, step_configs))
 
         return run
 
-    def bind_arrays(self, n_rows: Dict[str, int]):
+    def bind_arrays(self, n_rows: Dict[str, int], device=None):
         """Like :meth:`bind`, but the returned fn(columns, params) yields
         *every* materialized view tensor keyed by vid, not just the query
         outputs: the full scan of a maintained batch (``core/ivm.py``),
@@ -124,26 +249,23 @@ class ExecutablePlan:
         n_rows = dict(n_rows)
         with span("compile.bind", n_steps=len(self.schedule.steps),
                   arrays=True):
-            def run(columns: Columns, params: Params):
-                return self._run_steps(columns, params, n_rows, None)
+            step_configs = self.resolve_step_configs(n_rows, None, device)
+
+        def run(columns: Columns, params: Params):
+            return self._run_steps(columns, params, n_rows, None,
+                                   step_configs)
 
         return run
 
-    def resolve_delta_configs(self, steps, n_rows: Sequence[int]) -> List[PlanConfig]:
-        """One :class:`PlanConfig` per delta step of a maintained batch
-        (``core/ivm.py``); ``n_rows[i]`` is step i's scan length.  The port
-        has no autotuner, so every step runs the session's config (the
-        reference's fixed-blocking branch)."""
-        return [self.config] * len(steps)
-
     def _run_steps(self, columns: Columns, params: Params,
-                   n_rows: Dict[str, int],
-                   n_nodes: Optional[int]) -> Dict[int, torch.Tensor]:
+                   n_rows: Dict[str, int], n_nodes: Optional[int],
+                   step_configs: Sequence[PlanConfig]) -> Dict[int, torch.Tensor]:
         arrays: Dict[int, torch.Tensor] = {}
-        for step, prog in zip(self.schedule.steps, self.step_programs):
+        for step, prog, cfg in zip(self.schedule.steps, self.step_programs,
+                                   step_configs):
             self.backend.run_step(prog, columns[step.rel], arrays, params,
-                                  n_valid=n_rows[step.rel],
-                                  config=self.config, n_nodes=n_nodes)
+                                  n_valid=n_rows[step.rel], config=cfg,
+                                  n_nodes=n_nodes)
         return arrays
 
     def extract_outputs(self, arrays: Mapping[int, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -558,6 +558,66 @@ def test_covar_on_card_matches_cpu(cuda_device, fuse_kernels):
         assert launched["seg_aggregate"] > 0 and launched["tree_hist"] > 0
 
 
+@pytest.mark.parametrize("block_size", [4096, 1 << 16])
+def test_torch_backend_on_card_matches_cpu(cuda_device, block_size):
+    """backend="torch" on the card: index_add_ adds in an order that varies
+    by run, so the covar holds the 1e-4 rule against the CPU run; no
+    hand-written kernel launches.  Blocks of 4,096 rows reduce in one copy
+    of the segments, of 2¹⁶ rows in sixteen."""
+    ds = TD.make("retailer", scale=0.5)
+    cfg = ExecutionConfig(backend="torch", block_size=block_size)
+    ops.reset_launches()
+    C, N, _, batch = compute_covar(ds, database=connect(ds, config=cfg,
+                                                        device=cuda_device))
+    assert sum(ops.LAUNCHES.values()) == 0 and batch.stats.n_kernel_launches == 0
+    Cc, Nc, _, _ = compute_covar(ds, config=cfg, device="cpu")
+    assert N == Nc
+    np.testing.assert_allclose(C, Cc, rtol=1e-4, atol=1e-4 * np.abs(Cc).max())
+
+
+def test_segment_sum_on_card_matches_float64(cuda_device):
+    """The torch backend's float32 segment sum on the card, in copies of
+    the segments per 4,096 rows, against a float64 sum on the host."""
+    from repro_torch.core.lowering.torch import segment_sum
+
+    rng = np.random.default_rng(5)
+    n, n_seg = 1 << 20, 480
+    ids = rng.integers(0, n_seg, n)
+    pay = rng.normal(1.0, 1.0, (n, 9)).astype(np.float32)
+    got = segment_sum(torch.from_numpy(ids).to(cuda_device),
+                      torch.from_numpy(pay).to(cuda_device), n_seg)
+    want = np.zeros((n_seg, 9))
+    np.add.at(want, ids, pay.astype(np.float64))
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_auto_blocking_on_card(cuda_device, tmp_path):
+    """block_size="auto" on the card: probes timed with CUDA events under
+    cuda-platform keys, the tuned covar against the static one, the
+    launches the chosen blocks give, and a second session that times
+    nothing."""
+    ds = TD.make("retailer", scale=0.5)
+    cache = str(tmp_path / "autotune.json")
+    db = connect(ds, config=ExecutionConfig(block_size="auto",
+                                            autotune_cache=cache),
+                 device=cuda_device)
+    C, N, _, batch = compute_covar(ds, database=db)
+    rep = batch.plan.last_autotune
+    assert all("/cuda/cuda/" in r["key"] for r in rep)
+    assert batch.plan.autotuner.n_timed > 0
+    sizes = db.sizes()
+    ops.reset_launches()
+    batch(db.data)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_scan_block"] == sum(
+        -(-sizes[r["rel"]] // min(r["block_size"], sizes[r["rel"]])) for r in rep)
+    Cs, Ns, _, _ = compute_covar(ds, database=db.with_config(block_size=4096))
+    assert N == Ns
+    np.testing.assert_allclose(C, Cs, rtol=1e-4, atol=1e-4 * np.abs(Cs).max())
+    _, _, _, warm = compute_covar(ds, database=db.with_config())
+    assert warm.plan.autotuner.n_timed == 0
+
+
 def _fact_updates(ds, n_ticks, seed=0, frac=0.01):
     """``frac`` of the fact rows inserted (drawn with replacement) and as
     many distinct rows deleted, ``n_ticks`` times (benchmarks/bench_ivm.py)."""
@@ -599,6 +659,40 @@ def test_ivm_steady_tick_syncs_nothing(cuda_device):
     assert mb.n_fold_traces == builds
     # a tick's 1,024 + 1,024 delta rows are one block of 2¹⁴
     assert ops.LAUNCHES["fused_scan_block"] == 4
+    C, N = assemble_covar({k: v.cpu().numpy() for k, v in out.items()}, olr.layout)
+    Cf, Nf = assemble_covar({k: v.cpu().numpy() for k, v in mb.batch(mb.db).items()},
+                            olr.layout)
+    assert N == Nf == 60_000
+    d = np.sqrt(np.outer(np.diag(Cf), np.diag(Cf)))
+    assert (np.abs(C - Cf) / d).max() <= 1e-4
+
+
+def test_auto_delta_lane_steady_tick_syncs_nothing(cuda_device, tmp_path):
+    """A maintained covar under block_size="auto": the delta lane tunes at
+    the first tick's runner build; later ticks of the same shape probe
+    nothing, build nothing and sync nothing; explain() shows both lanes."""
+    ds = TD.make("retailer", scale=1.0)
+    cfg = ExecutionConfig(block_size="auto",
+                          autotune_cache=str(tmp_path / "autotune.json"))
+    db = connect(ds, config=cfg, device=cuda_device)
+    olr = OnlineRidge(ds, database=db)
+    olr.fit()
+    mb = olr.maintained
+    updates = _fact_updates(ds, 4, seed=1)
+    olr.view.apply(updates[0])
+    delta = mb.plan.last_autotune_delta
+    assert delta and all(r["delta"] and r["key"].endswith("/d1") for r in delta)
+    builds, timed = mb.n_fold_traces, mb.plan.autotuner.n_timed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for upd in updates[1:]:
+            out = olr.view.apply(upd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert mb.n_fold_traces == builds and mb.plan.autotuner.n_timed == timed
+    s = olr.view.explain().summary()
+    assert "autotune[batch]:" in s and "autotune[delta]:" in s
     C, N = assemble_covar({k: v.cpu().numpy() for k, v in out.items()}, olr.layout)
     Cf, Nf = assemble_covar({k: v.cpu().numpy() for k, v in mb.batch(mb.db).items()},
                             olr.layout)

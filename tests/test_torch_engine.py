@@ -128,7 +128,7 @@ def test_connect_defaults_to_the_card():
         repro_torch.connect(TD.make("retailer", scale=0.02))
 
 
-def test_port_imports_neither_jax_nor_the_reference():
+def test_port_imports_neither_jax_nor_the_reference(tmp_path):
     code = textwrap.dedent("""
         import sys
         import repro_torch
@@ -178,16 +178,25 @@ def test_port_imports_neither_jax_nor_the_reference():
         srv.apply(DeltaBatchUpdate().insert(ds.fact, {a: c[:5] for a, c in fact.items()}))
         with srv.snapshot() as snap:
             assert snap.epoch == 1 and snap["wide"].shape == (124, 40, 60, 3)
+        Ct, Nt, _, bt = covar.compute_covar(
+            ds, database=db.with_config(backend="torch"))
+        assert Nt == N and bt.stats.n_kernel_launches == 0
+        Ca, Na, _, ba = covar.compute_covar(
+            ds, database=db.with_config(block_size="auto"))
+        assert Na == N and ba.plan.last_autotune
+        assert ba.plan.autotuner.n_timed > 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
         print("N", N)
     """)
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               REPRO_TORCH_AUTOTUNE_CACHE=str(tmp_path / "autotune.json"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "N 1200.0" in out.stdout
+    assert (tmp_path / "autotune.json").exists()
 
 
 def test_cpu_run_launches_no_kernel():
