@@ -93,7 +93,15 @@ Phases, one JSON line each (``{"phase": ...}``):
                held across publishes (bitwise), a checkpoint taken while the
                writer runs and restored bitwise; a traced round whose chrome
                export (``build/serve_trace.json``) holds the engine's spans.
- 14. lm.f32  — internlm2-1.8b at full width and depth in float32, random
+ 14. examples — the five engine examples of the port
+               (``examples/torch_*.py``) in-process on the card at
+               ``EXAMPLES_SCALE`` 10 (600,000 Favorita and Retailer fact
+               rows), each one's returned numbers held by its own oracle
+               (BGD's RMSE against the closed form's, the trees against the
+               mean and the majority class, cube against roll-up, tick
+               steps, a pinned epoch frozen, maintained against fresh), its
+               wall and launches; no JAX and no ``repro`` module loaded.
+ 15. lm.f32  — internlm2-1.8b at full width and depth in float32, random
                weights from ``--seed`` on the card: the prefill
                ``forward(impl="flash")`` against ``forward(impl="dense")``
                (B = 2, S = 4096), ``BatchedServer.generate`` (batch 8,
@@ -101,7 +109,7 @@ Phases, one JSON line each (``{"phase": ...}``):
                ``decode_step`` logits at all 128 positions against the flash
                forward over the same sequence; 24 kernel launches a forward,
                none in decode.
- 15. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
+ 16. lm.bf16 — the same model in its own dtype, bf16: warm prefill walls and
                tokens/s at B = 4, S = 4096 against the dense prefill, warm
                ``generate`` walls (ms per decode step), peak memory, and a
                device breakdown of one prefill and of a short decode; then
@@ -109,12 +117,30 @@ Phases, one JSON line each (``{"phase": ...}``):
                same bf16 weights for three seeds, each layer's kernel output
                against the plain version on that layer's q, k, v, and the
                readings of planted faults.
+ 17.-19. lm.moe, lm.ssm, lm.hybrid — qwen3-moe-235b-a22b, mamba2-2.7b and
+               zamba2-1.2b at full width from ``configs/``, random weights
+               from ``--seed``; depth cut only where the weights do not fit
+               (qwen3-moe: 4 layers in float32, 8 in bf16; listed under
+               ``reduced``).  Float32: the flash prefill against the dense
+               one (``ATTN_TOL``), teacher-forced ``decode_step`` over 256
+               tokens against the prefill (``DECODE_TOL``; for Mamba2 the
+               recurrence against the chunked SSD across two chunks; for
+               MoE with the capacity at E/k so nothing is dropped), MoE
+               logits held only where every (layer, token) top-k set up to
+               that token agreed (the share that agreed is reported).  bf16:
+               the main path (a prefill at B 4 × 4,096, then ``generate``)
+               with ``flash_attention`` launches equal to the attention
+               layers (n_layers, 0, one a hybrid group) and none in decode;
+               prefill walls and tokens/s, peak memory, a device breakdown,
+               ms a decode step.
 
 The ``kernels`` phase also holds ``flash_attention`` against its plain
 version at the attention shapes of internlm2-1.8b's prefill (the summary's
 case), llama3-8b, minicpm-2b, h2o-danube-3-4b (window 4,096), a ragged
-non-causal float32 case, a ragged causal bf16 one and ``prefill_32k``
-(sampled rows), with
+non-causal float32 case, a ragged causal bf16 one, ``prefill_32k``,
+qwen3-moe-235b-a22b's prefill (GQA 16:1) and zamba2-1.2b's (D 64), the
+plain version on sampled rows where its float32 scores would pass 16 GB
+(``prefill_32k``, qwen3-moe), with
 ``scaled_dot_product_attention`` as the library time, on (B, H, S, D)
 views of (B, S, H, D) tensors as the model passes them.  Besides allclose
 at the reference's tolerances, each case is held per query row to a
@@ -2447,10 +2473,14 @@ ATTN_CASES = (
     ("ragged.noncausal", 2, 8, 4, 1000, 16, False, 0, "float32"),
     ("ragged.bf16", 2, 8, 4, 1000, 128, True, 0, "bfloat16"),
     ("prefill_32k", 1, 16, 8, 32768, 128, True, 0, "bfloat16"),
+    ("qwen3-moe-235b-a22b", 4, 64, 4, 4096, 128, True, 0, "bfloat16"),
+    ("zamba2-1.2b", 4, 32, 32, 4096, 64, True, 0, "bfloat16"),
 )
-#: query rows of the prefill_32k case held against the plain version (the
-#: full plain version's float32 scores would take 68 GB)
+#: query rows held against the plain version where its float32 scores
+#: would pass PLAIN_SCORE_BYTES (prefill_32k: 68 GB; qwen3-moe: 17 GB, and
+#: the plain version holds four such tensors at once)
 SAMPLED_ROWS = 512
+PLAIN_SCORE_BYTES = 16e9
 #: the LM configuration: internlm2-1.8b at full width and depth
 LM_ARCH = "internlm2-1.8b"
 #: prefill batches (float32 checks, bf16 timing), sequence length, serving
@@ -2531,7 +2561,7 @@ def attention_kernel_cases(args, rates):
                    .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         reps = 3 if s > 8192 else 5
-        if label == "prefill_32k":
+        if b * h * s * s * 4 > PLAIN_SCORE_BYTES:
             rows = torch.randperm(s, generator=gen, device="cuda")[:SAMPLED_ROWS - 1]
             rows = torch.cat([rows, torch.tensor([s - 1], device="cuda")]).sort().values
             want = plain_rows(q, k, v, rows, causal)
@@ -2610,8 +2640,11 @@ def lm_params(cfg, seed: int):
         return (sum(numel(v) for v in tree.values()) if isinstance(tree, dict)
                 else tree.numel())
 
-    check(numel(params) == cfg.param_count(),
-          f"{cfg.name}: {numel(params)} parameters, expected {cfg.param_count()}")
+    # the analytic count is exact for attention and MoE blocks; for SSM
+    # blocks it leaves out conv_w and D (the reference's param_count)
+    if cfg.family in ("dense", "moe"):
+        check(numel(params) == cfg.param_count(),
+              f"{cfg.name}: {numel(params)} parameters, expected {cfg.param_count()}")
     return params
 
 
@@ -2876,6 +2909,317 @@ def lm_bf16_phase(seed: int):
     return launches
 
 
+# ---------------------------------------------------------------- examples
+
+#: the port's engine examples, in tools/torch_examples_smoke.py's order
+EXAMPLES = ("torch_quickstart", "torch_ridge_over_joins", "torch_decision_tree",
+            "torch_chow_liu_cubes", "torch_streaming_ridge")
+#: their data size: 600,000 Favorita and Retailer fact rows
+EXAMPLES_SCALE = "10"
+
+
+def example_checks(name: str, res) -> list:
+    """Each example's own oracle on the numbers its ``main()`` returned:
+    ``(what, ok)`` pairs."""
+    if name == "torch_quickstart":
+        want = res["total_units"] + res["inserted_units"]
+        return [("epoch 1 after one insert", res["epoch"] == 1),
+                ("total after the insert = total + inserted units (rel 1e-4)",
+                 abs(res["total_units_after_insert"] - want) <= 1e-4 * abs(want))]
+    if name == "torch_ridge_over_joins":
+        return [(f"BGD RMSE within {RMSE_TOL} of the closed form's",
+                 abs(res["rmse_bgd"] / res["rmse_closed_form"] - 1) <= RMSE_TOL),
+                ("ridge learns", res["rmse_closed_form"] < RMSE_RATIO * res["rmse_predict_mean"])]
+    if name == "torch_decision_tree":
+        return [("regression tree below the mean's RMSE", res["rmse"] < res["rmse_predict_mean"]),
+                ("classification accuracy above the majority class",
+                 res["accuracy"] > res["majority"])]
+    if name == "torch_chow_liu_cubes":
+        return [("engine cube equals the lattice roll-up", res["cube_equals_rollup"]),
+                ("a tree of 6 edges over 7 attributes", len(res["edges"]) == 6)]
+    return [("tick steps 1-5", res["steps"] == [1, 2, 3, 4, 5]),
+            (f"maintained vs fresh within {COVAR_TOL}", res["maintained_vs_fresh_rel"] <= COVAR_TOL),
+            ("pinned epoch frozen while the next is published",
+             res["snapshot_frozen"] and res["published_epoch"] == res["pinned_epoch"] + 1),
+            ("N unchanged by equal inserts and deletes", res["N"] == res["N_fit"])]
+
+
+def examples_phase():
+    """The five port examples in-process on the card at EXAMPLES_SCALE:
+    each one's numbers held by its own oracle, its wall and its launches;
+    no JAX and no ``repro`` module loaded after."""
+    import runpy
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    os.environ["EXAMPLES_SCALE"] = EXAMPLES_SCALE
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        mod = runpy.run_path(os.path.join(HERE, "examples", f"{name}.py"),
+                             run_name="example")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = mod["main"](["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        checks = example_checks(name, res)
+        emit("examples", example=name, scale=float(EXAMPLES_SCALE), wall_s=wall,
+             launches=launches, result=res, checks={w: bool(ok) for w, ok in checks})
+        for what, ok in checks:
+            check(ok, f"examples: {name}: {what}")
+        if name != "torch_quickstart":                      # backend="torch"
+            check(launches.get("fused_scan_block", 0) > 0,
+                  f"examples: {name} launched no fused_scan_block: {launches}")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+    emit("examples.done", phase_s=time.perf_counter() - t_phase, foreign_modules=foreign)
+    check(not foreign, f"examples: JAX or the reference loaded: {foreign[:5]}")
+
+
+# ---------------------------------------------------------------- LM families
+
+#: (phase, architecture, float32 depth, bf16 depth): None is the full depth.
+#: qwen3-moe-235b-a22b holds 9.93 GB of float32 weights a layer (4.97 GB in
+#: bf16; 437 GiB in all): the float32 checks run 4 layers (B 1, with the
+#: dense attention's scores), the bf16 walls 8 (41 GB)
+LM_FAMILIES = (("lm.moe", "qwen3-moe-235b-a22b", 4, 8),
+               ("lm.ssm", "mamba2-2.7b", None, None),
+               ("lm.hybrid", "zamba2-1.2b", None, None))
+#: teacher-forced decode length of the families' check: two SSD chunks, so
+#: the recurrence is held against the inter-chunk state carry too
+DECODE_CHECK_LEN = 256
+
+
+class RouteLog:
+    """Records every ``moe.route`` call's top-k experts (sorted) while
+    active: the routing of each (layer, token)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._route = [], moe.route
+
+        def route(p, xf, cfg):
+            probs, top_w, top_e = self._route(p, xf, cfg)
+            self.calls.append(top_e.sort(dim=-1).values)
+            return probs, top_w, top_e
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+    def prefill(self, b: int, s: int):
+        """(layers, B, S, k) from one forward's calls."""
+        import torch
+
+        return torch.stack(self.calls).reshape(len(self.calls), b, s, -1)
+
+    def decode(self, b: int, s: int):
+        """(layers, B, S, k) from ``s`` decode steps' calls."""
+        import torch
+
+        t = torch.stack(self.calls)
+        return t.reshape(s, len(self.calls) // s, b, -1).permute(1, 2, 0, 3)
+
+
+def route_agreement(a, b):
+    """The share of (layer, token) top-k sets that agree, and the tokens
+    whose own routing and every earlier token's in their sequence agreed in
+    every layer (their attention and capacity ranks saw the same routing):
+    the positions where logits are held."""
+    import torch
+
+    agree = (a == b).all(-1)                              # (L, B, S)
+    held = torch.cumprod(agree.all(0).int(), dim=1).bool()
+    return float(agree.float().mean()), held
+
+
+def family_f32_checks(cfg, seed: int):
+    """Float32 at full width: the flash prefill against the dense one, then
+    teacher-forced ``decode_step`` against the flash prefill over
+    DECODE_CHECK_LEN tokens (for MoE with the capacity at E/k, so no
+    assignment is dropped in either); logits held where routing agreed
+    (``route_agreement``).  ``generate`` runs in the bf16 walls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    moe = cfg.family == "moe"
+    b = 1 if moe else LM_F32_BATCH
+    params = lm_params(cfg, seed)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, LM_SEQ))).cuda()
+    ops.reset_launches()
+    with RouteLog() as rf:
+        flash, _ = M.forward(params, {"tokens": tokens}, cfg, impl="flash")
+        torch.cuda.synchronize()
+    fwd_launches = dict(ops.LAUNCHES)
+    with RouteLog() as rd:
+        dense, _ = M.forward(params, {"tokens": tokens}, cfg, impl="dense")
+    out = dict(prefill_batch=b, seq=LM_SEQ)
+    held = torch.ones((b, LM_SEQ), dtype=torch.bool, device="cuda")
+    if moe:
+        out["prefill_route_agreement"], held = route_agreement(
+            rf.prefill(b, LM_SEQ), rd.prefill(b, LM_SEQ))
+        out["prefill_held_tokens"] = int(held.sum())
+    check(bool(torch.isfinite(flash).all()) and tuple(flash.shape) == (b, LM_SEQ, cfg.vocab),
+          f"{cfg.name}: f32 prefill logits not finite or of shape {tuple(flash.shape)}")
+    out.update(flash_vs_dense_max_abs=float((flash - dense)[held].abs().max()),
+               flash_vs_dense_over_tol=allclose_excess(flash[held], dense[held],
+                                                       ATTN_TOL["float32"]),
+               logits_max_abs=float(dense.abs().max()), forward_launches=fwd_launches)
+    del flash, dense
+    torch.cuda.empty_cache()
+
+    n = DECODE_CHECK_LEN
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, n))).cuda()
+    dcfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k) if moe else cfg
+    with RouteLog() as rp:
+        full, _ = M.forward(params, {"tokens": seq}, dcfg, impl="flash")
+    cache = M.init_cache(dcfg, SERVE_BATCH, n, "cuda")
+    ops.reset_launches()
+    excess = torch.zeros((SERVE_BATCH, n), device="cuda")
+    err = torch.zeros((SERVE_BATCH, n), device="cuda")
+    with RouteLog() as rs:
+        for pos in range(n):
+            lg, cache = M.decode_step(params, cache, seq[:, pos:pos + 1], pos, dcfg)
+            d = (lg[:, 0] - full[:, pos]).abs()
+            err[:, pos] = d.amax(-1)
+            excess[:, pos] = (d / (DECODE_TOL + DECODE_TOL * full[:, pos].abs())).amax(-1)
+    out["decode_launches"] = dict(ops.LAUNCHES)
+    held = torch.ones((SERVE_BATCH, n), dtype=torch.bool, device="cuda")
+    if moe:
+        out["decode_capacity_factor"] = dcfg.capacity_factor
+        out["decode_route_agreement"], held = route_agreement(
+            rp.prefill(SERVE_BATCH, n), rs.decode(SERVE_BATCH, n))
+        out["decode_held_tokens"] = int(held.sum())
+    out.update(decode_len=n, decode_vs_prefill_max_abs=float(err[held].max()),
+               decode_vs_prefill_over_tol=float(excess[held].max()))
+    del params, full, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_bf16_walls(cfg, seed: int):
+    """bf16: the main path (one flash prefill at B 4 × 4,096, then
+    ``generate``) with its launches and its tokens checked, warm prefill
+    walls, tokens/s, peak memory, a device breakdown, and ms a decode step
+    (a second ``generate``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import BatchedServer
+
+    params = lm_params(cfg, seed)
+    rng = np.random.default_rng(seed + 1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    server = BatchedServer(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
+                           batch=SERVE_BATCH, device="cuda")
+
+    def prefill():
+        return M.forward(params, batch, cfg, impl="flash")[0]
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lg = prefill()
+    torch.cuda.synchronize()
+    prefill_launches = dict(ops.LAUNCHES)
+    check(bool(torch.isfinite(lg).all()), f"{cfg.name}: bf16 prefill logits not finite")
+    del lg
+    out = server.generate(prompts, SERVE_GEN)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+          and (out[:, :SERVE_PROMPT] == prompts).all()
+          and ((out >= 0) & (out < cfg.vocab)).all(), f"{cfg.name}: generate's tokens")
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = prefill()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del lg
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = device_breakdown(prefill, top=10, classify=lm_kernel_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out2 = server.generate(prompts, SERVE_GEN)
+    gen_wall = time.perf_counter() - t0
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    tokens = LM_BF16_BATCH * LM_SEQ
+    del server, params
+    torch.cuda.empty_cache()
+    return dict(prefill_batch=LM_BF16_BATCH, seq=LM_SEQ, prefill_walls_s=walls,
+                prefill_tokens_per_s=tokens / sorted(walls)[1], peak_mem_gb=peak,
+                prefill_launches=prefill_launches, launches=launches,
+                generate_wall_s=gen_wall, decode_steps=steps,
+                ms_per_decode_step=gen_wall / steps * 1e3,
+                generated_tokens_per_s=SERVE_BATCH * SERVE_GEN / gen_wall,
+                same_tokens_as_first_generate=bool((out2 == out).all()),
+                serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN),
+                prefill_profile=prof)
+
+
+def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
+    """One decoder family at full width from ``configs/``, random weights
+    from ``seed``: the float32 checks, then the bf16 walls; depth cut only
+    where memory forces it (listed under ``reduced``)."""
+    from repro_torch import configs
+
+    full = configs.get(arch)
+    t0 = time.perf_counter()
+    for dtype, depth in (("float32", f32_layers), ("bfloat16", bf16_layers)):
+        cfg = full.with_(dtype=dtype, n_layers=depth or full.n_layers)
+        # flash_attention launches a forward: one an attention layer
+        n_attn = {"moe": cfg.n_layers, "ssm": 0,
+                  "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+        res = (family_f32_checks if dtype == "float32" else family_bf16_walls)(cfg, seed)
+        res["reduced"] = ({"n_layers": [full.n_layers, cfg.n_layers],
+                           "why": "the weights of the full depth do not fit in 80 GB"}
+                          if depth else {})
+        emit(f"{phase}.{'f32' if dtype == 'float32' else 'bf16'}", arch=arch,
+             family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
+             params=cfg.param_count(), attention_layers=n_attn,
+             **{k: v for k, v in res.items() if k != "prefill_profile"})
+        if dtype == "float32":
+            check(res["flash_vs_dense_over_tol"] <= 1.0,
+                  f"{phase}: f32 flash prefill vs dense {res['flash_vs_dense_max_abs']:.3e} "
+                  f"beyond {ATTN_TOL['float32']}")
+            check(res["decode_vs_prefill_over_tol"] <= 1.0,
+                  f"{phase}: decode vs prefill {res['decode_vs_prefill_max_abs']:.3e} "
+                  f"beyond {DECODE_TOL}")
+            fwd = res["forward_launches"]
+            check(fwd.get("flash_attention", 0) == n_attn and sum(fwd.values()) == n_attn,
+                  f"{phase}: a forward launched {fwd}, expected {n_attn} flash_attention")
+            check(sum(res["decode_launches"].values()) == 0,
+                  f"{phase}: decode launched kernels")
+            if cfg.family == "moe":
+                check(min(res["prefill_route_agreement"], res["decode_route_agreement"]) >= 0.99,
+                      f"{phase}: routing agreed on fewer than 99% of (layer, token) sets")
+        else:
+            emit(f"{phase}.bf16.prefill.profile", **res["prefill_profile"])
+            pl = res["prefill_launches"]
+            check(pl.get("flash_attention", 0) == n_attn and sum(pl.values()) == n_attn
+                  and res["launches"] == pl,
+                  f"{phase}: the prefill and generate launched {res['launches']}, "
+                  f"expected {n_attn} flash_attention")
+    emit(f"{phase}.done", phase_s=time.perf_counter() - t0)
+
+
 def plan_specs_for(scale: float, block_size: int):
     """The fused specs of the covar plan's fact step and of its Items step
     with the histogram view, and of the tree plan's fact step for
@@ -3012,12 +3356,21 @@ def main() -> int:
         # 13. ad-hoc query serving over the same resident tables
         serve_phase(ds, db, join, args.seed, card_line, rates)
 
-        # 14.-15. the LM prefill and serving path, after freeing Retailer
+        # 14. the engine examples, after freeing Retailer
         del ds, db, join
         torch.cuda.empty_cache()
+        examples_phase()
+        torch.cuda.empty_cache()
+
+        # 15.-16. the LM prefill and serving path
         lm_f32_phase(args.seed)
         torch.cuda.empty_cache()
         launches["flash_attention"] = lm_bf16_phase(args.seed)["flash_attention"]
+
+        # 17.-19. the MoE, SSM and hybrid families
+        for phase, arch, f32_layers, bf16_layers in LM_FAMILIES:
+            torch.cuda.empty_cache()
+            lm_family_phase(phase, arch, f32_layers, bf16_layers, args.seed)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -6,8 +6,12 @@ walks a compiled batch plan (group-program IR, shared-scan schedule, fused
 step programs), IVM's delta and tick programs and resident relations, and
 the router's secondary programs, and raises structured
 :class:`~repro_torch.analysis.verify.PlanInvariantError`\\ s before
-anything runs.  The reference's linter (``repro/analysis/lint.py``) already
-covers ``src/repro_torch`` and has no copy here.
+anything runs.
+
+:mod:`repro_torch.analysis.lint` — the engine-contract linter over
+``src/repro_torch`` (host syncs, torch in ``obs/``, ``Engine`` outside
+``core/``, literal seeds) with its own committed allowlist; the CLI wrapper
+is ``tools/torch_lint_contracts.py``.
 """
 
 from repro_torch.analysis.verify import (PlanInvariantError,

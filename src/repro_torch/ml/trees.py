@@ -242,6 +242,9 @@ class DecisionTree:
         self.view: ViewHandle = batch
         #: the underlying CompiledBatch (schedule/stats/dispatch counters)
         self.batch = batch.compiled
+        self.n_aggregates = sum(
+            (3 if task == "regression" else 1 + self.n_classes)
+            * self.ds.schema.domain(f.attr) for f in self.features)
         self.nodes: List[TreeNode] = []
         self._frontier: List[int] = []
 

@@ -7,14 +7,15 @@ dicts of tensors of the same keys and shapes.  Activations keep the
 reference's layouts: ``(B, S, H, hd)`` for attention, weights ``wq``
 ``(d, h, hd)`` and so on.
 
-Attention offers two implementations:
-  * ``dense`` — full softmax (the reference's ``_dense_attention``)
-  * ``flash`` — ``kernels/ops.py:flash_attention``, the counterpart of the
-                reference's ``pallas``: the hand-written CUDA kernel on the
-                card, its plain version on the CPU.  The default.
-
-The reference's ``chunked`` implementation is not ported yet (ROADMAP
-Queue 1).
+Attention offers three implementations:
+  * ``dense``   — full softmax (the reference's ``_dense_attention``)
+  * ``chunked`` — a loop over query chunks of ``cfg.attn_chunk`` rows, each
+                  a dense softmax against every key: O(S·chunk) live scores
+                  (the reference's ``_chunked_attention``; no remat, which
+                  only matters to a backward pass)
+  * ``flash``   — ``kernels/ops.py:flash_attention``, the counterpart of the
+                  reference's ``pallas``: the hand-written CUDA kernel on
+                  the card, its plain version on the CPU.  The default.
 """
 
 from __future__ import annotations
@@ -63,8 +64,10 @@ def init_params(specs, generator: Optional[torch.Generator],
                 dtype: torch.dtype, device="cuda") -> Any:
     """Tensors for a spec tree: ``normal`` draws N(0, 1) · scale in float32
     from ``generator`` (a ``torch.Generator`` on ``device``; its numbers
-    differ from ``jax.random``'s), then casts to ``dtype``; ``zeros`` and
-    ``ones`` need no generator."""
+    differ from ``jax.random``'s), then casts to ``dtype``, in pieces of at
+    most 2²⁸ elements along the first axis, so a stacked leaf (a MoE
+    layer's experts: 2.4G elements) needs no float32 copy of itself;
+    ``zeros`` and ``ones`` need no generator."""
     device = resolve_device(device)
 
     def make(spec: ParamSpec) -> torch.Tensor:
@@ -74,9 +77,13 @@ def init_params(specs, generator: Optional[torch.Generator],
             return torch.ones(spec.shape, dtype=dtype, device=device)
         if generator is None:
             raise ValueError("normal-initialised parameters need a generator")
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * spec.scale).to(dtype)
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        rows = max(1, (1 << 28) // max(1, out[0].numel()))
+        for part in out.split(rows):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32, device=device)
+                       .mul_(spec.scale))
+        return out
 
     return map_specs(make, specs)
 
@@ -112,15 +119,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # --------------------------------------------------------------------------
 
 
-def _dense_attention(q, k, v, *, causal: bool, window: int):
-    """q: (B,S,H,hd), k/v: (B,T,Kv,hd). Returns (B,S,H,hd)."""
+def _dense_attention(q, k, v, *, causal: bool, window: int,
+                     q_offset: int = 0):
+    """q: (B,S,H,hd), k/v: (B,T,Kv,hd). Returns (B,S,H,hd).  Query row i
+    sits at position ``q_offset + i``."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
     qg = q.reshape(b, s, kv, g, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
     scores = scores / math.sqrt(hd)
-    rows = torch.arange(s, device=q.device)[:, None]
+    rows = q_offset + torch.arange(s, device=q.device)[:, None]
     cols = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
@@ -132,10 +141,25 @@ def _dense_attention(q, k, v, *, causal: bool, window: int):
     return o.reshape(b, s, h, v.shape[-1])
 
 
+def _chunked_attention(q, k, v, *, causal: bool, window: int,
+                       chunk: int = 512):
+    """Memory-efficient attention: query chunks of ``chunk`` rows, each a
+    dense softmax over all keys at its offset (the last chunk may be
+    shorter; the reference pads it instead, with the same rows)."""
+    s = q.shape[1]
+    chunk = min(chunk, s)
+    return torch.cat([_dense_attention(q[:, i:i + chunk], k, v, causal=causal,
+                                       window=window, q_offset=i)
+                      for i in range(0, s, chunk)], dim=1)
+
+
 def attention_core(q, k, v, *, causal: bool = True, window: int = 0,
-                   impl: str = "flash"):
+                   impl: str = "flash", chunk: int = 512):
     if impl == "dense":
         return _dense_attention(q, k, v, causal=causal, window=window)
+    if impl == "chunked":
+        return _chunked_attention(q, k, v, causal=causal, window=window,
+                                  chunk=chunk)
     if impl == "flash":
         # (B, S, H, hd) -> (B, H, S, hd) as strided views: the kernel reads
         # them in place, and its output comes back laid out like q
@@ -144,7 +168,7 @@ def attention_core(q, k, v, *, causal: bool = True, window: int = 0,
                                  window=window)
         return o.transpose(1, 2)
     raise ValueError(f"unknown attention impl {impl!r} (the port has "
-                     "'dense' and 'flash')")
+                     "'dense', 'chunked' and 'flash')")
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
@@ -213,7 +237,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, positions, impl="flash",
                              window=ring_window)
     else:
         o = attention_core(q, k, v, causal=True, window=cfg.window,
-                           impl=impl)
+                           impl=impl, chunk=cfg.attn_chunk)
     h, hd, d = p["wo"].shape
     out = o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
     return out, cache

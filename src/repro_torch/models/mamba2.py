@@ -1,0 +1,162 @@
+"""Mamba-2 SSD (state-space duality) blocks — arXiv:2405.21060; counterpart
+of ``repro/models/mamba2.py``.
+
+Prefill uses the chunked SSD algorithm: within a chunk the recurrence is
+unrolled into masked matrix products (the quadratic-in-chunk dual form);
+across chunks a small state carries ``(heads, state, head_dim)`` in float32
+— the reference's ``lax.scan`` is a loop over chunks here.  Decode carries
+O(1) state per layer: ``h ← a·h + dt·B⊗x``, ``y = C·h``; no KV cache.
+
+All of it is plain torch, as in the reference (no Pallas kernel there).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec, p_, rms_norm
+
+
+def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    din = cfg.expand * d
+    nh, n = cfg.ssm_heads, cfg.ssm_state
+    return {
+        "wx": p_((d, din), ("embed", "ssm_in")),
+        "wz": p_((d, din), ("embed", "ssm_in")),
+        "wB": p_((d, n), ("embed", None)),
+        "wC": p_((d, n), ("embed", None)),
+        "wdt": p_((d, nh), ("embed", "heads")),
+        "dt_bias": p_((nh,), ("heads",), init="zeros"),
+        "A_log": p_((nh,), ("heads",), init="zeros"),
+        "D": p_((nh,), ("heads",), init="ones"),
+        "conv_w": p_((4, din + 2 * n), (None, None), scale=0.1),
+        "norm": p_((din,), ("ssm_in",), init="ones"),
+        "wo": p_((din, d), ("ssm_in", "embed")),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, kernel (K, C); u: (B, S, C).
+    Returns (out, new_state) where state is the last K-1 inputs."""
+    k = w.shape[0]
+    if state is None:
+        up = F.pad(u, (0, 0, k - 1, 0))
+    else:
+        up = torch.cat([state.to(u.dtype), u], dim=1)
+    s = u.shape[1]
+    out = sum(up[:, i:i + s, :] * w[i] for i in range(k))
+    new_state = up[:, -(k - 1):, :] if k > 1 else None
+    return F.silu(out), new_state
+
+
+def ssd_chunked(x, dt, A, B_, C_, chunk: int, compute_dtype=torch.float32):
+    """SSD forward.
+    x: (B,S,H,P)  dt: (B,S,H)  A: (H,) negative  B_,C_: (B,S,N), float32.
+    Returns y: (B,S,H,P) float32.  ``compute_dtype`` is the dtype of the
+    dual form's decay and score matrices (bf16 halves their traffic; the
+    cumsum and the inter-chunk state stay float32)."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"SSD chunk {chunk}")
+    nc = s // chunk
+    cd = compute_dtype
+    xq = x.reshape(b, nc, chunk, h, p)
+    dtq = dt.reshape(b, nc, chunk, h)
+    Bq = B_.reshape(b, nc, chunk, n)
+    Cq = C_.reshape(b, nc, chunk, n)
+
+    cum = torch.cumsum(dtq * A, dim=2)                 # (b,nc,Q,h), log decay
+
+    # intra-chunk (quadratic-in-chunk dual form):
+    # L[i,j] = exp(cum_i - cum_j) for j <= i
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    L = torch.where(causal, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]),
+                    0.0).to(cd)                        # (b,nc,Q,Q,h)
+    sc = torch.einsum("bcin,bcjn->bcij", Cq.to(cd), Bq.to(cd))
+    w = sc[..., None] * L * dtq[:, :, None, :, :].to(cd)
+    del L
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xq.to(cd)).float()
+    del w
+
+    # chunk state: S_c = Σ_j exp(cum_end - cum_j)·dt_j·B_j ⊗ x_j
+    decay_tail = torch.exp(cum[:, :, -1:, :] - cum)    # (b,nc,Q,h)
+    S_c = torch.einsum("bcqn,bcqhp->bchnp", Bq,
+                       xq * (dtq * decay_tail)[..., None])
+    chunk_decay = torch.exp(cum[:, :, -1, :])          # (b,nc,h)
+
+    # inter-chunk state carry, float32: the state before each chunk
+    hcur = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(hcur)
+        hcur = hcur * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)              # (b,nc,h,n,p)
+
+    y_inter = torch.einsum("bcin,bchnp->bcihp", Cq, h_prevs) \
+        * torch.exp(cum)[..., None]
+    return (y_intra + y_inter).reshape(b, s, h, p)
+
+
+def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+                state: Optional[dict] = None):
+    """Returns (out, new_state).  state = {"h": (B,H,N,P), "conv": (B,3,C)};
+    with a state, ``x`` is one token (B, 1, d) and the recurrence runs."""
+    b, s, d = x.shape
+    nh, n, hp = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    din = cfg.expand * d
+
+    xz = x @ p["wx"]
+    z = x @ p["wz"]
+    Bc = x @ p["wB"]
+    Cc = x @ p["wC"]
+    dt = F.softplus(x @ p["wdt"] + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+
+    u = torch.cat([xz, Bc, Cc], dim=-1)
+    u, new_conv = _causal_conv(u, p["conv_w"], None if state is None else state["conv"])
+    xz, Bc, Cc = u[..., :din], u[..., din:din + n], u[..., din + n:]
+
+    xh = xz.reshape(b, s, nh, hp)
+    if state is None:
+        cd = torch.bfloat16 if cfg.ssd_bf16 else torch.float32
+        y = ssd_chunked(xh.float(), dt.float(), A, Bc.float(), Cc.float(),
+                        cfg.ssm_chunk, compute_dtype=cd)
+        new_h = None
+    else:
+        # single-token recurrence: h <- a·h + dt·B⊗x ; y = C·h
+        a = torch.exp(dt[:, 0] * A)                               # (b,h)
+        hprev = state["h"].float()                                # (b,h,n,p)
+        upd = dt[:, 0][:, :, None, None] * \
+            Bc[:, 0].float()[:, None, :, None] * \
+            xh[:, 0].float()[:, :, None, :]
+        new_h32 = hprev * a[:, :, None, None] + upd
+        y = torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), new_h32)[:, None]
+        new_h = new_h32.to(state["h"].dtype)
+
+    y = y + xh.float() * p["D"].float()[:, None]
+    y = y.reshape(b, s, din).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    out = (y.reshape(b * s, din) @ p["wo"]).reshape(b, s, d)
+    new_state = None if state is None else {"h": new_h, "conv": new_conv}
+    return out, new_state
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device="cuda"):
+    """A zero decode state on ``device`` (the card unless the caller asks
+    for the CPU): ``h`` in float32, ``conv`` in ``dtype``."""
+    device = resolve_device(device)
+    nh, n, hp = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    din = cfg.expand * cfg.d_model
+    return {"h": torch.zeros((batch, nh, n, hp), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, 3, din + 2 * n), dtype=dtype, device=device)}

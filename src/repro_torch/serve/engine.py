@@ -3,8 +3,10 @@ counterpart of ``repro/serve/engine.py``.
 
 ``make_serve_step`` gives the one-token step; ``BatchedServer`` drives it
 for a batch of requests with greedy sampling, teacher-forcing each prompt
-one token at a time through the cache as the reference does.  There is no
-``jit``: the step runs eagerly, and the decode cache is updated in place.
+one token at a time through the cache as the reference does, for every
+ported family (KV caches for dense and MoE, SSM states for Mamba2, both
+for the hybrid).  There is no ``jit``: the step runs eagerly, and the
+decode cache is updated in place.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import init_params
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -36,11 +37,20 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
 
 
+def _zero_states(cache) -> None:
+    """Zero the SSM states (``h``, ``conv``) of a decode cache in place."""
+    for k, v in cache.items():
+        if k in ("h", "conv"):
+            v.zero_()
+        elif isinstance(v, dict):
+            _zero_states(v)
+
+
 @dataclasses.dataclass
 class BatchedServer:
     """Greedy batched decoding over a fixed slot count, on ``device`` (the
     card unless the caller asks for the CPU).  The cache is zeros on the
-    device."""
+    device (``model.init_cache``: SSM states in float32)."""
 
     cfg: ModelConfig
     params: Any
@@ -50,23 +60,27 @@ class BatchedServer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        specs = M.cache_specs(self.cfg, self.batch, self.max_len)
-        self.cache = init_params(specs, None, self.cfg.torch_dtype, self.device)
+        self.cache = M.init_cache(self.cfg, self.batch, self.max_len,
+                                  self.device)
         self._step = make_serve_step(self.cfg)
 
     def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
         """prompts: (B, P) int32. Greedy-decodes n_tokens continuations.
-        The cache is reused from call to call without clearing: every entry
-        a step reads was written earlier in the same call."""
+        KV caches are reused from call to call without clearing (every
+        entry a step reads was written earlier in the same call); SSM
+        states, which every step reads, start each call from zeros."""
         b, plen = prompts.shape
         if b != self.batch:
             raise ValueError(f"{b} prompts for {self.batch} slots")
-        t = self.cache["kv"]["k"].shape[2]
-        ring = bool(self.cfg.window) and t == self.cfg.window
-        if not ring and plen + n_tokens - 1 > t:
-            raise ValueError(f"{plen} prompt and {n_tokens} new tokens need "
-                             f"{plen + n_tokens - 1} cache entries, the cache "
-                             f"holds {t}")
+        kv = self.cache.get("kv", self.cache.get("shared_kv"))
+        if kv is not None:
+            t = kv["k"].shape[2]
+            ring = bool(self.cfg.window) and t == self.cfg.window
+            if not ring and plen + n_tokens - 1 > t:
+                raise ValueError(f"{plen} prompt and {n_tokens} new tokens need "
+                                 f"{plen + n_tokens - 1} cache entries, the "
+                                 f"cache holds {t}")
+        _zero_states(self.cache)
         prompt_t = torch.as_tensor(np.asarray(prompts, np.int32),
                                    device=self.device)
         toks = prompt_t[:, :1]

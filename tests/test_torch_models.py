@@ -234,8 +234,7 @@ def test_model_specs_match_reference_shapes():
     assert n == cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
-                                  "mamba2-2.7b", "zamba2-1.2b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
                                   "llama-3.2-vision-90b", "whisper-small"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -252,3 +251,201 @@ def test_lm_entry_points_default_to_the_card():
         BatchedServer(cfg, {}, max_len=8, batch=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"w": np.zeros(2)})
+
+
+# -- the MoE, SSM and hybrid families -----------------------------------------
+
+FAMILIES = ["qwen3-moe-235b-a22b", "mamba2-2.7b", "zamba2-1.2b"]
+#: the smoke configs, and zamba2's with 5 layers: 2 groups and a 1-layer tail
+FAMILY_CASES = [pytest.param(a, {}, id=a) for a in FAMILIES] + [
+    pytest.param("zamba2-1.2b", {"n_layers": 5}, id="zamba2-1.2b-tail")]
+
+
+@pytest.mark.parametrize("arch,overrides", FAMILY_CASES)
+def test_family_forward_matches_reference(arch, overrides):
+    """Every port implementation against the reference's ``dense`` (and
+    ``pallas`` in interpret mode where attention runs) at S = 40, a multiple
+    of the smoke SSD chunk (8); qwen3-moe's 80 tokens make 20 dispatch
+    groups of capacity 2, so assignments are dropped."""
+    jcfg, cfg, jparams, params, tokens = _setup(arch, **overrides)
+    assert ("tail" in params) == bool(cfg.family == "hybrid"
+                                      and cfg.n_layers % cfg.attn_every)
+    jbatch = {"tokens": jnp.asarray(tokens)}
+    impls = ("dense",) if cfg.family == "ssm" else ("dense", "pallas")
+    want = {impl: JM.forward(jparams, jbatch, jcfg, impl=impl) for impl in impls}
+    batch = {"tokens": torch.from_numpy(tokens)}
+    for impl in ("flash", "dense", "chunked"):
+        logits, aux = M.forward(params, batch, cfg, impl=impl)
+        assert tuple(logits.shape) == (B, S, cfg.vocab)
+        for w_logits, w_aux in want.values():
+            np.testing.assert_allclose(logits.numpy(), np.asarray(w_logits),
+                                       rtol=2e-3, atol=2e-3, err_msg=f"{arch} {impl}")
+            np.testing.assert_allclose(float(aux["aux_loss"]), float(w_aux["aux_loss"]),
+                                       rtol=1e-5, atol=1e-5)
+    if cfg.family == "moe":
+        assert float(aux["aux_loss"]) > 0.0
+
+
+@pytest.mark.parametrize("arch,overrides", FAMILY_CASES)
+def test_family_decode_matches_reference_and_forward(arch, overrides):
+    """Teacher-forced decode (SSM states and KV caches in place) against the
+    reference's decode_step and against the port's forward: for Mamba2 the
+    O(1) recurrence against the chunked SSD."""
+    s = 16
+    jcfg, cfg, jparams, params, tokens = _setup(arch, s=s, **overrides)
+    full = M.forward(params, {"tokens": torch.from_numpy(tokens)}, cfg)[0].numpy()
+    cache = M.init_cache(cfg, B, s, "cpu")
+    jcache = j_init_params(JM.cache_specs(jcfg, B, s), jax.random.PRNGKey(0),
+                           jcfg.jdtype)
+    jstep = jax.jit(lambda p, c, t, pos: JM.decode_step(p, c, t, pos, jcfg))
+    for pos in range(s):
+        lg, cache = M.decode_step(params, cache, torch.from_numpy(tokens[:, pos:pos + 1]),
+                                  pos, cfg)
+        jlg, jcache = jstep(jparams, jcache, jnp.asarray(tokens[:, pos:pos + 1]),
+                            jnp.asarray(pos, jnp.int32))
+        np.testing.assert_allclose(lg[:, 0].numpy(), np.asarray(jlg[:, 0]),
+                                   rtol=5e-3, atol=5e-3, err_msg=f"{arch} {pos}")
+        np.testing.assert_allclose(lg[:, 0].numpy(), full[:, pos], rtol=5e-3,
+                                   atol=5e-3, err_msg=f"{arch} {pos}")
+    flat = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert len(flat) == len(jax.tree.leaves(cache))
+    for path, want in flat:
+        got = cache
+        for key in path:
+            got = got[key.key]
+        assert got.dtype == (torch.float32 if path[-1].key == "h" else cfg.torch_dtype)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3, atol=5e-3,
+                                   err_msg=f"{arch} {path}")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_generate_matches_reference(arch):
+    """The same greedy tokens from the same weights and prompts; a second
+    call starts its SSM states from zeros again."""
+    jcfg, cfg, jparams, params, tokens = _setup(arch, seed=2)
+    prompts = tokens[:, :5]
+    n_gen = 11
+    want = JServer(jcfg, jparams, max_len=5 + n_gen, batch=B).generate(prompts, n_gen)
+    server = BatchedServer(cfg, params, max_len=5 + n_gen, batch=B, device="cpu")
+    np.testing.assert_array_equal(server.generate(prompts, n_gen), want)
+    np.testing.assert_array_equal(server.generate(prompts, n_gen), want)
+
+
+@pytest.mark.parametrize("s,chunk,window", [(40, 16, 0), (40, 16, 12), (33, 64, 0)])
+def test_chunked_attention_matches_dense(s, chunk, window):
+    """Query chunks (a ragged last one, a window across chunk edges, one
+    chunk longer than S) against the full softmax, and against the
+    reference's chunked attention."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+    rng = np.random.default_rng(s + chunk + window)
+    q = rng.normal(size=(2, s, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, s, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(2, s, 2, 16)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = TL.attention_core(tq, tk, tv, causal=True, window=window,
+                            impl="chunked", chunk=chunk).numpy()
+    dense = TL.attention_core(tq, tk, tv, causal=True, window=window,
+                              impl="dense").numpy()
+    np.testing.assert_allclose(got, dense, rtol=2e-4, atol=2e-4)
+    want = JL.attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, window=window, impl="chunked", chunk=chunk)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def _moe_setup(capacity_factor=1.25, t=(2, 40)):
+    from repro.models import moe as JMoE
+    jcfg = jconfigs.get_smoke("qwen3-moe-235b-a22b").with_(capacity_factor=capacity_factor)
+    cfg = configs.get_smoke("qwen3-moe-235b-a22b").with_(capacity_factor=capacity_factor)
+    jp = j_init_params(JMoE.moe_specs(jcfg), jax.random.PRNGKey(5), jcfg.jdtype)
+    x = np.random.default_rng(6).normal(size=t + (cfg.d_model,)).astype(np.float32)
+    return JMoE, jcfg, cfg, jp, params_from_numpy(_np_tree(jp), "cpu"), x
+
+
+def test_router_stats_match_reference():
+    from repro_torch.models import moe
+    JMoE, jcfg, cfg, jp, p, x = _moe_setup()
+    want = JMoE.router_stats(jp, jnp.asarray(x), jcfg)
+    got = moe.router_stats(p, torch.from_numpy(x), cfg)
+    np.testing.assert_array_equal(got["expert_load"].numpy(),
+                                  np.asarray(want["expert_load"]))
+    assert float(got["expert_load"].sum()) == x.shape[0] * x.shape[1] * cfg.top_k
+    np.testing.assert_allclose(float(got["router_entropy"]),
+                               float(want["router_entropy"]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("capacity_factor", [0.5, 1.25])
+def test_moe_dispatch_matches_reference(capacity_factor):
+    """The kept set and the capacity as the reference's moe_apply computes
+    them (moe.py:67-82: top-k of the float32 router probabilities, ranks by
+    a cumsum inside each (group, expert)), and moe_apply's output and aux
+    loss, with half or more of the assignments dropped at 0.5."""
+    from repro_torch.models import moe
+    JMoE, jcfg, cfg, jp, p, x = _moe_setup(capacity_factor)
+    t, e, k = x.shape[0] * x.shape[1], cfg.n_experts, cfg.top_k
+    ng = JMoE._dispatch_groups(jcfg, t)
+    assert moe._dispatch_groups(cfg, t) == ng
+    # the reference's ranking, step by step
+    jx = jnp.asarray(x).reshape(t, -1)
+    probs = jax.nn.softmax(jnp.einsum("td,de->te", jx, jp["router"]).astype(jnp.float32))
+    _, top_e = jax.lax.top_k(probs, k)
+    ge = top_e.reshape(ng, -1)
+    oh = jax.nn.one_hot(ge, e, dtype=jnp.int32)
+    jpos = jnp.take_along_axis(jnp.cumsum(oh, axis=1) - oh, ge[..., None], axis=2)[..., 0]
+    jcap = int(np.ceil(t // ng * k / e * capacity_factor))
+
+    _, _, te = moe.route(p, torch.from_numpy(x).reshape(t, -1), cfg)
+    np.testing.assert_array_equal(te.numpy(), np.asarray(top_e))
+    pos, keep, cap = moe.dispatch(te, cfg, ng)
+    assert cap == jcap
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jpos < jcap))
+    if capacity_factor < 1:
+        assert not keep.all()
+
+    out, aux = moe.moe_apply(p, torch.from_numpy(x), cfg)
+    jout, jaux = JMoE.moe_apply(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=1e-5)
+
+
+def _recurrence(x, dt, A, Bm, Cm):
+    """Token-by-token SSM: h ← exp(dt·A)·h + dt·B⊗x, y = C·h (float64)."""
+    b, s, h, p = x.shape
+    st = np.zeros((b, h, Bm.shape[-1], p))
+    ys = []
+    for i in range(s):
+        a = np.exp(dt[:, i] * A)
+        st = st * a[:, :, None, None] + (dt[:, i][:, :, None, None]
+                                         * Bm[:, i][:, None, :, None]
+                                         * x[:, i][:, :, None, :])
+        ys.append(np.einsum("bn,bhnp->bhp", Cm[:, i], st))
+    return np.stack(ys, axis=1)
+
+
+@pytest.mark.parametrize("chunk,bf16", [(8, False), (16, False), (8, True)])
+def test_ssd_chunked_matches_recurrence(chunk, bf16):
+    """The chunked dual form against the token-by-token recurrence (float64)
+    and against the reference's ssd_chunked; the bf16 dual form at bf16's
+    tolerance (tests/test_kernels.py:197)."""
+    from repro.models import mamba2 as JM2
+    from repro_torch.models import mamba2 as m2
+    rng = np.random.default_rng(chunk)
+    b, s, h, p, n = 2, 32, 3, 4, 5
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.5, size=(b, s, h)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, size=h).astype(np.float32)
+    Bm = rng.normal(size=(b, s, n)).astype(np.float32)
+    Cm = rng.normal(size=(b, s, n)).astype(np.float32)
+    cd = torch.bfloat16 if bf16 else torch.float32
+    got = m2.ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), chunk,
+                         compute_dtype=cd)
+    assert got.dtype == torch.float32
+    tol = 5e-2 if bf16 else 1e-4
+    np.testing.assert_allclose(got.numpy(), _recurrence(x, dt, A, Bm, Cm),
+                               rtol=tol, atol=tol)
+    want = JM2.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), chunk,
+                           compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="multiple"):
+        m2.ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)), 7)
