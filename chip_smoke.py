@@ -2462,19 +2462,26 @@ def serve_phase(ds, db, join, seed: int, card_line: str, rates):
 
 # ---------------------------------------------------------------- LM
 
-#: flash_attention's cases: (label, B, H, H_kv, S, D, causal, window, dtype);
-#: the first is the summary line's (internlm2-1.8b's prefill at B = 4)
+#: flash_attention's cases: (label, B, H, H_kv, S_q, S_k, D_q, D_v, causal,
+#: window, dtype); the first is the summary line's (internlm2-1.8b's
+#: prefill at B = 4).  MLA's prefill is D_q = 128 + 64 of rope against
+#: D_v = 128; the VLM's cross-attention 4,096 text rows against 1,024
+#: vision tokens; whisper's encoder 1,500 frames, non-causal.
 ATTN_CASES = (
-    ("internlm2-1.8b", 4, 16, 8, 4096, 128, True, 0, "bfloat16"),
-    ("internlm2-1.8b.f32", 4, 16, 8, 4096, 128, True, 0, "float32"),
-    ("llama3-8b", 2, 32, 8, 4096, 128, True, 0, "bfloat16"),
-    ("minicpm-2b", 4, 36, 36, 2048, 64, True, 0, "bfloat16"),
-    ("h2o-danube-3-4b", 1, 32, 8, 8192, 120, True, 4096, "bfloat16"),
-    ("ragged.noncausal", 2, 8, 4, 1000, 16, False, 0, "float32"),
-    ("ragged.bf16", 2, 8, 4, 1000, 128, True, 0, "bfloat16"),
-    ("prefill_32k", 1, 16, 8, 32768, 128, True, 0, "bfloat16"),
-    ("qwen3-moe-235b-a22b", 4, 64, 4, 4096, 128, True, 0, "bfloat16"),
-    ("zamba2-1.2b", 4, 32, 32, 4096, 64, True, 0, "bfloat16"),
+    ("internlm2-1.8b", 4, 16, 8, 4096, 4096, 128, 128, True, 0, "bfloat16"),
+    ("internlm2-1.8b.f32", 4, 16, 8, 4096, 4096, 128, 128, True, 0, "float32"),
+    ("llama3-8b", 2, 32, 8, 4096, 4096, 128, 128, True, 0, "bfloat16"),
+    ("minicpm-2b", 4, 36, 36, 2048, 2048, 64, 64, True, 0, "bfloat16"),
+    ("h2o-danube-3-4b", 1, 32, 8, 8192, 8192, 120, 120, True, 4096, "bfloat16"),
+    ("ragged.noncausal", 2, 8, 4, 1000, 1000, 16, 16, False, 0, "float32"),
+    ("ragged.bf16", 2, 8, 4, 1000, 1000, 128, 128, True, 0, "bfloat16"),
+    ("prefill_32k", 1, 16, 8, 32768, 32768, 128, 128, True, 0, "bfloat16"),
+    ("qwen3-moe-235b-a22b", 4, 64, 4, 4096, 4096, 128, 128, True, 0, "bfloat16"),
+    ("zamba2-1.2b", 4, 32, 32, 4096, 4096, 64, 64, True, 0, "bfloat16"),
+    ("deepseek-v2-lite-16b.mla", 4, 16, 16, 4096, 4096, 192, 128, True, 0, "bfloat16"),
+    ("deepseek-v2-lite-16b.mla.f32", 4, 16, 16, 4096, 4096, 192, 128, True, 0, "float32"),
+    ("llama-3.2-vision-90b.cross", 4, 64, 8, 4096, 1024, 128, 128, False, 0, "bfloat16"),
+    ("whisper-small.encoder", 4, 12, 12, 1500, 1500, 64, 64, False, 0, "bfloat16"),
 )
 #: query rows held against the plain version where its float32 scores
 #: would pass PLAIN_SCORE_BYTES (prefill_32k: 68 GB; qwen3-moe: 17 GB, and
@@ -2506,7 +2513,7 @@ def plain_rows(q, k, v, rows, causal: bool, window: int = 0, drop=(0, 0)):
     import torch
 
     group = q.shape[1] // k.shape[1]
-    t = int(rows.max()) + 1 if causal else k.shape[2]
+    t = min(int(rows.max()) + 1, k.shape[2]) if causal else k.shape[2]
     kr = k[:, :, :t].float().repeat_interleave(group, dim=1)
     vr = v[:, :, :t].float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(), kr) / math.sqrt(q.shape[-1])
@@ -2543,9 +2550,10 @@ def planted_fault_rel(q, k, v, got, causal: bool, window: int) -> float:
 
 
 def attention_kernel_cases(args, rates):
-    """``flash_attention`` against its plain version at the dense models'
+    """``flash_attention`` against its plain version at the models'
     attention shapes, on (B, H, S, D) views of (B, S, H, D) tensors as the
-    model passes them: error, kernel, plain and SDPA times, bound."""
+    model passes them: error, kernel, plain and SDPA times (SDPA takes
+    E_v ≠ E), bound (unmasked pairs × 2 (D_q + D_v) operations)."""
     import torch
     import torch.nn.functional as F
 
@@ -2555,13 +2563,14 @@ def attention_kernel_cases(args, rates):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     cases = []
-    for label, b, h, hkv, s, d, causal, window, dt in ATTN_CASES:
+    for label, b, h, hkv, s, sk, d, dv, causal, window, dt in ATTN_CASES:
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda")
-                   .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+        q, k, v = (torch.randn((b, n, heads, width), generator=gen, device="cuda")
+                   .to(dtype).transpose(1, 2)
+                   for n, heads, width in ((s, h, d), (sk, hkv, d), (sk, hkv, dv)))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         reps = 3 if s > 8192 else 5
-        if b * h * s * s * 4 > PLAIN_SCORE_BYTES:
+        if b * h * s * sk * 4 > PLAIN_SCORE_BYTES:
             rows = torch.randperm(s, generator=gen, device="cuda")[:SAMPLED_ROWS - 1]
             rows = torch.cat([rows, torch.tensor([s - 1], device="cuda")]).sort().values
             want = plain_rows(q, k, v, rows, causal)
@@ -2595,10 +2604,12 @@ def attention_kernel_cases(args, rates):
             library = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)
         library_ms = cuda_ms(library, reps)
-        nbytes = q.element_size() * b * s * d * (2 * h + 2 * hkv)
-        pairs = b * h * unmasked_pairs(s, s, causal, window)
+        nbytes = q.element_size() * b * (d + dv) * (h * s + hkv * sk)
+        pairs = b * h * unmasked_pairs(s, sk, causal, window)
+        n_ops = 2 * (d + dv) * pairs
         peak = bf16_flops if dt == "bfloat16" else f32_flops
-        case = dict(case=label, B=b, H=h, H_kv=hkv, S=s, D=d, causal=causal,
+        case = dict(case=label, B=b, H=h, H_kv=hkv, S=s, S_k=sk, D=d, D_v=dv,
+                    causal=causal,
                     window=window, dtype=dt, max_abs_err=max_abs,
                     err_over_tol=worst, tol=tol, row_rel_err=rel,
                     row_rel_tol=ROW_REL_TOL[dt], planted_fault_row_rel=fault_rel,
@@ -2609,8 +2620,8 @@ def attention_kernel_cases(args, rates):
                     library_ms=library_ms,
                     library_call="scaled_dot_product_attention"
                     + (" with an explicit band mask" if window > 0 else ""),
-                    unmasked_pairs=pairs, achieved_tflops=4 * d * pairs / ms / 1e9,
-                    **bound(nbytes, 4 * d * pairs, bw, peak))
+                    unmasked_pairs=pairs, achieved_tflops=n_ops / ms / 1e9,
+                    **bound(nbytes, n_ops, bw, peak))
         emit("kernel", name="flash_attention", **case)
         check(worst <= 1.0, f"flash_attention[{label}]: |kernel - plain| exceeds "
               f"{tol} + {tol}·|plain| (max abs {max_abs:.3e})")
@@ -2640,11 +2651,15 @@ def lm_params(cfg, seed: int):
         return (sum(numel(v) for v in tree.values()) if isinstance(tree, dict)
                 else tree.numel())
 
-    # the analytic count is exact for attention and MoE blocks; for SSM
-    # blocks it leaves out conv_w and D (the reference's param_count)
-    if cfg.family in ("dense", "moe"):
-        check(numel(params) == cfg.param_count(),
-              f"{cfg.name}: {numel(params)} parameters, expected {cfg.param_count()}")
+    # the analytic count is exact for attention (MLA too), MoE and
+    # cross-attention blocks; it leaves out whisper's learned encoder
+    # positions and the encoder's last norm, and for SSM blocks conv_w and
+    # D (the reference's param_count)
+    if cfg.family not in ("ssm", "hybrid"):
+        want = cfg.param_count() + ((cfg.encoder_frames + 1) * cfg.d_model
+                                    if cfg.family == "audio" else 0)
+        check(numel(params) == want,
+              f"{cfg.name}: {numel(params)} parameters, expected {want}")
     return params
 
 
@@ -2982,12 +2997,23 @@ def examples_phase():
 # ---------------------------------------------------------------- LM families
 
 #: (phase, architecture, float32 depth, bf16 depth): None is the full depth.
+#: (phase, arch, float32 layers, bf16 layers; None: full depth).
 #: qwen3-moe-235b-a22b holds 9.93 GB of float32 weights a layer (4.97 GB in
 #: bf16; 437 GiB in all): the float32 checks run 4 layers (B 1, with the
-#: dense attention's scores), the bf16 walls 8 (41 GB)
+#: dense attention's scores), the bf16 walls 8 (41 GB).  deepseek-v2-lite
+#: (MLA) is 29.8 GiB in bf16 at its 27 layers, 59.6 GiB in float32: the
+#: checks run 8 layers (18.2 GiB).  llama-3.2-vision-90b is 161 GiB in
+#: bf16: 20 layers (4 super-blocks, 33.8 GiB) for the walls, one
+#: super-block of 5 in float32.  whisper-small runs whole.
 LM_FAMILIES = (("lm.moe", "qwen3-moe-235b-a22b", 4, 8),
                ("lm.ssm", "mamba2-2.7b", None, None),
-               ("lm.hybrid", "zamba2-1.2b", None, None))
+               ("lm.hybrid", "zamba2-1.2b", None, None),
+               ("lm.mla", "deepseek-v2-lite-16b", 8, None),
+               ("lm.vlm", "llama-3.2-vision-90b", 5, 20),
+               ("lm.audio", "whisper-small", None, None))
+#: whisper's decoder prefill: its own text context (``n_text_ctx`` of
+#: openai/whisper's ModelDimensions), against the encoder's 1,500 frames
+AUDIO_TEXT_CTX = 448
 #: teacher-forced decode length of the families' check: two SSD chunks, so
 #: the recurrence is held against the inter-chunk state carry too
 DECODE_CHECK_LEN = 256
@@ -3029,6 +3055,36 @@ class RouteLog:
         return t.reshape(s, len(self.calls) // s, b, -1).permute(1, 2, 0, 3)
 
 
+def family_seq(cfg) -> int:
+    """The prefill length of a family's checks and walls."""
+    return AUDIO_TEXT_CTX if cfg.family == "audio" else LM_SEQ
+
+
+def family_context(cfg, b: int, rng, device="cuda"):
+    """The raw context of a VLM or audio request batch, as the reference's
+    ``launch/serve.py`` makes it: 0.02·N(0, 1) from ``rng``, (b, vision
+    tokens or frames, d_model) float32 under its batch key ({} for the
+    other families)."""
+    import torch
+
+    if cfg.family not in ("vlm", "audio"):
+        return {}
+    key, n = (("vision", cfg.vision_tokens) if cfg.family == "vlm"
+              else ("frames", cfg.encoder_frames))
+    raw = (0.02 * rng.standard_normal((b, n, cfg.d_model))).astype("float32")
+    return {key: torch.from_numpy(raw).to(device)}
+
+
+def flash_launches_a_forward(cfg) -> int:
+    """``flash_attention`` launches of one forward: one an attention layer
+    (the VLM's self and cross layers alike; whisper's encoder layers and
+    its decoder's self and cross attention), the hybrid's shared block once
+    a group, none for the SSM."""
+    return {"moe": cfg.n_layers, "ssm": 0, "vlm": cfg.n_layers,
+            "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "audio": cfg.encoder_layers + 2 * cfg.n_layers}[cfg.family]
+
+
 def route_agreement(a, b):
     """The share of (layer, token) top-k sets that agree, and the tokens
     whose own routing and every earlier token's in their sequence agreed in
@@ -3046,7 +3102,8 @@ def family_f32_checks(cfg, seed: int):
     teacher-forced ``decode_step`` against the flash prefill over
     DECODE_CHECK_LEN tokens (for MoE with the capacity at E/k, so no
     assignment is dropped in either); logits held where routing agreed
-    (``route_agreement``).  ``generate`` runs in the bf16 walls."""
+    (``route_agreement``); VLM and audio decode read the context that
+    ``encode_context`` made once.  ``generate`` runs in the bf16 walls."""
     import numpy as np
     import torch
 
@@ -3054,24 +3111,26 @@ def family_f32_checks(cfg, seed: int):
     from repro_torch.models import model as M
 
     moe = cfg.family == "moe"
-    b = 1 if moe else LM_F32_BATCH
+    b = 1 if moe or cfg.family == "vlm" else LM_F32_BATCH
+    seq_len = family_seq(cfg)
     params = lm_params(cfg, seed)
     rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, LM_SEQ))).cuda()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, seq_len))).cuda()
+    batch = {"tokens": tokens, **family_context(cfg, b, rng)}
     ops.reset_launches()
     with RouteLog() as rf:
-        flash, _ = M.forward(params, {"tokens": tokens}, cfg, impl="flash")
+        flash, _ = M.forward(params, batch, cfg, impl="flash")
         torch.cuda.synchronize()
     fwd_launches = dict(ops.LAUNCHES)
     with RouteLog() as rd:
-        dense, _ = M.forward(params, {"tokens": tokens}, cfg, impl="dense")
-    out = dict(prefill_batch=b, seq=LM_SEQ)
-    held = torch.ones((b, LM_SEQ), dtype=torch.bool, device="cuda")
+        dense, _ = M.forward(params, batch, cfg, impl="dense")
+    out = dict(prefill_batch=b, seq=seq_len)
+    held = torch.ones((b, seq_len), dtype=torch.bool, device="cuda")
     if moe:
         out["prefill_route_agreement"], held = route_agreement(
-            rf.prefill(b, LM_SEQ), rd.prefill(b, LM_SEQ))
+            rf.prefill(b, seq_len), rd.prefill(b, seq_len))
         out["prefill_held_tokens"] = int(held.sum())
-    check(bool(torch.isfinite(flash).all()) and tuple(flash.shape) == (b, LM_SEQ, cfg.vocab),
+    check(bool(torch.isfinite(flash).all()) and tuple(flash.shape) == (b, seq_len, cfg.vocab),
           f"{cfg.name}: f32 prefill logits not finite or of shape {tuple(flash.shape)}")
     out.update(flash_vs_dense_max_abs=float((flash - dense)[held].abs().max()),
                flash_vs_dense_over_tol=allclose_excess(flash[held], dense[held],
@@ -3082,16 +3141,19 @@ def family_f32_checks(cfg, seed: int):
 
     n = DECODE_CHECK_LEN
     seq = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, n))).cuda()
+    ctx = family_context(cfg, SERVE_BATCH, rng)
     dcfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k) if moe else cfg
     with RouteLog() as rp:
-        full, _ = M.forward(params, {"tokens": seq}, dcfg, impl="flash")
+        full, _ = M.forward(params, {"tokens": seq, **ctx}, dcfg, impl="flash")
+    context = M.encode_context(params, ctx, dcfg)
     cache = M.init_cache(dcfg, SERVE_BATCH, n, "cuda")
     ops.reset_launches()
     excess = torch.zeros((SERVE_BATCH, n), device="cuda")
     err = torch.zeros((SERVE_BATCH, n), device="cuda")
     with RouteLog() as rs:
         for pos in range(n):
-            lg, cache = M.decode_step(params, cache, seq[:, pos:pos + 1], pos, dcfg)
+            lg, cache = M.decode_step(params, cache, seq[:, pos:pos + 1], pos, dcfg,
+                                      context=context)
             d = (lg[:, 0] - full[:, pos]).abs()
             err[:, pos] = d.amax(-1)
             excess[:, pos] = (d / (DECODE_TOL + DECODE_TOL * full[:, pos].abs())).amax(-1)
@@ -3104,16 +3166,24 @@ def family_f32_checks(cfg, seed: int):
         out["decode_held_tokens"] = int(held.sum())
     out.update(decode_len=n, decode_vs_prefill_max_abs=float(err[held].max()),
                decode_vs_prefill_over_tol=float(excess[held].max()))
-    del params, full, cache
+    del params, full, cache, context
     torch.cuda.empty_cache()
     return out
 
 
+def launches_since(before: dict) -> dict:
+    """The launches counted since the snapshot ``before``."""
+    from repro_torch.kernels import ops
+
+    return {k: n - before.get(k, 0) for k, n in ops.LAUNCHES.items()}
+
+
 def family_bf16_walls(cfg, seed: int):
-    """bf16: the main path (one flash prefill at B 4 × 4,096, then
-    ``generate``) with its launches and its tokens checked, warm prefill
-    walls, tokens/s, peak memory, a device breakdown, and ms a decode step
-    (a second ``generate``)."""
+    """bf16: the main path (one flash prefill at B 4 × 4,096 tokens, 448
+    for whisper, then a ``BatchedServer`` that encodes its raw context once,
+    then ``generate``) with its launches and its tokens checked, warm
+    prefill walls, tokens/s, peak memory, a device breakdown, and ms a
+    decode step (a second ``generate``)."""
     import numpy as np
     import torch
 
@@ -3123,10 +3193,11 @@ def family_bf16_walls(cfg, seed: int):
 
     params = lm_params(cfg, seed)
     rng = np.random.default_rng(seed + 1)
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
+    seq_len = family_seq(cfg)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BF16_BATCH, seq_len))).cuda(),
+             **family_context(cfg, LM_BF16_BATCH, rng)}
     prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
-    server = BatchedServer(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
-                           batch=SERVE_BATCH, device="cuda")
+    raw = next(iter(family_context(cfg, SERVE_BATCH, rng, "cpu").values()), None)
 
     def prefill():
         return M.forward(params, batch, cfg, impl="flash")[0]
@@ -3138,8 +3209,15 @@ def family_bf16_walls(cfg, seed: int):
     prefill_launches = dict(ops.LAUNCHES)
     check(bool(torch.isfinite(lg).all()), f"{cfg.name}: bf16 prefill logits not finite")
     del lg
+    server = BatchedServer(cfg, params, max_len=SERVE_PROMPT + SERVE_GEN,
+                           batch=SERVE_BATCH, device="cuda",
+                           context=None if raw is None else raw.numpy())
+    torch.cuda.synchronize()
+    encode_launches = launches_since(prefill_launches)
+    before_generate = dict(ops.LAUNCHES)
     out = server.generate(prompts, SERVE_GEN)
     torch.cuda.synchronize()
+    generate_launches = launches_since(before_generate)
     launches = dict(ops.LAUNCHES)
     check(out.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
           and (out[:, :SERVE_PROMPT] == prompts).all()
@@ -3160,12 +3238,14 @@ def family_bf16_walls(cfg, seed: int):
     out2 = server.generate(prompts, SERVE_GEN)
     gen_wall = time.perf_counter() - t0
     steps = SERVE_PROMPT + SERVE_GEN - 1
-    tokens = LM_BF16_BATCH * LM_SEQ
+    tokens = LM_BF16_BATCH * seq_len
     del server, params
     torch.cuda.empty_cache()
-    return dict(prefill_batch=LM_BF16_BATCH, seq=LM_SEQ, prefill_walls_s=walls,
+    return dict(prefill_batch=LM_BF16_BATCH, seq=seq_len, prefill_walls_s=walls,
                 prefill_tokens_per_s=tokens / sorted(walls)[1], peak_mem_gb=peak,
-                prefill_launches=prefill_launches, launches=launches,
+                context_shape=None if raw is None else list(raw.shape),
+                prefill_launches=prefill_launches, encode_launches=encode_launches,
+                generate_launches=generate_launches, launches=launches,
                 generate_wall_s=gen_wall, decode_steps=steps,
                 ms_per_decode_step=gen_wall / steps * 1e3,
                 generated_tokens_per_s=SERVE_BATCH * SERVE_GEN / gen_wall,
@@ -3184,12 +3264,13 @@ def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
     t0 = time.perf_counter()
     for dtype, depth in (("float32", f32_layers), ("bfloat16", bf16_layers)):
         cfg = full.with_(dtype=dtype, n_layers=depth or full.n_layers)
-        # flash_attention launches a forward: one an attention layer
-        n_attn = {"moe": cfg.n_layers, "ssm": 0,
-                  "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+        n_attn = flash_launches_a_forward(cfg)
         res = (family_f32_checks if dtype == "float32" else family_bf16_walls)(cfg, seed)
+        gib = full.param_count() * (4 if dtype == "float32" else 2) / 2**30
         res["reduced"] = ({"n_layers": [full.n_layers, cfg.n_layers],
-                           "why": "the weights of the full depth do not fit in 80 GB"}
+                           "full_depth_weights_gib": gib,
+                           "why": "the weights of the full depth and the phase's "
+                                  "activations do not fit in 80 GB"}
                           if depth else {})
         emit(f"{phase}.{'f32' if dtype == 'float32' else 'bf16'}", arch=arch,
              family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -3213,10 +3294,16 @@ def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
         else:
             emit(f"{phase}.bf16.prefill.profile", **res["prefill_profile"])
             pl = res["prefill_launches"]
+            # the encoder runs once, when the server is built: whisper's
+            # layers launch the kernel, the VLM's context is cast only
+            n_enc = cfg.encoder_layers if cfg.family == "audio" else 0
+            enc = res["encode_launches"]
             check(pl.get("flash_attention", 0) == n_attn and sum(pl.values()) == n_attn
-                  and res["launches"] == pl,
-                  f"{phase}: the prefill and generate launched {res['launches']}, "
-                  f"expected {n_attn} flash_attention")
+                  and enc.get("flash_attention", 0) == n_enc and sum(enc.values()) == n_enc
+                  and sum(res["generate_launches"].values()) == 0,
+                  f"{phase}: the prefill launched {pl}, the encode {enc} and generate "
+                  f"{res['generate_launches']}, expected {n_attn}, {n_enc} and 0 "
+                  "flash_attention")
     emit(f"{phase}.done", phase_s=time.perf_counter() - t0)
 
 
@@ -3367,7 +3454,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["flash_attention"] = lm_bf16_phase(args.seed)["flash_attention"]
 
-        # 17.-19. the MoE, SSM and hybrid families
+        # 17.-22. the MoE, SSM, hybrid, MLA, VLM and audio families
         for phase, arch, f32_layers, bf16_layers in LM_FAMILIES:
             torch.cuda.empty_cache()
             lm_family_phase(phase, arch, f32_layers, bf16_layers, args.seed)

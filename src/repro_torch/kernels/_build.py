@@ -109,15 +109,19 @@ def library() -> ctypes.CDLL:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     bind_seg_reduce(lib)
     bind_covar_xtx(lib)
-    # q, k, v, o, the 12 strides, bf16?, B, H, H_kv, S_q, S_k, D, causal,
-    # window, stream
-    lib.flash_attention.argtypes = [P, P, P, P, ctypes.POINTER(I64), I, I, I,
-                                    I, I64, I64, I, I, I64, P]
-    lib.flash_attention.restype = ctypes.c_int
+    bind_flash_attention(lib)
     return lib
+
+
+def bind_flash_attention(lib: ctypes.CDLL) -> None:
+    """q, k, v, o, the 12 strides, bf16?, B, H, H_kv, S_q, S_k, D_q, D_v,
+    causal, window, stream."""
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.flash_attention.argtypes = [P, P, P, P, ctypes.POINTER(I64), I, I, I,
+                                    I, I64, I64, I, I, I, I64, P]
+    lib.flash_attention.restype = I
 
 
 def bind_seg_reduce(lib: ctypes.CDLL) -> None:

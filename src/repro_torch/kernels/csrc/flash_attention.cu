@@ -1,9 +1,11 @@
 // flash_attention: blockwise attention with an online softmax,
-//   o[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, h / g, j] / sqrt(D)) v[b, h / g, j]
+//   o[b, h, i] = sum_j softmax_j(q[b, h, i] . k[b, h / g, j] / sqrt(D_q)) v[b, h / g, j]
 // over the keys j the mask allows: j < S_k; j <= i when causal; j > i - window
-// when window > 0.  q, o are (B, H, S_q, D) and k, v (B, H_kv, S_k, D), each
-// with its own element strides for the batch, head and sequence axes (the
-// last axis is contiguous), in bf16 or float32; g = H / H_kv.
+// when window > 0.  q is (B, H, S_q, D_q), k (B, H_kv, S_k, D_q), v
+// (B, H_kv, S_k, D_v) and o (B, H, S_q, D_v), each with its own element
+// strides for the batch, head and sequence axes (the last axis is
+// contiguous), in bf16 or float32; g = H / H_kv; D_v <= D_q <= 192, both
+// multiples of 8 (MLA's prefill: D_q = 128 + 64 of rope, D_v = 128).
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:68, body _flash_kernel at :25), whose
@@ -17,8 +19,8 @@
 // outputs 0 (denominator clamped at 1e-30).
 //
 // Bound on the H100: at prefill lengths the operations.  Each unmasked
-// (q, k) pair costs 4 D flops (D multiply-adds for the score, D for P.V)
-// against itemsize B S D (2 H + 2 H_kv) bytes read and written once; at
+// (q, k) pair costs 2 (D_q + D_v) flops (D_q multiply-adds for the score,
+// D_v for P.V) against the bytes of q, k, v and o read and written once; at
 // B = 4, H = 16, H_kv = 8, S = 4096, D = 128 in bf16 that is 275 GFLOP at
 // 989 TFLOP/s (0.278 ms) against 0.20 GB (0.06 ms).  Both loops visit only
 // the key tiles that meet a query tile's causal / window band (the others
@@ -40,7 +42,12 @@
 //       B) with the tensors' own strides, so the model's strided views are
 //       read without a copy; a box is 64 columns x 128 rows with the
 //       128-byte swizzle, so D = 128 is two boxes; TMA's out-of-bounds fill
-//       gives zeros past S and past D (8 ... 120).
+//       gives zeros past S and past D (8 ... 120).  Q and K take D_q / 64
+//       boxes a tile and V and O D_v / 64, rounded up: the instances are
+//       <D_q, D_v> = <64, 64>, <128, 128> and <192, 128> (MLA), the last
+//       Q 48 KB + 2 x (K 48 KB + V 32 KB) = 208 KB of shared memory; a
+//       <192, 192> tile would need 240 KB, over the 227 KB a block may
+//       use, and is not built (the wrapper raises).
 //     - Products: S = Q K^T is wgmma m64n128k16 with Q and K read from
 //       shared memory as they lie (D contiguous: K-major); O += P V is
 //       m64n{64,128}k16 with P from registers (the S accumulator's layout
@@ -53,15 +60,17 @@
 //       the tensor cores; exp2 is the bare ex2.approx, the scale folded
 //       into its argument's FMA, and only an edge tile is masked.
 //     - Registers: setmaxnreg drops the producer to 24 and lifts the
-//       consumers to 240 a thread, so the 64 score, 64 output and 32
-//       probability registers and the online softmax stay in registers;
-//       one block of 160 KB fills an SM.  A row's max and sum reduce over
-//       the 4 lanes that share it.
+//       consumers to 240 a thread, so the 64 score, up to 64 output and 32
+//       probability registers and the online softmax stay in registers
+//       (D_q only adds k-steps to Q K^T); one block of 160 KB (208 KB at
+//       <192, 128>) fills an SM.  A row's max and sum reduce over the 4
+//       lanes that share it.
 //   * float32 runs on the CUDA cores (flash_kernel_f32): 256 threads, the
 //     query tile and each K tile staged transposed, V row-major; each
 //     thread forms a 4 x 4 block of the 64 x 64 score tile with float4
 //     reads, 16 FMAs per pair of reads, and the probabilities go through
-//     shared memory to the P.V product.  float32 has no tensor-core path
+//     shared memory to the P.V product; Q and K are staged D_q wide, V
+//     D_v wide (<192, 192>: 160 KB).  float32 has no tensor-core path
 //     of its own precision (TF32 keeps 10 bits), so the bound is the CUDA
 //     cores' 67 TFLOP/s.
 //
@@ -93,8 +102,8 @@ struct Params {
   void* o;
   Strides q_st, k_st, v_st, o_st;
   int64_t sq, sk, window;
-  int group, d, causal;
-  float scale_log2;              // log2(e) / sqrt(D): scores in base 2
+  int group, dq, dv, causal;
+  float scale_log2;              // log2(e) / sqrt(D_q): scores in base 2
 };
 
 // The key tiles [*t_begin, *t_end) of BK keys that meet the band of the
@@ -311,17 +320,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 
 
 // Shared memory, from a 1024-byte aligned base: Q, then the ring's stages
-// of K and V, each DMAX / 64 boxes of 128 rows x 64 columns; then the
-// barriers: Q's, and each stage's K full, V full, K empty, V empty.
-template <int DMAX>
+// of K and V, Q and K each DQ / 64 boxes of 128 rows x 64 columns and V
+// DV / 64; then the barriers: Q's, and each stage's K full, V full, K
+// empty, V empty.
+template <int DQ, int DV>
 struct Layout {
-  static constexpr uint32_t kTile = DMAX / kBoxCols * kBoxBytes;
-  static constexpr uint32_t kBars = (1 + 2 * kStages) * kTile;
+  static constexpr uint32_t kQTile = DQ / kBoxCols * kBoxBytes;   // Q and K
+  static constexpr uint32_t kVTile = DV / kBoxCols * kBoxBytes;
+  static constexpr uint32_t kBars = kQTile + kStages * (kQTile + kVTile);
   static constexpr int kSmem = 1024 + kBars + 8 * (1 + 4 * kStages);
+  static_assert(kSmem <= 232448, "over the 227 KB of shared memory a block may use");
   uint32_t base;
   __device__ uint32_t q() const { return base; }
-  __device__ uint32_t k(int s) const { return base + (1 + 2 * s) * kTile; }
-  __device__ uint32_t v(int s) const { return k(s) + kTile; }
+  __device__ uint32_t k(int s) const { return base + kQTile + s * (kQTile + kVTile); }
+  __device__ uint32_t v(int s) const { return k(s) + kQTile; }
   __device__ uint32_t q_full() const { return base + kBars; }
   __device__ uint32_t k_full(int s) const { return q_full() + 8 * (1 + s); }
   __device__ uint32_t v_full(int s) const { return k_full(s) + 8 * kStages; }
@@ -331,11 +343,11 @@ struct Layout {
 
 // S = Q K^T for a warpgroup's 64 rows: k-steps of 16 columns of D, 32 bytes
 // apart inside a box's swizzled 128-byte rows, the second box past 64.
-template <int DMAX>
+template <int DQ>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
                                          uint32_t k_tile) {
 #pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk) {
+  for (int kk = 0; kk < DQ / 16; ++kk) {
     const uint32_t col = (kk / 4) * kBoxBytes + (kk % 4) * 32;
     wgmma_ss_n128(sc, smem_desc(q_rows + col, 16, kAtomBytes),
                   smem_desc(k_tile + col, 16, kAtomBytes), kk > 0);
@@ -343,14 +355,14 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
 }
 
 // O += P V: k-steps of 16 keys, two swizzle atoms of V's rows apart.
-template <int DMAX>
-__device__ __forceinline__ void issue_pv(float (&o)[DMAX / 2],
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
                                          const uint32_t (&pa)[kTileK / 16][4],
                                          uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < kTileK / 16; ++kk) {
     const uint64_t dv = smem_desc(v_tile + kk * 2 * kAtomBytes, kBoxBytes, kAtomBytes);
-    if constexpr (DMAX == 128)
+    if constexpr (DV == 128)
       wgmma_rs_n128(o, pa[kk], dv);
     else
       wgmma_rs_n64(o, pa[kk], dv);
@@ -443,14 +455,15 @@ __device__ __forceinline__ void rescale(float (&o)[N], float alpha0, float alpha
   }
 }
 
-template <int DMAX>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const Params p) {
-  constexpr int BOXES = DMAX / kBoxCols;
+  using L_t = Layout<DQ, DV>;
+  constexpr int QK_BOXES = DQ / kBoxCols, V_BOXES = DV / kBoxCols;
   extern __shared__ unsigned char smem_raw[];
-  const Layout<DMAX> L{(smem_addr(smem_raw) + 1023u) & ~1023u};
+  const L_t L{(smem_addr(smem_raw) + 1023u) & ~1023u};
 
   // S_q, S_k < 2^31 (the entry point checks): rows and keys fit an int
   const int q0 = (int)(gridDim.x - 1 - blockIdx.x) * kTileQ;
@@ -477,19 +490,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // i % kStages once both consumers have released the tile before it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 128 * kConsumers) {
-      mbar_expect_tx(L.q_full(), Layout<DMAX>::kTile);
-      for (int c = 0; c < BOXES; ++c)
+      mbar_expect_tx(L.q_full(), L_t::kQTile);
+      for (int c = 0; c < QK_BOXES; ++c)
         tma_load(L.q() + c * kBoxBytes, &tq, L.q_full(), c * kBoxCols, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages, k0 = k_first + i * kTileK;
         const uint32_t parity = ((i / kStages) & 1) ^ 1;   // round 0 passes
         mbar_wait(L.k_empty(s), parity);
-        mbar_expect_tx(L.k_full(s), Layout<DMAX>::kTile);
-        for (int c = 0; c < BOXES; ++c)
+        mbar_expect_tx(L.k_full(s), L_t::kQTile);
+        for (int c = 0; c < QK_BOXES; ++c)
           tma_load(L.k(s) + c * kBoxBytes, &tk, L.k_full(s), c * kBoxCols, k0, hk, b);
         mbar_wait(L.v_empty(s), parity);
-        mbar_expect_tx(L.v_full(s), Layout<DMAX>::kTile);
-        for (int c = 0; c < BOXES; ++c)
+        mbar_expect_tx(L.v_full(s), L_t::kVTile);
+        for (int c = 0; c < V_BOXES; ++c)
           tma_load(L.v(s) + c * kBoxBytes, &tv, L.v_full(s), c * kBoxCols, k0, hk, b);
       }
     }
@@ -517,16 +530,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         softmax_tile<false>(sc, p.scale_log2, r, k0, t, alpha0, alpha1);
     };
     const uint32_t q_rows = L.q() + wg * 64 * 128;
-    float o[DMAX / 2], sc[64], alpha0, alpha1;
+    float o[DV / 2], sc[64], alpha0, alpha1;
     uint32_t pa[kTileK / 16][4];
 #pragma unroll
-    for (int i = 0; i < DMAX / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
 
     mbar_wait(L.q_full(), 0);
     if (n_tiles > 0) {
       mbar_wait(L.k_full(0), 0);
       wgmma_fence();
-      issue_qk<DMAX>(sc, q_rows, L.k(0));
+      issue_qk<DQ>(sc, q_rows, L.k(0));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -539,9 +552,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_wait(L.k_full(s), (i / kStages) & 1);
       mbar_wait(L.v_full(sp), ((i - 1) / kStages) & 1);
       wgmma_fence();
-      issue_qk<DMAX>(sc, q_rows, L.k(s));
+      issue_qk<DQ>(sc, q_rows, L.k(s));
       wgmma_commit();
-      issue_pv<DMAX>(o, pa, L.v(sp));
+      issue_pv<DV>(o, pa, L.v(sp));
       wgmma_commit();
       wgmma_wait<1>();                     // Q K^T done, P V in flight
       fence_regs(sc);
@@ -558,7 +571,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int sp = (n_tiles - 1) % kStages;
       mbar_wait(L.v_full(sp), ((n_tiles - 1) / kStages) & 1);
       wgmma_fence();
-      issue_pv<DMAX>(o, pa, L.v(sp));
+      issue_pv<DV>(o, pa, L.v(sp));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -575,9 +588,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_st.b + h * p.o_st.h;
 #pragma unroll
-    for (int j = 0; j < DMAX / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      if (col >= p.d) continue;
+      if (col >= p.dv) continue;
       if (row0 < p.sq)
         *reinterpret_cast<uint32_t*>(ob + row0 * p.o_st.s + col) =
             pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
@@ -628,14 +641,14 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* base,
   }
 }
 
-template <int DMAX>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(kF32Threads, 2) flash_kernel_f32(const Params p) {
-  constexpr int NH = DMAX / 64;            // float4 column groups per thread
+  constexpr int NH = DV / 64;              // float4 column groups per thread
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                        // [DMAX][kBQ]
-  float* kt = qt + DMAX * kBQ;             // [DMAX][kBK]
-  float* vs = kt + DMAX * kBK;             // [kBK][DMAX]
-  float* pt = vs + kBK * DMAX;             // [kBK][kBQ]
+  float* qt = smem;                        // [DQ][kBQ]
+  float* kt = qt + DQ * kBQ;               // [DQ][kBK]
+  float* vs = kt + DQ * kBK;               // [kBK][DV]
+  float* pt = vs + kBK * DV;               // [kBK][kBQ]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -646,9 +659,9 @@ __global__ void __launch_bounds__(kF32Threads, 2) flash_kernel_f32(const Params 
   const float* vb = static_cast<const float*>(p.v) + b * p.v_st.b + hk * p.v_st.h;
   float* ob = static_cast<float*>(p.o) + b * p.o_st.b + h * p.o_st.h;
 
-  // V's columns past D are read by the P.V loop and never staged: zero them
-  for (int i = tid; i < kBK * DMAX; i += kF32Threads) vs[i] = 0.f;
-  stage_transposed(qt, qb, p.q_st.s, q0, p.sq, p.d);
+  // V's columns past D_v are read by the P.V loop and never staged: zero them
+  for (int i = tid; i < kBK * DV; i += kF32Threads) vs[i] = 0.f;
+  stage_transposed(qt, qb, p.q_st.s, q0, p.sq, p.dq);
 
   int64_t t_begin, t_end;
   key_tiles(p, q0, &t_begin, &t_end);
@@ -664,8 +677,8 @@ __global__ void __launch_bounds__(kF32Threads, 2) flash_kernel_f32(const Params 
   for (int64_t tile = t_begin; tile < t_end; ++tile) {
     const int64_t k0 = tile * kBK;
     __syncthreads();                       // the last tile's readers are done
-    stage_transposed(kt, kb, p.k_st.s, k0, p.sk, p.d);
-    stage_rows<DMAX>(vs, vb, p.v_st.s, k0, p.sk, p.d);
+    stage_transposed(kt, kb, p.k_st.s, k0, p.sk, p.dq);
+    stage_rows<DV>(vs, vb, p.v_st.s, k0, p.sk, p.dv);
     __syncthreads();
 
     float s[4][4];
@@ -674,7 +687,7 @@ __global__ void __launch_bounds__(kF32Threads, 2) flash_kernel_f32(const Params 
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < p.d; ++c) {
+    for (int c = 0; c < p.dq; ++c) {
       const float4 a = *reinterpret_cast<const float4*>(&qt[c * kBQ + ty * 4]);
       const float4 kk = *reinterpret_cast<const float4*>(&kt[c * kBK + tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w};
@@ -729,7 +742,7 @@ __global__ void __launch_bounds__(kF32Threads, 2) flash_kernel_f32(const Params 
 #pragma unroll
       for (int g = 0; g < NH; ++g) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&vs[c * DMAX + g * 64 + tx * 4]);
+            *reinterpret_cast<const float4*>(&vs[c * DV + g * 64 + tx * 4]);
         const float vv4[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -748,7 +761,7 @@ __global__ void __launch_bounds__(kF32Threads, 2) flash_kernel_f32(const Params 
 #pragma unroll
     for (int g = 0; g < NH; ++g) {
       const int col = g * 64 + tx * 4;
-      if (col >= p.d) continue;
+      if (col >= p.dv) continue;
       *reinterpret_cast<float4*>(ob + row * p.o_st.s + col) =
           make_float4(acc[i][g * 4] / denom, acc[i][g * 4 + 1] / denom,
                       acc[i][g * 4 + 2] / denom, acc[i][g * 4 + 3] / denom);
@@ -808,7 +821,7 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int64_t rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DMAX>
+template <int DQ, int DV>
 int launch_bf16(const Params& p, int batch, int heads, int kv_heads,
                 cudaStream_t stream) {
   if (p.sq >= (int64_t)1 << 30 || p.sk >= (int64_t)1 << 30)
@@ -816,14 +829,14 @@ int launch_bf16(const Params& p, int batch, int heads, int kv_heads,
   CUtensorMap tq, tk, tv;
   // with no keys no K/V tile is loaded: Q's map stands in for theirs
   const bool keys = p.sk > 0;
-  if (!encode_map(&tq, p.q, p.d, p.sq, heads, batch, p.q_st) ||
-      !encode_map(&tk, keys ? p.k : p.q, p.d, keys ? p.sk : p.sq,
+  if (!encode_map(&tq, p.q, p.dq, p.sq, heads, batch, p.q_st) ||
+      !encode_map(&tk, keys ? p.k : p.q, p.dq, keys ? p.sk : p.sq,
                   keys ? kv_heads : heads, batch, keys ? p.k_st : p.q_st) ||
-      !encode_map(&tv, keys ? p.v : p.q, p.d, keys ? p.sk : p.sq,
+      !encode_map(&tv, keys ? p.v : p.q, p.dv, keys ? p.sk : p.sq,
                   keys ? kv_heads : heads, batch, keys ? p.v_st : p.q_st))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = flash_kernel_wgmma<DMAX>;
-  const int smem = Layout<DMAX>::kSmem;
+  const auto kernel = flash_kernel_wgmma<DQ, DV>;
+  const int smem = Layout<DQ, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -833,25 +846,27 @@ int launch_bf16(const Params& p, int batch, int heads, int kv_heads,
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
+template <int DQ, int DV>
 int launch_f32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  const int smem = (3 * DMAX * 64 + kBK * kBQ) * (int)sizeof(float);
-  return launch(flash_kernel_f32<DMAX>, kF32Threads, smem, p, batch, heads,
+  const int smem = ((2 * DQ + DV) * 64 + kBK * kBQ) * (int)sizeof(float);
+  return launch(flash_kernel_f32<DQ, DV>, kF32Threads, smem, p, batch, heads,
                 stream);
 }
 
 }  // namespace fa
 
 // strides: 12 element strides, (batch, head, sequence) of q, k, v and o in
-// that order.  The wrapper checks what the kernel assumes: D a multiple of
-// 8 up to 128, H a multiple of H_kv, 16-byte aligned rows, S_q > 0.
+// that order.  The wrapper checks what the kernel assumes: D_q and D_v
+// multiples of 8 with D_v <= D_q <= 192 (bf16: D_v <= 128 where D_q > 128),
+// H a multiple of H_kv, 16-byte aligned rows, S_q > 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, const int64_t* strides, int bf16,
                                int batch, int heads, int kv_heads, int64_t sq,
-                               int64_t sk, int d, int causal, int64_t window,
-                               void* stream) {
+                               int64_t sk, int dq, int dv, int causal,
+                               int64_t window, void* stream) {
   using namespace fa;
-  if (d <= 0 || d > 128 || d % 8 != 0 || kv_heads <= 0 || heads % kv_heads != 0)
+  if (dv <= 0 || dv > dq || dq > 192 || dq % 8 != 0 || dv % 8 != 0 ||
+      (bf16 && dq > 128 && dv > 128) || kv_heads <= 0 || heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -868,13 +883,20 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.sk = sk;
   p.window = window;
   p.group = heads / kv_heads;
-  p.d = d;
+  p.dq = dq;
+  p.dv = dv;
   p.causal = causal;
-  p.scale_log2 = kLog2e / sqrtf((float)d);
+  p.scale_log2 = kLog2e / sqrtf((float)dq);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return d <= 64 ? launch_bf16<64>(p, batch, heads, kv_heads, s)
-                   : launch_bf16<128>(p, batch, heads, kv_heads, s);
-  return d <= 64 ? launch_f32<64>(p, batch, heads, s)
-                 : launch_f32<128>(p, batch, heads, s);
+  // the narrowest instance that holds both widths: TMA fills zeros past
+  // D_q and D_v, and only D_v columns are written
+  if (bf16) {
+    if (dq <= 64) return launch_bf16<64, 64>(p, batch, heads, kv_heads, s);
+    if (dq <= 128) return launch_bf16<128, 128>(p, batch, heads, kv_heads, s);
+    return launch_bf16<192, 128>(p, batch, heads, kv_heads, s);
+  }
+  if (dq <= 64) return launch_f32<64, 64>(p, batch, heads, s);
+  if (dq <= 128) return launch_f32<128, 128>(p, batch, heads, s);
+  return dv <= 128 ? launch_f32<192, 128>(p, batch, heads, s)
+                   : launch_f32<192, 192>(p, batch, heads, s);
 }

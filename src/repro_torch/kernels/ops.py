@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.covar_xtx import covar_xtx_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import check_shapes, flash_attention_cuda
 from repro_torch.kernels.fused_scan import (Part, Parts, ReduceSpec,
                                             fused_scan_block_cuda,
                                             fused_scan_parts_cuda)
@@ -121,12 +121,15 @@ def tree_hist_batched(codes: torch.Tensor, y: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Blockwise attention over ``q`` (B, H, S, D) and ``k``, ``v``
-    (B, H_kv, S, D), GQA by head index, with causal and sliding-window
-    masks; returns (B, H, S, D) in ``q``'s dtype.  Any ``S``: the
-    reference's ``block_q``, ``block_k`` and ``interpret`` pad for the TPU's
-    tiles and have no counterpart here."""
+    """Blockwise attention over ``q`` (B, H, S_q, D_q), ``k`` (B, H_kv,
+    S_k, D_q) and ``v`` (B, H_kv, S_k, D_v), GQA by head index, with causal
+    and sliding-window masks, scaled by 1/sqrt(D_q); returns (B, H, S_q,
+    D_v) in ``q``'s dtype.  D_v ≤ D_q ≤ 192 on either device
+    (``flash_attention.check_shapes``), multiples of 8 on the card.  Any
+    ``S``: the reference's ``block_q``, ``block_k`` and ``interpret`` pad
+    for the TPU's tiles and have no counterpart here."""
     if not _on_cuda(q):
+        check_shapes(q, k, v)
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1

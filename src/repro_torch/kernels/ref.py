@@ -92,9 +92,12 @@ def fused_scan_parts_ref(reds):
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
     """Dense attention with GQA (K/V heads repeated), causal and
-    sliding-window masks over ``q`` (B, H, S_q, D) and ``k``, ``v``
-    (B, H_kv, S_k, D): scores, softmax and the product in float32, the
-    output in ``q``'s dtype; a row with no valid key gives 0."""
+    sliding-window masks over ``q`` (B, H, S_q, D_q), ``k`` (B, H_kv, S_k,
+    D_q) and ``v`` (B, H_kv, S_k, D_v): scores scaled by 1/sqrt(D_q), as the
+    reference's ``_dense_attention`` scales by q's width, softmax and the
+    product in float32; the output is (B, H, S_q, D_v), V's own width (MLA:
+    D_q = 192, D_v = 128), in ``q``'s dtype; a row with no valid key gives
+    0."""
     d = q.shape[-1]
     group = q.shape[1] // k.shape[1]
     kr = k.float().repeat_interleave(group, dim=1)

@@ -37,8 +37,13 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     params = init_params(M.model_specs(cfg), gen, cfg.torch_dtype, device)
     rng = np.random.default_rng(args.seed)
+    context = None                       # raw vision embeddings or frames
+    if cfg.family in ("vlm", "audio"):
+        n = cfg.vision_tokens if cfg.family == "vlm" else cfg.encoder_frames
+        context = 0.02 * rng.standard_normal(
+            (args.batch, n, cfg.d_model)).astype(np.float32)
     server = BatchedServer(cfg, params, max_len=args.prompt_len + args.gen,
-                           batch=args.batch, device=device)
+                           batch=args.batch, device=device, context=context)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.time()
     out = server.generate(prompts, args.gen)

@@ -121,8 +121,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def _dense_attention(q, k, v, *, causal: bool, window: int,
                      q_offset: int = 0):
-    """q: (B,S,H,hd), k/v: (B,T,Kv,hd). Returns (B,S,H,hd).  Query row i
-    sits at position ``q_offset + i``."""
+    """q: (B,S,H,hd), k: (B,T,Kv,hd), v: (B,T,Kv,hd_v). Returns
+    (B,S,H,hd_v): V's own width, which differs from q's for MLA (scores
+    scaled by q's width).  Query row i sits at position ``q_offset + i``."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -145,7 +146,8 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int,
                        chunk: int = 512):
     """Memory-efficient attention: query chunks of ``chunk`` rows, each a
     dense softmax over all keys at its offset (the last chunk may be
-    shorter; the reference pads it instead, with the same rows)."""
+    shorter; the reference pads it instead, with the same rows).  Returns
+    V's width, as ``_dense_attention``."""
     s = q.shape[1]
     chunk = min(chunk, s)
     return torch.cat([_dense_attention(q[:, i:i + chunk], k, v, causal=causal,
@@ -205,21 +207,28 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _proj(x, w):
+def proj_heads(x, w):
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def attn_apply(p, x, cfg: ModelConfig, *, positions, impl="flash",
-               cache=None, decode_pos=None):
+               causal=True, cross_kv=None, cache=None, decode_pos=None):
     """Returns (out, cache).  ``cache``: dict(k=(B,T,Kv,hd), v=...), views
     into the stacked decode cache, updated in place at ``decode_pos`` (the
-    reference's ``dynamic_update_slice`` returns a new cache instead)."""
-    q = rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
-    k = rope(_proj(x, p["wk"]), positions, cfg.rope_theta)
-    v = _proj(x, p["wv"])
-    if cache is not None:
+    reference's ``dynamic_update_slice`` returns a new cache instead).
+    ``cross_kv``: (k, v) projected from a context (cross-attention): q is
+    not roped, no cache is read or written, and attention is non-causal
+    (decode passes ``impl="dense"``)."""
+    q = proj_heads(x, p["wq"])
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(proj_heads(x, p["wk"]), positions, cfg.rope_theta)
+        v = proj_heads(x, p["wv"])
+    if cache is not None and cross_kv is None:
         t = cache["k"].shape[1]
         if cfg.window and t == cfg.window:
             # ring buffer: O(window) cache; keys carry their absolute rope
@@ -236,8 +245,8 @@ def attn_apply(p, x, cfg: ModelConfig, *, positions, impl="flash",
         o = decode_attention(q, cache["k"], cache["v"], valid,
                              window=ring_window)
     else:
-        o = attention_core(q, k, v, causal=True, window=cfg.window,
-                           impl=impl, chunk=cfg.attn_chunk)
+        o = attention_core(q, k, v, causal=causal and cross_kv is None,
+                           window=cfg.window, impl=impl, chunk=cfg.attn_chunk)
     h, hd, d = p["wo"].shape
     out = o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
     return out, cache

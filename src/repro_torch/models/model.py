@@ -1,48 +1,42 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families; counterpart
-of ``repro/models/model.py``.
+"""Model assembly for every family: dense, MoE (with MLA attention for
+deepseek), SSM, hybrid, VLM and audio; counterpart of
+``repro/models/model.py``.
 
 The same entry points as the reference:
 
   model_specs(cfg)                  -> ParamSpec tree (init)
   forward(params, batch, cfg, impl) -> (logits, aux dict)       [prefill]
   cache_specs(cfg, batch, max_len)  -> ParamSpec tree for the decode cache
-  decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
+  encode_context(params, batch, cfg) -> the context decode_step reads
+  decode_step(params, cache, tokens, pos, cfg, context) -> (logits, cache)
 
 The reference's ``lax.scan`` over stacked layers is a Python loop that
-indexes the stacked tensors (two levels for the hybrid's groups); its
-``remat`` and ``scan_unroll`` switches (compile-time choices of XLA) have
-no counterpart.  Without a mesh the reference's sharding constraints are
-no-ops: the port leaves them out until sharding is ported (ROADMAP Queue
-1).  MLA attention and the ``vlm`` and ``audio`` families raise
-``NotImplementedError`` naming their ROADMAP item.
+indexes the stacked tensors (two levels for the hybrid's groups and the
+VLM's super-blocks); its ``remat`` and ``scan_unroll`` switches
+(compile-time choices of XLA) have no counterpart.  Without a mesh the
+reference's sharding constraints are no-ops: the port leaves them out until
+sharding is ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamSpec, attn_apply, attn_specs,
                                        embed_apply, embed_specs, init_params,
                                        logits_apply, map_specs, mlp_apply,
-                                       mlp_specs, p_, rms_norm)
+                                       mlp_specs, p_, proj_heads, rms_norm)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_lora:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
-            "item 4: MLA)")
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP Queue 1 item 5: VLM and audio)")
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
@@ -63,15 +57,19 @@ def _norm(d):
     return p_((d,), ("embed",), init="ones")
 
 
+def _self_attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return mla_mod.mla_specs(cfg) if cfg.kv_lora else attn_specs(cfg)
+
+
 def dense_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": _norm(d), "attn": attn_specs(cfg), "ln2": _norm(d),
+    return {"ln1": _norm(d), "attn": _self_attn_specs(cfg), "ln2": _norm(d),
             "mlp": mlp_specs(d, cfg.d_ff)}
 
 
 def moe_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": _norm(d), "attn": attn_specs(cfg), "ln2": _norm(d),
+    return {"ln1": _norm(d), "attn": _self_attn_specs(cfg), "ln2": _norm(d),
             "moe": moe_mod.moe_specs(cfg)}
 
 
@@ -79,8 +77,14 @@ def ssm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return {"ln1": _norm(cfg.d_model), "mamba": m2.mamba_specs(cfg)}
 
 
+def cross_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {"ln1": _norm(d), "attn": attn_specs(cfg), "ln2": _norm(d),
+            "mlp": mlp_specs(d, cfg.d_ff)}
+
+
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_ported(cfg)
+    _check_family(cfg)
     s: Dict[str, Any] = dict(embed_specs(cfg))
     fam = cfg.family
     if fam == "dense":
@@ -89,19 +93,42 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         s["layers"] = stack_specs(moe_block_specs(cfg), cfg.n_layers)
     elif fam == "ssm":
         s["layers"] = stack_specs(ssm_block_specs(cfg), cfg.n_layers)
-    else:                                                   # hybrid
+    elif fam == "hybrid":
         g, r = divmod(cfg.n_layers, cfg.attn_every)
         s["groups"] = stack_specs(stack_specs(ssm_block_specs(cfg), cfg.attn_every), g)
         if r:
             s["tail"] = stack_specs(ssm_block_specs(cfg), r)
         s["shared_attn"] = dense_block_specs(cfg)    # ONE shared block, reused
+    elif fam == "vlm":
+        if cfg.n_layers % cfg.cross_every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
+                             f"super-blocks of {cfg.cross_every}")
+        n_super, n_self = _super_blocks(cfg)
+        s["super"] = {
+            "self": stack_specs(stack_specs(dense_block_specs(cfg), n_self), n_super),
+            "cross": stack_specs(cross_block_specs(cfg), n_super),
+        }
+    else:                                                   # audio
+        s["enc_pos"] = p_((cfg.encoder_frames, cfg.d_model), (None, "embed"))
+        s["encoder"] = stack_specs(dense_block_specs(cfg), cfg.encoder_layers)
+        s["enc_norm"] = _norm(cfg.d_model)
+        dec = {"ln1": _norm(cfg.d_model), "self": attn_specs(cfg),
+               "ln2": _norm(cfg.d_model), "cross": attn_specs(cfg),
+               "ln3": _norm(cfg.d_model), "mlp": mlp_specs(cfg.d_model, cfg.d_ff)}
+        s["decoder"] = stack_specs(dec, cfg.n_layers)
     return s
 
 
+def _super_blocks(cfg: ModelConfig) -> Tuple[int, int]:
+    """The VLM's super-blocks and the self-attention layers in each: every
+    ``cross_every``-th layer cross-attends."""
+    return cfg.n_layers // cfg.cross_every, cfg.cross_every - 1
+
+
 def layer(stacked, *idx: int):
-    """Layer ``idx`` of a stacked tree (two indices for the hybrid's
-    groups): views, so an in-place write into a cache layer writes into the
-    stack."""
+    """Layer ``idx`` of a stacked tree (two indices for the hybrid's groups
+    and the VLM's super-blocks): views, so an in-place write into a cache
+    layer writes into the stack."""
     if isinstance(stacked, torch.Tensor):
         return stacked[idx]
     return {k: layer(v, *idx) for k, v in stacked.items()}
@@ -112,19 +139,31 @@ def layer(stacked, *idx: int):
 # --------------------------------------------------------------------------
 
 
-def dense_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None):
-    h, nc = attn_apply(p["attn"], rms_norm(x, p["ln1"]), cfg,
-                       positions=positions, impl=impl, cache=cache,
-                       decode_pos=decode_pos)
+def _apply_attn(p, x, cfg, *, positions, impl, cache=None, decode_pos=None,
+                causal=True):
+    """Self-attention: MLA where the config has a latent (``kv_lora``),
+    else GQA."""
+    if cfg.kv_lora:
+        return mla_mod.mla_apply(p, x, cfg, positions=positions, impl=impl,
+                                 cache=cache, decode_pos=decode_pos)
+    return attn_apply(p, x, cfg, positions=positions, impl=impl, causal=causal,
+                      cache=cache, decode_pos=decode_pos)
+
+
+def dense_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None,
+                causal=True):
+    h, nc = _apply_attn(p["attn"], rms_norm(x, p["ln1"]), cfg,
+                        positions=positions, impl=impl, cache=cache,
+                        decode_pos=decode_pos, causal=causal)
     x = x + h
     x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
     return x, nc
 
 
 def moe_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None):
-    h, nc = attn_apply(p["attn"], rms_norm(x, p["ln1"]), cfg,
-                       positions=positions, impl=impl, cache=cache,
-                       decode_pos=decode_pos)
+    h, nc = _apply_attn(p["attn"], rms_norm(x, p["ln1"]), cfg,
+                        positions=positions, impl=impl, cache=cache,
+                        decode_pos=decode_pos)
     x = x + h
     h, aux = moe_mod.moe_apply(p["moe"], rms_norm(x, p["ln2"]), cfg)
     return x + h, nc, aux
@@ -138,6 +177,33 @@ def ssm_block(p, x, cfg, *, state=None):
         state["h"].copy_(ns["h"])
         state["conv"].copy_(ns["conv"])
     return x + h
+
+
+def _cross_kv(p, context):
+    """K and V of a cross-attention block, projected from the context."""
+    return proj_heads(context, p["wk"]), proj_heads(context, p["wv"])
+
+
+def cross_block(p, x, cfg, *, context, impl):
+    """The VLM's cross-attention layer over the vision embeddings."""
+    h, _ = attn_apply(p["attn"], rms_norm(x, p["ln1"]), cfg, positions=None,
+                      impl=impl, causal=False, cross_kv=_cross_kv(p["attn"], context))
+    x = x + h
+    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+
+
+def decoder_block(p, x, cfg, *, enc, positions, impl, cache=None,
+                  decode_pos=None):
+    """Whisper's decoder layer: causal self-attention (roped, cached in
+    decode), cross-attention over the encoder output, MLP."""
+    h, _ = attn_apply(p["self"], rms_norm(x, p["ln1"]), cfg,
+                      positions=positions, impl=impl, cache=cache,
+                      decode_pos=decode_pos)
+    x = x + h
+    h, _ = attn_apply(p["cross"], rms_norm(x, p["ln2"]), cfg, positions=None,
+                      impl=impl, causal=False, cross_kv=_cross_kv(p["cross"], enc))
+    x = x + h
+    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln3"]))
 
 
 # --------------------------------------------------------------------------
@@ -154,9 +220,11 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    impl: str = "flash") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Backbone forward up to the final norm.  ``batch["tokens"]`` is a
-    (B, S) integer tensor on the parameters' device; ``aux["aux_loss"]`` is
-    the MoE load-balance loss averaged over the layers (0 elsewhere)."""
-    _check_ported(cfg)
+    (B, S) integer tensor on the parameters' device, and for the VLM
+    ``batch["vision"]`` (B, vision_tokens, d_model), for audio
+    ``batch["frames"]`` (B, frames, d_model); ``aux["aux_loss"]`` is the
+    MoE load-balance loss averaged over the layers (0 elsewhere)."""
+    _check_family(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -175,7 +243,7 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     elif fam == "ssm":
         for i in range(cfg.n_layers):
             x = ssm_block(layer(params["layers"], i), x, cfg)
-    else:                                                   # hybrid
+    elif fam == "hybrid":
         g, r = divmod(cfg.n_layers, cfg.attn_every)
         for gi in range(g):
             for li in range(cfg.attn_every):
@@ -184,8 +252,34 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                                positions=positions, impl=impl)
         for i in range(r):
             x = ssm_block(layer(params["tail"], i), x, cfg)
+    elif fam == "vlm":
+        vision = batch["vision"].to(cfg.torch_dtype)
+        n_super, n_self = _super_blocks(cfg)
+        for si in range(n_super):
+            for li in range(n_self):
+                x, _ = dense_block(layer(params["super"]["self"], si, li), x,
+                                   cfg, positions=positions, impl=impl)
+            x = cross_block(layer(params["super"]["cross"], si), x, cfg,
+                            context=vision, impl=impl)
+    else:                                                   # audio
+        enc = _encode_audio(params, batch["frames"].to(cfg.torch_dtype), cfg, impl)
+        for i in range(cfg.n_layers):
+            x = decoder_block(layer(params["decoder"], i), x, cfg, enc=enc,
+                              positions=positions, impl=impl)
     x = rms_norm(x, params["final_norm"])
     return x, {"aux_loss": aux_total / max(cfg.n_layers, 1)}
+
+
+def _encode_audio(params, frames, cfg: ModelConfig, impl: str):
+    """The encoder over precomputed frame embeddings: non-causal dense
+    blocks after the learned positions."""
+    x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
+    positions = torch.arange(frames.shape[1], dtype=torch.int32,
+                             device=frames.device)
+    for i in range(cfg.encoder_layers):
+        x, _ = dense_block(layer(params["encoder"], i), x, cfg,
+                           positions=positions, impl=impl, causal=False)
+    return rms_norm(x, params["enc_norm"])
 
 
 # --------------------------------------------------------------------------
@@ -194,6 +288,11 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _kv_cache_specs(cfg: ModelConfig, n: int, batch: int, max_len: int):
+    if cfg.kv_lora:                      # MLA: the latent and the rope key
+        return {"c": p_((n, batch, max_len, cfg.kv_lora),
+                        ("layers", "cache_batch", "cache_seq", None), init="zeros"),
+                "kr": p_((n, batch, max_len, cfg.rope_dim),
+                         ("layers", "cache_batch", "cache_seq", None), init="zeros")}
     # sliding-window archs only need a window-sized cache (a ring buffer)
     t = min(max_len, cfg.window) if cfg.window else max_len
     return {"k": p_((n, batch, t, cfg.n_kv, cfg.hd),
@@ -213,12 +312,15 @@ def _ssm_state_specs(cfg: ModelConfig, lead: Tuple[int, ...], batch: int):
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
-    _check_ported(cfg)
+    _check_family(cfg)
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "audio"):
         return {"kv": _kv_cache_specs(cfg, cfg.n_layers, batch, max_len)}
     if fam == "ssm":
         return {"ssm": _ssm_state_specs(cfg, (cfg.n_layers,), batch)}
+    if fam == "vlm":                     # the self-attention layers only
+        n_super, n_self = _super_blocks(cfg)
+        return {"kv": _kv_cache_specs(cfg, n_super * n_self, batch, max_len)}
     g, r = divmod(cfg.n_layers, cfg.attn_every)             # hybrid
     out = {"groups": _ssm_state_specs(cfg, (g, cfg.attn_every), batch),
            "shared_kv": _kv_cache_specs(cfg, g, batch, max_len)}
@@ -240,11 +342,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
                                   cfg.torch_dtype, device))
 
 
-def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
-    """One-token decode.  tokens: (B, 1); pos: the cache fill level.  The
-    cache is updated in place (the reference returns a new one) and returned
-    with the logits."""
-    _check_ported(cfg)
+def encode_context(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   impl: str = "flash") -> Optional[torch.Tensor]:
+    """The static per-request context ``decode_step`` reads: the audio
+    encoder's output (run once a request, not a token), or the vision
+    embeddings as they are, in the model dtype; None for the other
+    families."""
+    if cfg.family == "audio":
+        return _encode_audio(params, batch["frames"].to(cfg.torch_dtype), cfg, impl)
+    if cfg.family == "vlm":
+        return batch["vision"].to(cfg.torch_dtype)
+    return None
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
+                context: Optional[torch.Tensor] = None):
+    """One-token decode.  tokens: (B, 1); pos: the cache fill level;
+    context: ``encode_context``'s output for the VLM and audio.  The cache
+    is updated in place (the reference returns a new one) and returned with
+    the logits.  Attention is plain torch here: no kernel is launched."""
+    _check_family(cfg)
+    if cfg.family in ("vlm", "audio") and context is None:
+        raise ValueError(f"{cfg.name}: decode_step needs the context "
+                         "(encode_context's output)")
     b = tokens.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
     x = embed_apply(params, tokens).to(cfg.torch_dtype)
@@ -258,6 +378,23 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
         for i in range(cfg.n_layers):
             x = ssm_block(layer(params["layers"], i), x, cfg,
                           state=layer(cache["ssm"], i))
+    elif fam == "vlm":
+        vision = context.to(cfg.torch_dtype)
+        n_super, n_self = _super_blocks(cfg)
+        for si in range(n_super):
+            for li in range(n_self):
+                x, _ = dense_block(layer(params["super"]["self"], si, li), x,
+                                   cfg, positions=positions, impl="dense",
+                                   cache=layer(cache["kv"], si * n_self + li),
+                                   decode_pos=pos)
+            x = cross_block(layer(params["super"]["cross"], si), x, cfg,
+                            context=vision, impl="dense")
+    elif fam == "audio":
+        enc = context.to(cfg.torch_dtype)
+        for i in range(cfg.n_layers):
+            x = decoder_block(layer(params["decoder"], i), x, cfg, enc=enc,
+                              positions=positions, impl="dense",
+                              cache=layer(cache["kv"], i), decode_pos=pos)
     else:                                                   # hybrid
         g, r = divmod(cfg.n_layers, cfg.attn_every)
         for gi in range(g):

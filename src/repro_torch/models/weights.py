@@ -3,7 +3,9 @@ counterpart), which carries a parameter or decode-cache tree of the JAX
 package across to the port.
 
 The reference's trees are nested dicts of arrays with the stacked
-``layers`` axis first; the port's have the same keys and shapes.  bfloat16
+``layers`` axis first (two stacked axes for the hybrid's groups and the
+VLM's super-blocks); the port's have the same keys and shapes, every
+family's (MLA's latent projections and whisper's encoder included).  bfloat16
 arrays (numpy's ``ml_dtypes.bfloat16``) keep their bits: they are viewed as
 16-bit integers and reinterpreted as ``torch.bfloat16``, so a bf16 model
 carries over exactly.

@@ -4,15 +4,17 @@ counterpart of ``repro/serve/engine.py``.
 ``make_serve_step`` gives the one-token step; ``BatchedServer`` drives it
 for a batch of requests with greedy sampling, teacher-forcing each prompt
 one token at a time through the cache as the reference does, for every
-ported family (KV caches for dense and MoE, SSM states for Mamba2, both
-for the hybrid).  There is no ``jit``: the step runs eagerly, and the
-decode cache is updated in place.
+family (KV caches for dense, MoE, VLM and audio, the MLA latent for
+deepseek, SSM states for Mamba2, both for the hybrid).  A VLM or audio
+server takes the raw context (vision embeddings or frames) and encodes it
+once.  There is no ``jit``: the step runs eagerly, and the decode cache is
+updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -23,10 +25,11 @@ from repro_torch.device import resolve_device
 
 
 def make_serve_step(cfg: ModelConfig):
-    """serve_step(params, cache, tokens(B,1), pos) -> (logits(B,1,V), cache)."""
+    """serve_step(params, cache, tokens(B,1), pos, context?) ->
+    (logits(B,1,V), cache)."""
 
-    def serve_step(params, cache, tokens, pos):
-        return M.decode_step(params, cache, tokens, pos, cfg)
+    def serve_step(params, cache, tokens, pos, context=None):
+        return M.decode_step(params, cache, tokens, pos, cfg, context=context)
 
     return serve_step
 
@@ -50,18 +53,28 @@ def _zero_states(cache) -> None:
 class BatchedServer:
     """Greedy batched decoding over a fixed slot count, on ``device`` (the
     card unless the caller asks for the CPU).  The cache is zeros on the
-    device (``model.init_cache``: SSM states in float32)."""
+    device (``model.init_cache``: SSM states in float32).
+
+    ``context`` is the *raw* modality input, (B, frames or vision tokens,
+    d_model), an array or a tensor: the audio encoder runs once here
+    (``encode_context``, its ``flash_attention`` launches included), and
+    decode steps read the encoded context."""
 
     cfg: ModelConfig
     params: Any
     max_len: int
     batch: int
     device: Any = "cuda"
+    context: Optional[Any] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.cache = M.init_cache(self.cfg, self.batch, self.max_len,
                                   self.device)
+        if self.context is not None:
+            key = "frames" if self.cfg.family == "audio" else "vision"
+            raw = torch.as_tensor(self.context, device=self.device)
+            self.context = M.encode_context(self.params, {key: raw}, self.cfg)
         self._step = make_serve_step(self.cfg)
 
     def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
@@ -74,7 +87,7 @@ class BatchedServer:
             raise ValueError(f"{b} prompts for {self.batch} slots")
         kv = self.cache.get("kv", self.cache.get("shared_kv"))
         if kv is not None:
-            t = kv["k"].shape[2]
+            t = kv["k" if "k" in kv else "c"].shape[2]       # "c": MLA's latent
             ring = bool(self.cfg.window) and t == self.cfg.window
             if not ring and plen + n_tokens - 1 > t:
                 raise ValueError(f"{plen} prompt and {n_tokens} new tokens need "
@@ -86,7 +99,8 @@ class BatchedServer:
         toks = prompt_t[:, :1]
         out = [toks]
         for pos in range(plen + n_tokens - 1):
-            logits, self.cache = self._step(self.params, self.cache, toks, pos)
+            logits, self.cache = self._step(self.params, self.cache, toks, pos,
+                                            self.context)
             if pos + 1 < plen:
                 toks = prompt_t[:, pos + 1:pos + 2]      # teacher force
             else:

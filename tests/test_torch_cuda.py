@@ -1060,13 +1060,124 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of 8"):
         ops.flash_attention(*_qkv(1, 4, 2, 64, 12, torch.float32, cuda_device))
     with pytest.raises(ValueError, match="multiple of 8"):
-        ops.flash_attention(*_qkv(1, 4, 2, 64, 136, torch.float32, cuda_device))
+        ops.flash_attention(*_qkv(1, 4, 2, 64, 100, torch.float32, cuda_device))
     with pytest.raises(ValueError, match="bfloat16"):
         ops.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="key/value heads"):
         ops.flash_attention(*_qkv(1, 4, 3, 64, 64, torch.float32, cuda_device))
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+def _qkv_widths(b, h, hkv, sq, sk, dq, dv, dtype, device, seed=0):
+    """q (B, H, S_q, D_q), k (B, H_kv, S_k, D_q), v (B, H_kv, S_k, D_v) as
+    (B, H, S, D) views of (B, S, H, D) tensors, as the model passes them."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32))
+            .to(device=device, dtype=dtype).transpose(1, 2)
+            for n, s, d in ((h, sq, dq), (hkv, sk, dq), (hkv, sk, dv))]
+
+
+def _check_widths(q, k, v, causal):
+    """The kernel against the plain version in float32 at D_q ≠ D_v: the
+    output is V's width; allclose at the dtype's tolerance and, in bf16,
+    per query row within 5e-2 of the row's rms."""
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == q.dtype
+    assert tuple(got.shape) == tuple(q.shape[:3]) + (v.shape[3],)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    tol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (got.float() - want).abs().amax(-1, keepdim=True)
+    assert bool((err <= tol * rms).all()), float((err / rms.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal", [(777, 777, True), (777, 777, False),
+                                          (300, 1000, False), (1000, 300, True)])
+def test_flash_attention_mla_widths(cuda_device, dtype, sq, sk, causal):
+    """MLA's prefill widths, D_q = 192 and D_v = 128 (the <192, 128>
+    instance), in both dtypes, ragged tiles, S_q ≠ S_k."""
+    _check_widths(*_qkv_widths(2, 4, 4, sq, sk, 192, 128, dtype, cuda_device,
+                               seed=sq + sk), causal)
+
+
+@pytest.mark.parametrize("dq,dv", [(136, 64), (192, 8), (64, 32), (128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_narrower_values(cuda_device, dq, dv, dtype):
+    """D_v < D_q inside each instance: V's boxes only in part."""
+    _check_widths(*_qkv_widths(1, 4, 2, 300, 300, dq, dv, dtype, cuda_device,
+                               seed=dq + dv), True)
+
+
+@pytest.mark.parametrize("dq,dv", [(192, 192), (192, 136)])
+def test_flash_attention_f32_wide_values(cuda_device, dq, dv):
+    """float32 takes D_v past 128 at D_q = 192 (<192, 192>); bf16 raises,
+    its tile would not fit a block's shared memory."""
+    q, k, v = _qkv_widths(1, 4, 2, 300, 300, dq, dv, torch.float32, cuda_device)
+    _check_widths(q, k, v, True)
+    with pytest.raises(ValueError, match="D_v up to 128"):
+        ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+@pytest.mark.parametrize("sq,sk", [(4096, 1024), (1000, 300), (300, 1000)])
+def test_flash_attention_bf16_cross_attention(cuda_device, sq, sk):
+    """The VLM's cross-attention: non-causal, S_q ≠ S_k, GQA 8:1, on the
+    bf16 wgmma path (its query tiles in the causal order)."""
+    _check_widths(*_qkv_widths(1, 16, 2, sq, sk, 128, 128, torch.bfloat16,
+                               cuda_device, seed=sq + 2 * sk), False)
+
+
+@pytest.mark.parametrize("sq", [1500, 448])
+def test_flash_attention_bf16_audio_encoder(cuda_device, sq):
+    """whisper's encoder (S 1,500, non-causal, D 64: the last key tile
+    ragged at 92 keys) and its decoder's cross-attention (448 text rows
+    against 1,500 frames)."""
+    _check_widths(*_qkv_widths(2, 12, 12, sq, 1500, 64, 64, torch.bfloat16,
+                               cuda_device, seed=sq), False)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama-3.2-vision-90b",
+                                  "whisper-small"])
+def test_new_families_on_card_match_cpu(cuda_device, arch):
+    """The MLA, VLM and audio smoke configs: the forward on the card (the
+    kernel, once an attention layer) against the dense forward on the CPU,
+    and a teacher-forced decode step that launches nothing."""
+    cfg = configs.get_smoke(arch)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    host = init_params(M.model_specs(cfg), gen, cfg.torch_dtype, "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+
+    card = to_card(host)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.encoder_frames, cfg.d_model)).astype(np.float32))
+    want, _ = M.forward(host, batch, cfg, impl="dense")
+    ops.reset_launches()
+    got, _ = M.forward(card, to_card(batch), cfg)
+    n_attn = cfg.n_layers + (cfg.encoder_layers + cfg.n_layers
+                             if cfg.family == "audio" else 0)
+    assert ops.LAUNCHES["flash_attention"] == n_attn
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    context = M.encode_context(card, to_card(batch), cfg)
+    cache = M.init_cache(cfg, 2, 8, cuda_device)
+    ops.reset_launches()
+    M.decode_step(card, cache, batch["tokens"][:, :1].to(cuda_device), 0, cfg,
+                  context=context)
+    assert sum(ops.LAUNCHES.values()) == 0
 
 
 def test_forward_on_card_matches_cpu(cuda_device):

@@ -20,7 +20,7 @@ Variants:
 - ``no_softmax``: the scores go to P·V as they are, so only the loads and
   the products remain (its output is not checked);
 - ``--source NAME=PATH``: another whole ``flash_attention.cu`` with the same
-  C entry point, for example an earlier commit's.
+  C entry point (D_q and D_v passed apart), for example an edited copy.
 
 Each case is timed in turns (every variant, then every variant in reverse
 order) with CUDA events.  One JSON line a variant and case, then the card's
@@ -52,11 +52,11 @@ PATCHES = {
                  ("      wgmma_fence();\n",
                   '      asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + wg) : "memory");\n'
                   "      wgmma_fence();\n"),
-                 ("issue_qk<DMAX>(sc, q_rows, L.k(0));\n      wgmma_commit();\n",
-                  "issue_qk<DMAX>(sc, q_rows, L.k(0));\n      wgmma_commit();\n"
+                 ("issue_qk<DQ>(sc, q_rows, L.k(0));\n      wgmma_commit();\n",
+                  "issue_qk<DQ>(sc, q_rows, L.k(0));\n      wgmma_commit();\n"
                   '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory");\n'),
-                 ("issue_pv<DMAX>(o, pa, L.v(sp));\n      wgmma_commit();\n",
-                  "issue_pv<DMAX>(o, pa, L.v(sp));\n      wgmma_commit();\n"
+                 ("issue_pv<DV>(o, pa, L.v(sp));\n      wgmma_commit();\n",
+                  "issue_pv<DV>(o, pa, L.v(sp));\n      wgmma_commit();\n"
                   '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - wg) : "memory");\n')],
     "no_softmax": [("softmax(sc, k_first, alpha0, alpha1);",
                     "alpha0 = alpha1 = 1.f;"),
@@ -101,10 +101,7 @@ def build(sources: dict, out: Path) -> dict:
         spills = [ln.strip() for ln in log.splitlines() if "spill" in ln]
         print(json.dumps({"variant": name, "ptxas_spills": spills}), flush=True)
         lib = ctypes.CDLL(str(so))
-        P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.flash_attention.argtypes = [P, P, P, P, ctypes.POINTER(I64), I, I, I,
-                                        I, I64, I64, I, I, I64, P]
-        lib.flash_attention.restype = ctypes.c_int
+        _build.bind_flash_attention(lib)
         libs[name] = lib
     return libs
 
