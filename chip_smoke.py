@@ -119,9 +119,10 @@ Phases, one JSON line each (``{"phase": ...}``):
                readings of planted faults.
  17.-19. lm.moe, lm.ssm, lm.hybrid — qwen3-moe-235b-a22b, mamba2-2.7b and
                zamba2-1.2b at full width from ``configs/``, random weights
-               from ``--seed``; depth cut only where the weights do not fit
-               (qwen3-moe: 4 layers in float32, 8 in bf16; listed under
-               ``reduced``).  Float32: the flash prefill against the dense
+               from ``--seed``; depth cut where the weights do not fit
+               (qwen3-moe: 4 layers in float32, 8 in bf16) and for time
+               (mamba2's float32 checks: 32 of 64 layers); listed under
+               ``reduced``.  Float32: the flash prefill against the dense
                one (``ATTN_TOL``), teacher-forced ``decode_step`` over 256
                tokens against the prefill (``DECODE_TOL``; for Mamba2 the
                recurrence against the chunked SSD across two chunks; for
@@ -133,6 +134,27 @@ Phases, one JSON line each (``{"phase": ...}``):
                layers (n_layers, 0, one a hybrid group) and none in decode;
                prefill walls and tokens/s, peak memory, a device breakdown,
                ms a decode step.
+
+ 23. lm.train — training, where no kernel runs (none has a backward):
+               (a) internlm2-1.8b whole in bf16 from ``--seed``, six steps of
+               B 8 × 4,096 (``train_4k``'s length; its batch of 256 cut to
+               8, two microbatches of 4, chunked attention and CE, remat)
+               through ``TrainLoop``, the steps after the first under
+               ``set_sync_debug_mode("error")`` (lifted only for the loss
+               read): step walls, losses, grad norms, lr, tokens/s, the
+               state's bytes, peak memory, no kernel launch, and one warm
+               step's device time by group (``train_kernel_group``);
+               (b) on the same weights at B 1 × 512, TF32 off: float32
+               gradients against float64 per leaf, ⟨∇L, d⟩ in float64
+               against the central difference, bf16 against float32, and a
+               planted detach of one layer's attention output that must read
+               beyond both limits; (c) two bf16 steps of each other family at
+               full width (depth cut where the state passes 40 GB) and the
+               float64 directional derivative on its smoke config; (d)
+               ``examples/torch_train_lm.py`` at its default size, again
+               crashed after 100 steps and resumed (bitwise against the
+               straight run under deterministic algorithms), the reference
+               test's compressed smoke run, ``examples/torch_serve_lm.py``.
 
 The ``kernels`` phase also holds ``flash_attention`` against its plain
 version at the attention shapes of internlm2-1.8b's prefill (the summary's
@@ -2786,13 +2808,6 @@ def tapped_kernel_rel(prefill):
     return logits, rels, faults
 
 
-def as_float(tree):
-    """A parameter tree cast to float32."""
-    if isinstance(tree, dict):
-        return {k: as_float(v) for k, v in tree.items()}
-    return tree.float()
-
-
 def bf16_prefill_checks(cfg, params, seed: int):
     """The bf16 flash prefill against the float32 dense prefill on the same
     bf16 weights, for BF16_CHECK_SEEDS seeds of weights and tokens, and for
@@ -2814,7 +2829,7 @@ def bf16_prefill_checks(cfg, params, seed: int):
         rng = np.random.default_rng(seed + 100 + i)
         batch = {"tokens": torch.from_numpy(
             rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
-        want = M.forward(as_float(p), batch, f32, impl="dense")[0]
+        want = M.forward(tree_cast(p, torch.float32), batch, f32, impl="dense")[0]
         if i == 0:
             got, tap["row_rel"], tap["planted_fault_row_rel"] = tapped_kernel_rel(
                 lambda: M.forward(p, batch, cfg, impl="flash")[0])
@@ -3004,9 +3019,11 @@ def examples_phase():
 #: (MLA) is 29.8 GiB in bf16 at its 27 layers, 59.6 GiB in float32: the
 #: checks run 8 layers (18.2 GiB).  llama-3.2-vision-90b is 161 GiB in
 #: bf16: 20 layers (4 super-blocks, 33.8 GiB) for the walls, one
-#: super-block of 5 in float32.  whisper-small runs whole.
+#: super-block of 5 in float32.  whisper-small runs whole.  mamba2-2.7b's
+#: float32 checks run 32 of its 64 layers for the script's time (the same
+#: code paths, and room for lm.train), its bf16 walls all 64.
 LM_FAMILIES = (("lm.moe", "qwen3-moe-235b-a22b", 4, 8),
-               ("lm.ssm", "mamba2-2.7b", None, None),
+               ("lm.ssm", "mamba2-2.7b", 32, None),
                ("lm.hybrid", "zamba2-1.2b", None, None),
                ("lm.mla", "deepseek-v2-lite-16b", 8, None),
                ("lm.vlm", "llama-3.2-vision-90b", 5, 20),
@@ -3267,10 +3284,11 @@ def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
         n_attn = flash_launches_a_forward(cfg)
         res = (family_f32_checks if dtype == "float32" else family_bf16_walls)(cfg, seed)
         gib = full.param_count() * (4 if dtype == "float32" else 2) / 2**30
+        why = ("the weights of the full depth and the phase's activations do not "
+               "fit in 80 GB" if gib > 40 else
+               "the script's time: the same code paths at half the depth")
         res["reduced"] = ({"n_layers": [full.n_layers, cfg.n_layers],
-                           "full_depth_weights_gib": gib,
-                           "why": "the weights of the full depth and the phase's "
-                                  "activations do not fit in 80 GB"}
+                           "full_depth_weights_gib": gib, "why": why}
                           if depth else {})
         emit(f"{phase}.{'f32' if dtype == 'float32' else 'bf16'}", arch=arch,
              family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -3305,6 +3323,584 @@ def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
                   f"{res['generate_launches']}, expected {n_attn}, {n_enc} and 0 "
                   "flash_attention")
     emit(f"{phase}.done", phase_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------- lm.train
+
+#: the training configuration of (a): internlm2-1.8b whole in bf16, the
+#: sequence length of ``train_4k`` (configs/shapes.py) with the global batch
+#: cut from 256 to 8, two microbatches of 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 6
+TRAIN_CFG = dict(attn_impl="chunked", ce_chunk=512, grad_accum=2, schedule="cosine",
+                 peak_lr=3e-4, warmup=2, total_steps=8)
+#: (b): the gradient checks' batch and the layer whose attention output the
+#: planted fault detaches
+GRAD_BATCH, GRAD_SEQ, FAULT_LAYER = 1, 512, 12
+#: float32 gradients against float64, per leaf ‖g32 − g64‖ / ‖g64‖: float32
+#: round-off through 24 layers and a 92,544-way softmax reads well under
+#: this (about 1e-5 is expected)
+GRAD_F32_TOL = 1e-3
+#: the float64 central difference (L(p+εd) − L(p−εd)) / 2ε against ⟨∇L, d⟩,
+#: d ~ N(0, 1) per element: its O(ε²) error read 9e-7 of the derivative on
+#: internlm2's smoke config at ε = 1e-6 (CPU, float64), its round-off is
+#: about 1e-16·L/ε
+DIRECTIONAL_EPS, DIRECTIONAL_TOL = 1e-6, 1e-5
+#: bf16 against float32 on the same bf16 weights: the loss and the gradient
+#: norm, relative (bf16 rounds every activation to 2⁻⁸; the loss is a mean
+#: over 511 tokens, the norm over 1.7 B gradients)
+BF16_LOSS_TOL, BF16_GNORM_TOL = 1e-2, 5e-2
+#: (c): (arch, layers; None: whole).  The training state is about 12 bytes
+#: a parameter (bf16 weights and gradients, float32 m and v); depth is cut
+#: where it would pass 40 GB: qwen3-moe 1 of 94 layers (3.11 B parameters
+#: with the embedding), deepseek-v2-lite 5 of 27 (3.13 B), and
+#: llama-3.2-vision one super-block of 5 of 100 (5.33 B, 64 GB: a
+#: super-block is the least depth the config has)
+TRAIN_FAMILIES = (("qwen3-moe-235b-a22b", 1), ("mamba2-2.7b", None),
+                  ("zamba2-1.2b", None), ("deepseek-v2-lite-16b", 5),
+                  ("llama-3.2-vision-90b", 5), ("whisper-small", None))
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 1024
+#: (d): the steps of the crash, and the learning bar of the compressed run
+#: (tests/test_fault_tolerance.py:107)
+CRASH_AT, LEARN_BY = 100, 0.3
+
+
+class Crash(Exception):
+    """The planted interruption of the resumed example run."""
+
+
+def tree_cast(tree, dtype):
+    """A parameter tree cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def train_kernel_group(chain, kernel: str) -> str:
+    """A device kernel's group in a train step: ``chain`` is the names of
+    the host ranges that enclose its launch, outermost first (the profiler
+    annotations ``optimizer``, ``CE`` and ``attention``, the ops, and in the
+    backward the autograd node's ``evaluate_function``)."""
+    names = " ".join(chain)
+    if "optimizer" in chain:
+        return "optimizer"
+    if any(t in kernel for t in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+        return "matrix products"
+    if "CE" in chain or "LogsumexpBackward" in names or "GatherBackward" in names:
+        return "CE (softmax, gold pick)"
+    if ("attention" in chain or "SoftmaxBackward" in names
+            or "MaskedFillBackward" in names or "DivBackward" in names):
+        return "attention (scores' softmax, masks, scale)"
+    return "elementwise (norms, rope, SiLU, residuals, casts, embedding)"
+
+
+def chain_breakdown(trace_path: str, wall_s: float):
+    """Device time by ``train_kernel_group`` from a chrome trace of
+    ``torch.profiler``: each kernel joined to the op that launched it by its
+    "External id", that op's enclosing host ranges found on its thread."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation"):
+            spans.setdefault(e.get("tid"), []).append(e)
+    chains = {}
+    for tid, evs in spans.items():
+        evs.sort(key=lambda e: (e["ts"], -e.get("dur", 0)))
+        stack = []
+        for e in evs:
+            while stack and stack[-1]["ts"] + stack[-1].get("dur", 0) <= e["ts"]:
+                stack.pop()
+            stack.append(e)
+            ext = e.get("args", {}).get("External id")
+            if ext is not None:
+                chains[ext] = [s["name"] for s in stack]
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    groups, unjoined = {}, 0
+    for k in kernels:
+        chain = chains.get(k.get("args", {}).get("External id"))
+        if chain is None:
+            unjoined += 1
+            chain = []
+        g = train_kernel_group(chain, k["name"])
+        groups[g] = groups.get(g, 0.0) + k.get("dur", 0) / 1e3
+    busy = sum(groups.values())
+    return dict(profiled_wall_ms=wall_s * 1e3, device_busy_ms=busy,
+                idle_share=1 - busy / (wall_s * 1e3), n_kernels=len(kernels),
+                unjoined_kernels=unjoined,
+                groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+class TrainAnnotations:
+    """While active, the train step's optimizer (compression, schedule and
+    AdamW), chunked CE and attention cores run inside profiler ranges
+    named ``optimizer``, ``CE`` and ``attention`` (in their rematerialised
+    recomputes too)."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import layers as TL
+        from repro_torch.train import adamw
+        from repro_torch.train import step as TS
+
+        def wrap(fn, label):
+            def inner(*a, **kw):
+                with record_function(label):
+                    return fn(*a, **kw)
+            return inner
+
+        self.saved = [(adamw, "update", adamw.update), (TS, "_ce_sum", TS._ce_sum),
+                      (TL, "_dense_attention", TL._dense_attention)]
+        adamw.update = wrap(adamw.update, "optimizer")
+        TS._ce_sum = wrap(TS._ce_sum, "CE")
+        TL._dense_attention = wrap(TL._dense_attention, "attention")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def train_step_breakdown(step, state, batch):
+    """One train step under ``torch.profiler`` (host ops and kernels) with
+    ``TrainAnnotations``: device time by group, busy and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(HERE, "build", "train_step_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    with TrainAnnotations(), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    out = chain_breakdown(path, wall)
+    os.remove(path)
+    return state, out
+
+
+def train_state_bytes(params, grad_accum: int) -> dict:
+    """The train state's bytes by part: the weights and one microbatch's
+    gradients in their dtype, m and v in float32, and the float32 sums of
+    the accumulation."""
+    from repro_torch.train.adamw import tree_leaves
+
+    leaves = tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    w = sum(p.numel() * p.element_size() for p in leaves)
+    out = {"parameters": n, "weights": w, "grads": w, "m": 4 * n, "v": 4 * n,
+           "accum_sums": 4 * n if grad_accum > 1 else 0}
+    out["total"] = sum(v for k, v in out.items() if k != "parameters")
+    return out
+
+
+def lm_train_full(seed: int):
+    """(a) internlm2-1.8b whole in bf16, TRAIN_STEPS steps of B 8 × 4,096
+    with two microbatches through ``TrainLoop``, the steps after the first
+    under sync-debug "error"; a profiled warm step."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import TrainConfig, init_state, make_train_step
+
+    cfg = configs.get(LM_ARCH)
+    tcfg = TrainConfig(**TRAIN_CFG)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = init_state(cfg, tcfg, gen, "cuda")
+    pipe = TokenPipeline(PipelineConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=seed), cfg,
+                         device="cuda")
+    train_step = make_train_step(cfg, tcfg)
+    metrics = []
+
+    def step(s, b):
+        s, met = train_step(s, b)
+        metrics.append(met)
+        if len(metrics) == 1:                 # the first step is cold
+            torch.cuda.set_sync_debug_mode("error")
+        return s, met
+
+    loop = TrainLoop(step, pipe, LoopConfig(max_steps=TRAIN_STEPS, log_every=0),
+                     log=lambda m: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        state = loop.run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    walls = [r.wall for r in loop.records]
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    state, prof = train_step_breakdown(train_step, state, pipe.batch_at(TRAIN_STEPS))
+    out = dict(arch=LM_ARCH, params=cfg.param_count(), layers=cfg.n_layers,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, train=TRAIN_CFG,
+               reduced={"global_batch": [256, TRAIN_BATCH],
+                        "why": "train_4k's batch of 256 sequences is a cluster's; one "
+                               "card takes 8 in two microbatches of 4"},
+               steps=len(walls), step_walls_s=walls, losses=loop.losses(),
+               grad_norms=[float(m["grad_norm"]) for m in metrics],
+               lrs=[float(m["lr"]) for m in metrics],
+               median_warm_step_s=warm, tokens_per_step=tokens,
+               train_tokens_per_s=tokens / warm, state_bytes=train_state_bytes(
+                   state["params"], tcfg.grad_accum),
+               peak_mem_gib=peak / 2**30, launches=launches,
+               sync_debug="error after the first step; lifted only for the loss read",
+               profile=prof)
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"lm.train: losses {out['losses']} or grad norms not finite")
+    check(sum(launches.values()) == 0,
+          f"lm.train: the train steps launched {launches}; no kernel has a backward")
+    del state, loop
+    torch.cuda.empty_cache()
+    return out
+
+
+class DetachAttention:
+    """The planted fault of (b): the attention core's output of one layer
+    detached on the autograd side (what a kernel result with no backward
+    does), found by that layer's ``wq``."""
+
+    def __init__(self, wq):
+        self.ptr = wq.data_ptr()
+
+    def __enter__(self):
+        from repro_torch.models import layers as TL
+        from repro_torch.models import model as M
+
+        self.apply, self.core, hit = M.attn_apply, TL.attention_core, [False]
+
+        def attn_apply(p, x, cfg, **kw):
+            hit[0] = p["wq"].data_ptr() == self.ptr
+            return self.apply(p, x, cfg, **kw)
+
+        def attention_core(q, k, v, **kw):
+            o = self.core(q, k, v, **kw)
+            return o.detach() if hit[0] else o
+
+        M.attn_apply, TL.attention_core = attn_apply, attention_core
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as TL
+        from repro_torch.models import model as M
+
+        M.attn_apply, TL.attention_core = self.apply, self.core
+
+
+def loss_and_grads(params, batch, cfg, tcfg):
+    """The train step's loss and gradient leaves (its ``_loss_fn`` under
+    autograd) for a parameter tree that does not otherwise require grad."""
+    import torch
+
+    from repro_torch.train.adamw import tree_leaves
+    from repro_torch.train.step import _loss_fn
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = _loss_fn(params, batch, cfg, tcfg)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), list(grads)
+
+
+def directional(params, direction, batch, cfg, tcfg, eps: float) -> float:
+    """(L(p + εd) − L(p − εd)) / 2ε, the parameters restored after."""
+    import torch
+
+    from repro_torch.train.adamw import tree_leaves
+    from repro_torch.train.step import _loss_fn
+
+    leaves = tree_leaves(params)
+    with torch.no_grad():
+        for p, d in zip(leaves, direction):
+            p.add_(d.to(p.dtype), alpha=eps)
+        up = _loss_fn(params, batch, cfg, tcfg)[0]
+        for p, d in zip(leaves, direction):
+            p.add_(d.to(p.dtype), alpha=-2 * eps)
+        down = _loss_fn(params, batch, cfg, tcfg)[0]
+        for p, d in zip(leaves, direction):
+            p.add_(d.to(p.dtype), alpha=eps)
+    return float((up - down) / (2 * eps))
+
+
+def random_direction(params, seed: int):
+    """d ~ N(0, 1) per element, float32, from ``seed``."""
+    import torch
+
+    from repro_torch.train.adamw import tree_leaves
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn(p.shape, generator=gen, dtype=torch.float32, device="cuda")
+            for p in tree_leaves(params)]
+
+
+def directional_check(params64, batch, cfg64, tcfg, seed: int, fault_wq=None):
+    """⟨∇L, d⟩ by autograd in float64 against the central difference;
+    with ``fault_wq`` also the readings of the planted detach: its
+    ⟨∇L, d⟩ against the central difference, and its largest per-leaf
+    ‖g − g64‖ / ‖g64‖."""
+    direction = random_direction(params64, seed)
+    _, g = loss_and_grads(params64, batch, cfg64, tcfg)
+    dot = float(sum((gi * di.to(gi.dtype)).sum() for gi, di in zip(g, direction)))
+    fd = directional(params64, direction, batch, cfg64, tcfg, DIRECTIONAL_EPS)
+    out = dict(eps=DIRECTIONAL_EPS, autograd=dot, central_difference=fd,
+               rel=abs(dot - fd) / abs(fd), tol=DIRECTIONAL_TOL)
+    if fault_wq is not None:
+        with DetachAttention(fault_wq):
+            _, gf = loss_and_grads(params64, batch, cfg64, tcfg)
+        fdot = float(sum((gi * di.to(gi.dtype)).sum() for gi, di in zip(gf, direction)))
+        out["planted_fault_rel"] = abs(fdot - fd) / abs(fd)
+        out["planted_fault_leaf_rel_max"] = max(
+            float((a - b).norm() / b.norm()) for a, b in zip(gf, g) if float(b.norm()) > 0)
+        del gf
+    return out, g
+
+
+def lm_train_grad_checks(seed: int):
+    """(b) at full width and depth on (a)'s weights, TF32 off, B 1 × 512:
+    float32 gradients against float64, the float64 directional derivative,
+    bf16 against float32, and the planted detach."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.train.adamw import global_norm
+    from repro_torch.train.step import TrainConfig
+
+    cfg = configs.get(LM_ARCH)
+    tcfg = TrainConfig(attn_impl="chunked", ce_chunk=512)
+    rng = np.random.default_rng(seed + 7)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (GRAD_BATCH, GRAD_SEQ))
+                                        .astype(np.int32)).cuda()}
+    bf16 = lm_params(cfg, seed)
+    l16, g16 = loss_and_grads(bf16, batch, cfg, tcfg)
+    n16 = float(global_norm(g16))
+    del g16
+    p32 = tree_cast(bf16, torch.float32)
+    del bf16
+    l32, g32 = loss_and_grads(p32, batch, cfg.with_(dtype="float32"), tcfg)
+    n32 = float(global_norm(g32))
+    p64 = tree_cast(p32, torch.float64)
+    del p32
+    torch.cuda.empty_cache()
+    wq = M.layer(p64["layers"], FAULT_LAYER)["attn"]["wq"]
+    d, g64 = directional_check(p64, batch, cfg.with_(dtype="float64"), tcfg, seed + 11,
+                               fault_wq=wq)
+    leaf_rel = [float((a.double() - b).norm() / b.norm()) for a, b in zip(g32, g64)]
+    out = dict(arch=LM_ARCH, batch=GRAD_BATCH, seq=GRAD_SEQ, remat=cfg.remat,
+               attn_impl=tcfg.attn_impl, ce_chunk=tcfg.ce_chunk, tf32=False,
+               f32_vs_f64_leaf_rel=leaf_rel, f32_vs_f64_tol=GRAD_F32_TOL,
+               directional=d, fault_layer=FAULT_LAYER,
+               bf16_loss=float(l16), f32_loss=float(l32), bf16_grad_norm=n16,
+               f32_grad_norm=n32, bf16_vs_f32_loss_rel=abs(float(l16) - float(l32)) / abs(float(l32)),
+               bf16_vs_f32_grad_norm_rel=abs(n16 - n32) / n32,
+               bf16_tols=dict(loss=BF16_LOSS_TOL, grad_norm=BF16_GNORM_TOL))
+    del p64, g64, g32
+    torch.cuda.empty_cache()
+    check(max(leaf_rel) <= GRAD_F32_TOL,
+          f"lm.train.grads: float32 gradients {max(leaf_rel):.3e} off float64")
+    check(d["rel"] <= DIRECTIONAL_TOL,
+          f"lm.train.grads: ⟨∇L, d⟩ {d['autograd']} against the central difference "
+          f"{d['central_difference']}: {d['rel']:.3e}")
+    check(d["planted_fault_rel"] > DIRECTIONAL_TOL and d["planted_fault_leaf_rel_max"] > GRAD_F32_TOL,
+          f"lm.train.grads: the planted detach reads {d['planted_fault_rel']:.3e} and "
+          f"{d['planted_fault_leaf_rel_max']:.3e}, within the limits")
+    check(out["bf16_vs_f32_loss_rel"] <= BF16_LOSS_TOL
+          and out["bf16_vs_f32_grad_norm_rel"] <= BF16_GNORM_TOL,
+          f"lm.train.grads: bf16 against float32: loss {out['bf16_vs_f32_loss_rel']:.3e}, "
+          f"grad norm {out['bf16_vs_f32_grad_norm_rel']:.3e}")
+    return out
+
+
+def lm_train_families(seed: int):
+    """(c) two bf16 steps of each other family at full width (depth cut
+    where the state passes 40 GB), then the float64 directional derivative
+    on its smoke config."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import TrainConfig, init_state, make_train_step
+
+    rows = []
+    for arch, depth in TRAIN_FAMILIES:
+        full = configs.get(arch)
+        cfg = full.with_(n_layers=depth or full.n_layers)
+        seq = AUDIO_TEXT_CTX if cfg.family == "audio" else FAMILY_TRAIN_SEQ
+        tcfg = TrainConfig(attn_impl="chunked", ce_chunk=512, peak_lr=3e-4, warmup=2,
+                           total_steps=8)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        state = init_state(cfg, tcfg, gen, "cuda")
+        pipe = TokenPipeline(PipelineConfig(FAMILY_TRAIN_BATCH, seq, cfg.vocab, seed=seed),
+                             cfg, device="cuda")
+        step = make_train_step(cfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        walls, mets = [], []
+        for i in range(2):
+            batch = pipe.batch_at(i)
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            mets.append(met)
+        sb = train_state_bytes(state["params"], 1)
+        row = dict(arch=arch, family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
+                   batch=FAMILY_TRAIN_BATCH, seq=seq, step_walls_s=walls,
+                   losses=[float(m["loss"]) for m in mets],
+                   grad_norms=[float(m["grad_norm"]) for m in mets],
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   state_gb=sb["total"] / 1e9, launches=dict(ops.LAUNCHES),
+                   reduced=({"n_layers": [full.n_layers, cfg.n_layers],
+                             "why": "the training state (12 bytes a parameter) of the "
+                                    "whole depth passes 40 GB"} if depth else {}))
+        if cfg.family == "audio":
+            row["frames"] = cfg.encoder_frames
+        if cfg.family == "vlm":
+            row["vision_tokens"] = cfg.vision_tokens
+        del state, pipe
+        torch.cuda.empty_cache()
+        smoke = configs.get_smoke(arch).with_(dtype="float64", remat=True)
+        p64 = lm_params(smoke, seed)
+        rng = np.random.default_rng(seed)
+        sb = {"tokens": torch.from_numpy(rng.integers(0, smoke.vocab, (2, 16))
+                                         .astype(np.int32)).cuda(),
+              **{k: v.double() for k, v in family_context(smoke, 2, rng).items()}}
+        row["smoke_directional"], _ = directional_check(
+            p64, sb, smoke, TrainConfig(attn_impl="chunked", ce_chunk=5), seed + 13)
+        rows.append(row)
+        emit("lm.train.family", **row)
+        check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]),
+              f"lm.train.family: {arch}: losses {row['losses']} or grad norms not finite")
+        check(sum(row["launches"].values()) == 0,
+              f"lm.train.family: {arch}: the steps launched {row['launches']}")
+        check(row["smoke_directional"]["rel"] <= DIRECTIONAL_TOL,
+              f"lm.train.family: {arch}: smoke directional derivative "
+              f"{row['smoke_directional']['rel']:.3e} beyond {DIRECTIONAL_TOL}")
+    return rows
+
+
+def lm_train_examples():
+    """(d) ``examples/torch_train_lm.py`` at its default size, again as a
+    run "crashed" after CRASH_AT steps and resumed, both against the
+    straight run; ``launch/train.py --smoke --compress-grads`` for 30 steps;
+    ``examples/torch_serve_lm.py`` once."""
+    import runpy
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train.adamw import tree_leaves
+
+    example = runpy.run_path(os.path.join(HERE, "examples", "torch_train_lm.py"),
+                             run_name="torch_example")["main"]
+    dirs = [os.path.join(HERE, "build", f"train_lm_{n}") for n in ("straight", "crash")]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            straight = example(["--device", "cuda", "--ckpt-dir", dirs[0]])
+            out["straight_s"] = time.perf_counter() - t0
+            real = train_launch.make_train_step
+
+            def crashing(cfg, tcfg):
+                step, n = real(cfg, tcfg), [0]
+
+                def run(state, batch):
+                    n[0] += 1
+                    if n[0] > CRASH_AT:
+                        raise Crash(f"step {CRASH_AT}")
+                    return step(state, batch)
+                return run
+
+            train_launch.make_train_step = crashing
+            try:
+                example(["--device", "cuda", "--ckpt-dir", dirs[1]])
+            except Crash:
+                pass
+            finally:
+                train_launch.make_train_step = real
+            resumed = example(["--device", "cuda", "--ckpt-dir", dirs[1]])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:160] for w in caught
+                     if "deterministic" in str(w.message).lower()})
+    tail = straight.losses()[CRASH_AT:]
+    bitwise = (resumed.losses() == tail and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(straight.state),
+                                          tree_leaves(resumed.state))))
+    close = all(abs(a - b) <= 1e-6 + 1e-5 * abs(b) for a, b in zip(resumed.losses(), tail))
+    out.update(steps=len(straight.losses()), first_loss=straight.losses()[0],
+               last_loss=straight.losses()[-1], params=sum(
+                   p.numel() for p in tree_leaves(straight.state["params"])),
+               resumed_from=resumed.records[0].step if resumed.records else None,
+               resumed_bitwise=bitwise, resumed_within_1e5=close,
+               nondeterministic_ops=nondet)
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    check(out["resumed_from"] == CRASH_AT and len(resumed.losses()) == len(tail),
+          f"lm.train.examples: resumed at {out['resumed_from']}, not {CRASH_AT}")
+    check(bitwise or (close and nondet),
+          f"lm.train.examples: the resumed run differs from the straight one "
+          f"(bitwise {bitwise}, within 1e-5 {close}, nondeterministic ops {nondet})")
+
+    loop = train_launch.main(["--arch", LM_ARCH, "--smoke", "--steps", "30",
+                              "--compress-grads", "--device", "cuda"])
+    out["compressed_losses"] = [loop.losses()[0], loop.losses()[-1]]
+    check(loop.losses()[-1] < loop.losses()[0] - LEARN_BY,
+          f"lm.train.examples: compressed training fell {out['compressed_losses']}, "
+          f"not by {LEARN_BY}")
+    t0 = time.perf_counter()
+    served = runpy.run_path(os.path.join(HERE, "examples", "torch_serve_lm.py"),
+                            run_name="torch_example")["main"](["--device", "cuda"])
+    out["serve_s"] = time.perf_counter() - t0
+    out["served_shape"] = list(served.shape)
+    return out
+
+
+def lm_train_phase(seed: int):
+    """(a)-(d) of training on the card; every line carries the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    full = lm_train_full(seed)
+    prof = full.pop("profile")
+    emit("lm.train", card=smi, **full)
+    emit("lm.train.profile", card=smi, **prof)
+    emit("lm.train.grads", card=smi, **lm_train_grad_checks(seed))
+    lm_train_families(seed)
+    torch.cuda.empty_cache()
+    emit("lm.train.examples", card=smi, **lm_train_examples())
+    emit("lm.train.done", card=smi, phase_s=time.perf_counter() - t0)
 
 
 def plan_specs_for(scale: float, block_size: int):
@@ -3370,6 +3966,9 @@ def main() -> int:
                          "(1: the generator's own default)")
     args = ap.parse_args()
 
+    # cuBLAS's workspace for deterministic products (lm.train's resumed
+    # run): PyTorch's own default on sm_90, set before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3458,6 +4057,10 @@ def main() -> int:
         for phase, arch, f32_layers, bf16_layers in LM_FAMILIES:
             torch.cuda.empty_cache()
             lm_family_phase(phase, arch, f32_layers, bf16_layers, args.seed)
+
+        # 23. training: no kernel runs under grad
+        torch.cuda.empty_cache()
+        lm_train_phase(args.seed)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

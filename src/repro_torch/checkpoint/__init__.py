@@ -1,1 +1,2 @@
-"""Checkpoint store of the port: crash-safe snapshots of maintained views."""
+"""Checkpoint store of the port: crash-safe snapshots of maintained views
+and train states."""

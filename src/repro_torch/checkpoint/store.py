@@ -10,9 +10,12 @@ Layout (one directory per step):
 Leaf names are the key paths joined by "/", walked in sorted key order at
 every level — the order JAX flattens dicts in, so both packages name and
 list the leaves alike.  ``sha`` is the first 16 hex digits of the sha256 of
-the leaf's bytes.  Writes go to a temp dir renamed atomically into place; a
-checkpoint is only visible once complete, and the ``keep`` newest steps
-survive each save.
+the leaf's bytes.  A leaf of bf16 bits in a 2-byte void
+(``models/weights.py`` ``state_to_numpy``) is written with the descr and
+the dtype name that the reference writes for ``ml_dtypes.bfloat16``
+(``'<V2'``, ``"bfloat16"``), so its file and hash are the reference's.
+Writes go to a temp dir renamed atomically into place; a checkpoint is only
+visible once complete, and the ``keep`` newest steps survive each save.
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+
+def is_bf16_bits(dtype: np.dtype) -> bool:
+    """``ml_dtypes.bfloat16``, or the 2-byte void a bf16 leaf's bits are
+    kept in (``models/weights.py`` ``state_to_numpy``, or ``np.load`` of a
+    bf16 file)."""
+    return dtype.name == "bfloat16" or (dtype.kind == "V" and dtype.itemsize == 2
+                                        and dtype.names is None)
 
 
 def _leaf_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
@@ -48,9 +59,14 @@ def save(ckpt_dir: str, step: int, state: Any, keep: int = 3) -> str:
     for name, leaf in _leaf_paths(state):
         a = np.asarray(leaf)
         fn = name.replace("/", "__") + ".npy"
-        np.save(os.path.join(tmp, fn), a)
+        bf16 = is_bf16_bits(a.dtype)
+        if bf16:
+            _save_bf16_bits(os.path.join(tmp, fn), a)
+        else:
+            np.save(os.path.join(tmp, fn), a)
         manifest["leaves"][name] = {"file": fn, "shape": list(a.shape),
-                                    "dtype": str(a.dtype), "sha": _digest(a)}
+                                    "dtype": "bfloat16" if bf16 else str(a.dtype),
+                                    "sha": _digest(a)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     if os.path.exists(final):
@@ -58,6 +74,15 @@ def save(ckpt_dir: str, step: int, state: Any, keep: int = 3) -> str:
     os.rename(tmp, final)          # atomic visibility
     _gc(ckpt_dir, keep)
     return final
+
+
+def _save_bf16_bits(path: str, a: np.ndarray) -> None:
+    """``np.save`` of the bits as ``ml_dtypes.bfloat16`` would write them:
+    numpy names a plain 2-byte void ``'|V2'``, the bf16 dtype ``'<V2'``."""
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": a.shape})
+        np.ascontiguousarray(a).tofile(f)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

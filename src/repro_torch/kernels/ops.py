@@ -38,6 +38,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _check_no_grad(name: str, *tensors) -> None:
+    """No kernel has a backward (nor has the reference's Pallas kernel), and
+    a kernel's output carries no ``grad_fn``: a wrapper called where
+    autograd would record it raises on either device rather than return a
+    result that trains on the CPU and silently detaches on the card."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (the reference's Pallas kernel has none "
+            "either) and was called on tensors that require grad; training "
+            "takes attention impl 'dense' or 'chunked', and the engine's "
+            "reductions run under torch.no_grad()")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -53,6 +67,7 @@ def covar_xtx(x: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor
     ``covar_xtx.MAX_FEATURES`` (past it the wrapper raises): the
     reference's ``block_rows``, ``interpret`` and ``feature_align`` pad for
     the TPU's tiles and have no counterpart here."""
+    _check_no_grad("covar_xtx", x, w)
     x = x.to(torch.float32)
     w = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
          if w is None else w.to(torch.float32))
@@ -68,6 +83,7 @@ def fused_scan_block(codes: torch.Tensor, fpay: torch.Tensor,
     """Whole-step fused reduction: returns one ``(n_segments, width)``
     tensor per spec."""
     specs = tuple(specs)
+    _check_no_grad("fused_scan_block", codes, fpay)
     if not _on_cuda(codes):
         return ref.fused_scan_block_ref(codes, fpay, specs)
     out = fused_scan_block_cuda(codes, fpay, specs)
@@ -80,6 +96,8 @@ def fused_scan_parts(reds: Sequence[Parts]):
     codes and payload parts where they lie.  Counted as a
     ``fused_scan_block`` launch."""
     reds = tuple(reds)
+    _check_no_grad("fused_scan_block", *(t for r in reds for t in (
+        r.codes, *(getattr(p, "values", p) for p in r.parts))))
     if not _on_cuda(reds[0].codes):
         return ref.fused_scan_parts_ref(reds)
     out = fused_scan_parts_cuda(reds)
@@ -91,6 +109,7 @@ def seg_aggregate(seg: torch.Tensor, payload: torch.Tensor,
                   n_segments: int) -> torch.Tensor:
     """Segment-sum payload rows into ``n_segments`` (out-of-range ids
     contribute nowhere)."""
+    _check_no_grad("seg_aggregate", seg, payload)
     if not _on_cuda(seg):
         return ref.seg_aggregate_ref(seg, payload, n_segments)
     out = seg_aggregate_cuda(seg, payload, n_segments)
@@ -101,6 +120,7 @@ def seg_aggregate(seg: torch.Tensor, payload: torch.Tensor,
 def tree_hist(codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
               n_buckets: int) -> torch.Tensor:
     """Per-bucket ``[count, Σy, Σy²]`` under the mask ``cond``."""
+    _check_no_grad("tree_hist", codes, y, cond)
     if not _on_cuda(codes):
         return ref.tree_hist_ref(codes, y, cond, n_buckets)
     out = tree_hist_cuda(codes, y, cond, n_buckets)
@@ -112,6 +132,7 @@ def tree_hist_batched(codes: torch.Tensor, y: torch.Tensor,
                       cond: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """Per-node, per-bucket ``[count, Σy, Σy²]``: ``cond`` is (n, N), one
     mask column per frontier node; returns (N, n_buckets, 3)."""
+    _check_no_grad("tree_hist_batched", codes, y, cond)
     if not _on_cuda(codes):
         return ref.tree_hist_batched_ref(codes, y, cond, n_buckets)
     out = tree_hist_batched_cuda(codes, y, cond, n_buckets)
@@ -127,7 +148,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D_v) in ``q``'s dtype.  D_v ≤ D_q ≤ 192 on either device
     (``flash_attention.check_shapes``), multiples of 8 on the card.  Any
     ``S``: the reference's ``block_q``, ``block_k`` and ``interpret`` pad
-    for the TPU's tiles and have no counterpart here."""
+    for the TPU's tiles and have no counterpart here.  Forward only: under
+    grad it raises (``_check_no_grad``)."""
+    _check_no_grad("flash_attention", q, k, v)
     if not _on_cuda(q):
         check_shapes(q, k, v)
         return ref.attention_ref(q, k, v, causal=causal, window=window)

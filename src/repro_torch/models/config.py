@@ -1,6 +1,7 @@
 """Unified model configuration for the assigned architecture pool;
 counterpart of ``repro/models/config.py``, identical apart from
-``torch_dtype``, which takes the place of ``jdtype``."""
+``torch_dtype``, which takes the place of ``jdtype`` (and also maps
+``"float64"``, for gradient checks)."""
 
 from __future__ import annotations
 
@@ -71,7 +72,8 @@ class ModelConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
+        return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "float64": torch.float64}[self.dtype]
 
     @property
     def attention_free(self) -> bool:

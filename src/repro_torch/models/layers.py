@@ -11,8 +11,8 @@ Attention offers three implementations:
   * ``dense``   — full softmax (the reference's ``_dense_attention``)
   * ``chunked`` — a loop over query chunks of ``cfg.attn_chunk`` rows, each
                   a dense softmax against every key: O(S·chunk) live scores
-                  (the reference's ``_chunked_attention``; no remat, which
-                  only matters to a backward pass)
+                  (the reference's ``_chunked_attention``), each chunk
+                  rematerialised under grad
   * ``flash``   — ``kernels/ops.py:flash_attention``, the counterpart of the
                   reference's ``pallas``: the hand-written CUDA kernel on
                   the card, its plain version on the CPU.  The default.
@@ -25,6 +25,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -93,11 +94,18 @@ def init_params(specs, generator: Optional[torch.Generator],
 # --------------------------------------------------------------------------
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype the reference accumulates in, float32, or in
+    float64 where the model runs in float64 (the float64 gradient checks of
+    ``chip_smoke.py``); the same values as ``x.float()`` otherwise."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = wide(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * w.float()).to(dt)
+    return (x * w.to(x.dtype)).to(dt)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -128,7 +136,7 @@ def _dense_attention(q, k, v, *, causal: bool, window: int,
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
     qg = q.reshape(b, s, kv, g, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = wide(torch.einsum("bskgd,btkd->bkgst", qg, k))
     scores = scores / math.sqrt(hd)
     rows = q_offset + torch.arange(s, device=q.device)[:, None]
     cols = torch.arange(t, device=q.device)[None, :]
@@ -146,13 +154,26 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int,
                        chunk: int = 512):
     """Memory-efficient attention: query chunks of ``chunk`` rows, each a
     dense softmax over all keys at its offset (the last chunk may be
-    shorter; the reference pads it instead, with the same rows).  Returns
-    V's width, as ``_dense_attention``."""
+    shorter; the reference pads it instead, with the same rows).  Under
+    grad each chunk is rematerialised, as the reference's ``jax.checkpoint``
+    body: the backward keeps no chunk's scores past its own recompute.
+    Returns V's width, as ``_dense_attention``."""
     s = q.shape[1]
     chunk = min(chunk, s)
-    return torch.cat([_dense_attention(q[:, i:i + chunk], k, v, causal=causal,
-                                       window=window, q_offset=i)
-                      for i in range(0, s, chunk)], dim=1)
+
+    def body(qi, k, v, i):
+        return _dense_attention(qi, k, v, causal=causal, window=window,
+                                q_offset=i)
+
+    if torch.is_grad_enabled():
+        def run(qi, i):
+            return checkpoint(body, qi, k, v, i, use_reentrant=False,
+                              preserve_rng_state=False)
+    else:
+        def run(qi, i):
+            return body(qi, k, v, i)
+    return torch.cat([run(q[:, i:i + chunk], i) for i in range(0, s, chunk)],
+                     dim=1)
 
 
 def attention_core(q, k, v, *, causal: bool = True, window: int = 0,

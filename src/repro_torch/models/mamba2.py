@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamSpec, p_, rms_norm
+from repro_torch.models.layers import ParamSpec, p_, rms_norm, wide
 
 
 def mamba_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -59,9 +59,10 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
 def ssd_chunked(x, dt, A, B_, C_, chunk: int, compute_dtype=torch.float32):
     """SSD forward.
     x: (B,S,H,P)  dt: (B,S,H)  A: (H,) negative  B_,C_: (B,S,N), float32.
-    Returns y: (B,S,H,P) float32.  ``compute_dtype`` is the dtype of the
-    dual form's decay and score matrices (bf16 halves their traffic; the
-    cumsum and the inter-chunk state stay float32)."""
+    Returns y: (B,S,H,P) in ``x``'s dtype (float32; float64 in a float64
+    model).  ``compute_dtype`` is the dtype of the dual form's decay and
+    score matrices (bf16 halves their traffic; the cumsum and the
+    inter-chunk state stay in ``x``'s dtype)."""
     b, s, h, p = x.shape
     n = B_.shape[-1]
     if s % chunk:
@@ -80,12 +81,14 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, compute_dtype=torch.float32):
     # L[i,j] = exp(cum_i - cum_j) for j <= i
     idx = torch.arange(chunk, device=x.device)
     causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
-    L = torch.where(causal, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]),
-                    0.0).to(cd)                        # (b,nc,Q,Q,h)
+    # the mask goes on the exponent: exp of an unmasked (j > i) difference
+    # can overflow to inf, and where()'s backward would then give 0·inf
+    L = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                              -torch.inf)).to(cd)      # (b,nc,Q,Q,h)
     sc = torch.einsum("bcin,bcjn->bcij", Cq.to(cd), Bq.to(cd))
     w = sc[..., None] * L * dtq[:, :, None, :, :].to(cd)
     del L
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xq.to(cd)).float()
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xq.to(cd)).to(x.dtype)
     del w
 
     # chunk state: S_c = Σ_j exp(cum_end - cum_j)·dt_j·B_j ⊗ x_j
@@ -95,7 +98,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, compute_dtype=torch.float32):
     chunk_decay = torch.exp(cum[:, :, -1, :])          # (b,nc,h)
 
     # inter-chunk state carry, float32: the state before each chunk
-    hcur = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    hcur = torch.zeros((b, h, n, p), dtype=x.dtype, device=x.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(hcur)
@@ -120,7 +123,7 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     Bc = x @ p["wB"]
     Cc = x @ p["wC"]
     dt = F.softplus(x @ p["wdt"] + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())
+    A = -torch.exp(wide(p["A_log"]))
 
     u = torch.cat([xz, Bc, Cc], dim=-1)
     u, new_conv = _causal_conv(u, p["conv_w"], None if state is None else state["conv"])
@@ -128,9 +131,9 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
 
     xh = xz.reshape(b, s, nh, hp)
     if state is None:
-        cd = torch.bfloat16 if cfg.ssd_bf16 else torch.float32
-        y = ssd_chunked(xh.float(), dt.float(), A, Bc.float(), Cc.float(),
-                        cfg.ssm_chunk, compute_dtype=cd)
+        xw = wide(xh)
+        y = ssd_chunked(xw, wide(dt), A, wide(Bc), wide(Cc), cfg.ssm_chunk,
+                        compute_dtype=torch.bfloat16 if cfg.ssd_bf16 else xw.dtype)
         new_h = None
     else:
         # single-token recurrence: h <- a·h + dt·B⊗x ; y = C·h
@@ -143,7 +146,7 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         y = torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), new_h32)[:, None]
         new_h = new_h32.to(state["h"].dtype)
 
-    y = y + xh.float() * p["D"].float()[:, None]
+    y = y + wide(xh) * wide(p["D"])[:, None]
     y = y.reshape(b, s, din).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     out = (y.reshape(b * s, din) @ p["wo"]).reshape(b, s, d)

@@ -12,8 +12,9 @@ The same entry points as the reference:
 
 The reference's ``lax.scan`` over stacked layers is a Python loop that
 indexes the stacked tensors (two levels for the hybrid's groups and the
-VLM's super-blocks); its ``remat`` and ``scan_unroll`` switches
-(compile-time choices of XLA) have no counterpart.  Without a mesh the
+VLM's super-blocks).  Its ``remat`` is ``torch.utils.checkpoint`` around
+each layer, taken only under grad (``_maybe_remat``); its ``scan_unroll``
+(a switch of XLA's cost analysis) has no counterpart.  Without a mesh the
 reference's sharding constraints are no-ops: the port leaves them out until
 sharding is ported (ROADMAP Queue 1).
 """
@@ -23,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mla as mla_mod
@@ -206,8 +208,24 @@ def decoder_block(p, x, cfg, *, enc, positions, impl, cache=None,
     return x + mlp_apply(p["mlp"], rms_norm(x, p["ln3"]))
 
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` rematerialised in the backward pass when ``cfg.remat`` is set
+    and autograd records (the reference's ``_maybe_remat``): only the
+    layer's inputs are kept, and the backward runs it again.  The models
+    draw no random numbers, so no RNG state is saved.  The values are
+    ``fn``'s; with grad disabled (serving) nothing is wrapped."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+
+    def remat(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+
+    return remat
+
+
 # --------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (prefill and training)
 # --------------------------------------------------------------------------
 
 
@@ -231,41 +249,47 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     x = embed_apply(params, tokens).to(cfg.torch_dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
+    dense = _maybe_remat(dense_block, cfg)
     if fam == "dense":
         for i in range(cfg.n_layers):
-            x, _ = dense_block(layer(params["layers"], i), x, cfg,
-                               positions=positions, impl=impl)
+            x, _ = dense(layer(params["layers"], i), x, cfg,
+                         positions=positions, impl=impl)
     elif fam == "moe":
+        moe = _maybe_remat(moe_block, cfg)
         for i in range(cfg.n_layers):
-            x, _, a = moe_block(layer(params["layers"], i), x, cfg,
-                                positions=positions, impl=impl)
+            x, _, a = moe(layer(params["layers"], i), x, cfg,
+                          positions=positions, impl=impl)
             aux_total = aux_total + a
     elif fam == "ssm":
+        ssm = _maybe_remat(ssm_block, cfg)
         for i in range(cfg.n_layers):
-            x = ssm_block(layer(params["layers"], i), x, cfg)
+            x = ssm(layer(params["layers"], i), x, cfg)
     elif fam == "hybrid":
+        ssm = _maybe_remat(ssm_block, cfg)
         g, r = divmod(cfg.n_layers, cfg.attn_every)
         for gi in range(g):
             for li in range(cfg.attn_every):
-                x = ssm_block(layer(params["groups"], gi, li), x, cfg)
-            x, _ = dense_block(params["shared_attn"], x, cfg,
-                               positions=positions, impl=impl)
+                x = ssm(layer(params["groups"], gi, li), x, cfg)
+            x, _ = dense(params["shared_attn"], x, cfg,
+                         positions=positions, impl=impl)
         for i in range(r):
-            x = ssm_block(layer(params["tail"], i), x, cfg)
+            x = ssm(layer(params["tail"], i), x, cfg)
     elif fam == "vlm":
+        cross = _maybe_remat(cross_block, cfg)
         vision = batch["vision"].to(cfg.torch_dtype)
         n_super, n_self = _super_blocks(cfg)
         for si in range(n_super):
             for li in range(n_self):
-                x, _ = dense_block(layer(params["super"]["self"], si, li), x,
-                                   cfg, positions=positions, impl=impl)
-            x = cross_block(layer(params["super"]["cross"], si), x, cfg,
-                            context=vision, impl=impl)
+                x, _ = dense(layer(params["super"]["self"], si, li), x,
+                             cfg, positions=positions, impl=impl)
+            x = cross(layer(params["super"]["cross"], si), x, cfg,
+                      context=vision, impl=impl)
     else:                                                   # audio
+        dec = _maybe_remat(decoder_block, cfg)
         enc = _encode_audio(params, batch["frames"].to(cfg.torch_dtype), cfg, impl)
         for i in range(cfg.n_layers):
-            x = decoder_block(layer(params["decoder"], i), x, cfg, enc=enc,
-                              positions=positions, impl=impl)
+            x = dec(layer(params["decoder"], i), x, cfg, enc=enc,
+                    positions=positions, impl=impl)
     x = rms_norm(x, params["final_norm"])
     return x, {"aux_loss": aux_total / max(cfg.n_layers, 1)}
 
@@ -276,9 +300,10 @@ def _encode_audio(params, frames, cfg: ModelConfig, impl: str):
     x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
     positions = torch.arange(frames.shape[1], dtype=torch.int32,
                              device=frames.device)
+    dense = _maybe_remat(dense_block, cfg)
     for i in range(cfg.encoder_layers):
-        x, _ = dense_block(layer(params["encoder"], i), x, cfg,
-                           positions=positions, impl=impl, causal=False)
+        x, _ = dense(layer(params["encoder"], i), x, cfg,
+                     positions=positions, impl=impl, causal=False)
     return rms_norm(x, params["enc_norm"])
 
 

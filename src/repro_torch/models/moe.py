@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamSpec, p_
+from repro_torch.models.layers import ParamSpec, p_, wide
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -54,9 +54,10 @@ def _dispatch_groups(cfg: ModelConfig, t: int) -> int:
 
 
 def route(p, xf: torch.Tensor, cfg: ModelConfig):
-    """Router probabilities (T, E) in float32 — the product in the model
-    dtype, then cast, as the reference — and the top-k (weights, experts)."""
-    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)
+    """Router probabilities (T, E) in float32 (float64 in a float64 model)
+    — the product in the model dtype, then cast, as the reference — and the
+    top-k (weights, experts)."""
+    probs = torch.softmax(wide(xf @ p["router"]), dim=-1)
     top_w, top_e = torch.topk(probs, cfg.top_k, dim=-1)
     return probs, top_w, top_e
 

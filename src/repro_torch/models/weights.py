@@ -1,6 +1,7 @@
-"""Parameter trees from numpy: the port's own module (the reference has no
-counterpart), which carries a parameter or decode-cache tree of the JAX
-package across to the port.
+"""Parameter and train-state trees to and from numpy: the port's own module
+(the reference has no counterpart), which carries a parameter, decode-cache
+or train-state tree of the JAX package across to the port, and a train
+state to and from the checkpoint store.
 
 The reference's trees are nested dicts of arrays with the stacked
 ``layers`` axis first (two stacked axes for the hybrid's groups and the
@@ -8,7 +9,10 @@ VLM's super-blocks); the port's have the same keys and shapes, every
 family's (MLA's latent projections and whisper's encoder included).  bfloat16
 arrays (numpy's ``ml_dtypes.bfloat16``) keep their bits: they are viewed as
 16-bit integers and reinterpreted as ``torch.bfloat16``, so a bf16 model
-carries over exactly.
+carries over exactly.  Going out, ``state_to_numpy`` writes a bf16 leaf's
+16 bits as numpy ``'V2'`` (the card's machine has no ``ml_dtypes``): the
+checkpoint store saves it with the descr numpy writes for
+``ml_dtypes.bfloat16`` (``'<V2'``), so its file and hash are the reference's.
 """
 
 from __future__ import annotations
@@ -18,12 +22,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import is_bf16_bits
 from repro_torch.device import resolve_device
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.array(a)              # a writable copy: the cache is updated in place
-    if a.dtype.name == "bfloat16":
+    if is_bf16_bits(a.dtype):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
@@ -38,3 +43,31 @@ def params_from_numpy(tree, device="cuda") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def state_to_numpy(tree) -> Any:
+    """A tree of tensors (a train state: ``params``, ``m``, ``v``, ``step``
+    and ``ef``) as the same dict of host numpy arrays: bf16 leaves as their
+    bits in ``'V2'``, the rest in their own dtype.  Copies every leaf to the
+    host (a documented synchronisation)."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def state_from_numpy(tree, like) -> Any:
+    """The inverse of ``state_to_numpy`` (a checkpoint's numpy tree, the
+    port's or the reference's): each leaf a tensor on ``like``'s leaf's
+    device, ``'V2'`` and bfloat16 leaves read as ``torch.bfloat16``.  A
+    dtype or shape that differs from ``like``'s raises.  A reference state
+    with no ``like`` comes across by ``params_from_numpy``."""
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, like[k]) for k, v in tree.items()}
+    t = _tensor(tree, like.device)
+    if t.dtype != like.dtype or t.shape != like.shape:
+        raise ValueError(f"a leaf of {t.dtype} {tuple(t.shape)} does not "
+                         f"restore into {like.dtype} {tuple(like.shape)}")
+    return t

@@ -1201,3 +1201,91 @@ def test_forward_on_card_matches_cpu(cuda_device):
     got, _ = M.forward(card, {"tokens": tokens.to(cuda_device)}, cfg)
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+def test_kernel_wrappers_raise_under_grad_on_card(cuda_device):
+    """The kernels have no backward: under grad each wrapper raises on the
+    card as on the CPU, instead of returning a detached result."""
+    q = torch.randn(1, 2, 64, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    x = torch.randn(100, 8, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="covar_xtx has no backward"):
+        ops.covar_xtx(x)
+    codes = torch.zeros(100, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="seg_aggregate has no backward"):
+        ops.seg_aggregate(codes, x, 2)
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == 1
+
+
+def _train_setup(device, **kw):
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.train.step import TrainConfig, init_state
+
+    cfg = configs.get_smoke("internlm2-1.8b")
+    tcfg = TrainConfig(peak_lr=1e-2, warmup=2, total_steps=30, ce_chunk=8, **kw)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    host = init_state(cfg, tcfg, gen, "cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return tree.to(device)
+
+    pipe = TokenPipeline(PipelineConfig(4, 16, cfg.vocab, seed=0), cfg, device=device)
+    return cfg, tcfg, to(host), pipe
+
+
+@pytest.mark.parametrize("kw", [dict(attn_impl="dense"),
+                                dict(attn_impl="chunked", grad_accum=2),
+                                dict(attn_impl="chunked", compress_grads=True)])
+def test_train_step_on_card_matches_cpu(cuda_device, kw):
+    """A float32 smoke-config train step on the card against the same step
+    on the CPU, to 1e-4.  Adam's first step moves each parameter by about
+    ±lr: an element whose gradient sits within float noise of 0 (or of an
+    int8 rounding boundary) may move the other way, so parameters are held
+    to 1e-4 on all but 1% of a leaf and to 2·lr everywhere."""
+    from repro_torch.train.adamw import tree_leaves
+    from repro_torch.train.step import make_train_step
+
+    cfg, tcfg, card, pipe = _train_setup(cuda_device, **kw)
+    _, _, host, hpipe = _train_setup("cpu", **kw)
+    step = make_train_step(cfg.with_(remat=True), tcfg)
+    ops.reset_launches()
+    new, met = step(card, pipe.batch_at(0))
+    want, wmet = step(host, hpipe.batch_at(0))
+    assert sum(ops.LAUNCHES.values()) == 0
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(met[k].cpu(), wmet[k], rtol=1e-4, atol=0)
+    lr = float(wmet["lr"])
+    for g, w in zip(tree_leaves(new["m"]) + tree_leaves(new["v"]),
+                    tree_leaves(want["m"]) + tree_leaves(want["v"])):
+        off = (g.cpu() - w).abs() > 1e-4 * (w.abs() + w.abs().max())
+        assert float(off.float().mean()) <= 0.01
+    for g, w in zip(tree_leaves(new["params"]), tree_leaves(want["params"])):
+        d = (g.cpu() - w).abs()
+        assert float(d.max()) <= 2 * lr * (1 + 1e-5)
+        assert float((d > 1e-4 * (lr + w.abs())).float().mean()) <= 0.01
+
+
+def test_warm_train_step_syncs_nothing(cuda_device):
+    """After a first step, a dense train step (pipeline batch, forward,
+    backward, AdamW, schedule) runs under sync-debug "error"; the loss is
+    read after."""
+    from repro_torch.train.step import make_train_step
+
+    cfg, tcfg, state, pipe = _train_setup(cuda_device, attn_impl="dense")
+    step = make_train_step(cfg, tcfg)
+    state, _ = step(state, pipe.batch_at(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in (1, 2):
+            state, met = step(state, pipe.batch_at(i))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(met["loss"])) and int(state["step"]) == 3

@@ -116,12 +116,13 @@ def test_example_matches_reference(name, scale):
 
 
 def test_examples_smoke_loads_no_jax():
-    """tools/torch_examples_smoke.py in a fresh process: all five examples
-    run, and neither ``jax`` nor any ``repro.`` module is loaded after."""
+    """tools/torch_examples_smoke.py in a fresh process: all five engine
+    examples and the two LM examples run, and neither ``jax`` nor any
+    ``repro.`` module is loaded after."""
     env = {**os.environ, "EXAMPLES_SCALE": SCALE,
            "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_examples_smoke.py"),
                         "--device", "cpu"], capture_output=True, text=True,
                        env=env, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    assert "examples smoke: all 5 passed" in r.stdout
+    assert "examples smoke: all 7 passed" in r.stdout

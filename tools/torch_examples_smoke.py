@@ -1,11 +1,13 @@
-"""Smoke run of the port's engine examples; counterpart of
+"""Smoke run of the port's examples; counterpart of
 ``tools/examples_smoke.py``.
 
     PYTHONPATH=src python tools/torch_examples_smoke.py                   # the card
     PYTHONPATH=src EXAMPLES_SCALE=0.02 python tools/torch_examples_smoke.py --device cpu
 
 Runs every ``examples/torch_*.py`` engine example in-process, at
-``EXAMPLES_SCALE`` (0.02 unless set), and fails if any raises, or if
+``EXAMPLES_SCALE`` (0.02 unless set), then the LM examples
+(``torch_train_lm.py --quick`` with its checkpoints in a fresh directory
+under ``build/``, and ``torch_serve_lm.py``), and fails if any raises, or if
 ``jax`` or any ``repro.`` module is loaded once they have run: the port
 imports neither.  The port has no deprecated entry points, so there is no
 warning to trap as the reference's smoke does.
@@ -14,6 +16,7 @@ warning to trap as the reference's smoke does.
 import argparse
 import os
 import runpy
+import shutil
 import sys
 import time
 import traceback
@@ -26,6 +29,13 @@ ENGINE_EXAMPLES = [
     "torch_decision_tree.py",
     "torch_chow_liu_cubes.py",
     "torch_streaming_ridge.py",
+]
+
+#: the LM examples and their arguments besides ``--device``
+LM_CKPT = os.path.join(REPO, "build", "torch_examples_smoke_ckpt")
+LM_EXAMPLES = [
+    ("torch_train_lm.py", ["--quick", "--ckpt-dir", LM_CKPT]),
+    ("torch_serve_lm.py", []),
 ]
 
 
@@ -43,13 +53,16 @@ def main(argv=None) -> int:
     os.environ.setdefault("EXAMPLES_SCALE", "0.02")
     sys.path.insert(0, os.path.join(REPO, "src"))
     failed = []
-    for name in ENGINE_EXAMPLES:
+    shutil.rmtree(LM_CKPT, ignore_errors=True)      # train from step 0
+    runs = [(n, []) for n in ENGINE_EXAMPLES] + LM_EXAMPLES
+    for name, extra in runs:
         path = os.path.join(REPO, "examples", name)
         t0 = time.time()
         print(f"=== {name} (EXAMPLES_SCALE={os.environ['EXAMPLES_SCALE']}, "
               f"device={device})", flush=True)
         try:
-            runpy.run_path(path, run_name="torch_example")["main"](["--device", device])
+            runpy.run_path(path, run_name="torch_example")["main"](
+                ["--device", device] + extra)
             print(f"=== {name} OK [{time.time() - t0:.1f}s]", flush=True)
         except Exception:
             traceback.print_exc()
@@ -62,7 +75,7 @@ def main(argv=None) -> int:
     if failed:
         print(f"examples smoke: {len(failed)} failed: {', '.join(failed)}")
         return 1
-    print(f"examples smoke: all {len(ENGINE_EXAMPLES)} passed")
+    print(f"examples smoke: all {len(runs)} passed")
     return 0
 
 
