@@ -93,6 +93,23 @@ Phases, one JSON line each (``{"phase": ...}``):
                held across publishes (bitwise), a checkpoint taken while the
                writer runs and restored bitwise; a traced round whose chrome
                export (``build/serve_trace.json``) holds the engine's spans.
+ 13b. shard  — the engine's domain parallelism (``core/distributed.py``)
+               over the same tables, through the port's mesh
+               (``launch/mesh.py``): ``shard.w1``, world size 1 over NCCL in
+               this process — the fused covar batch against ``main.fused``'s
+               (88 launches, N, the float64 oracle; its run-to-run rounding
+               reported beside a bitwise comparison), one frontier-batched
+               tree level of 16 random masks against the unsharded level
+               and its float64 oracle, a sharded maintained covar with three
+               1% fact ticks, the steady ones under sync-debug "error" with
+               no runner built, each against an unsharded copy and the
+               float64 oracle of the post-tick join to 1e-4 of Σ|terms|;
+               ``shard.w2``, two ranks as processes on this card over gloo
+               (the arrays written once under ``build/`` and mapped by each
+               rank): the covar (rank 0 against the float64 oracle, N
+               exact, both ranks bitwise alike), three ticks against
+               ``shard.w1``'s, each rank's launches and walls (two ranks
+               share one card: no scaling figure).
  14. examples — the five engine examples of the port
                (``examples/torch_*.py``) in-process on the card at
                ``EXAMPLES_SCALE`` 10 (600,000 Favorita and Retailer fact
@@ -802,12 +819,15 @@ class FactJoin:
             yield e - s, col
 
 
-def oracle_covar(join, layout):
-    """float64 XᵀX of the gathered join, on the card."""
+def oracle_covar(join, layout, with_abs: bool = False):
+    """float64 XᵀX of the gathered join, on the card: ``(G, n)``, or ``(G,
+    n, A)`` with ``with_abs``, A = |X|ᵀ|X| from the same pass (Σ|terms| of
+    each entry)."""
     import torch
 
     p = layout.p
     G = torch.zeros((p, p), dtype=torch.float64, device="cuda")
+    A = torch.zeros_like(G) if with_abs else None
     for m, col in join.chunks():
         X = torch.zeros((m, p), dtype=torch.float64, device="cuda")
         X[:, 0] = 1.0
@@ -817,6 +837,11 @@ def oracle_covar(join, layout):
             X.scatter_(1, (layout.cat_offsets[a] + col(a).long())[:, None], 1.0)
         X[:, layout.label_idx] = col(layout.label).double()
         G += X.T @ X
+        if with_abs:
+            X.abs_()
+            A += X.T @ X
+    if with_abs:
+        return G.cpu().numpy(), float(join.n), A.cpu().numpy()
     return G.cpu().numpy(), float(join.n)
 
 
@@ -1760,13 +1785,17 @@ def moments_phase(ds, db, join, seed: int):
 
 def ivm_group(name: str) -> str:
     """A tick's device kernel by its work: the delta scans' reduction
-    (``seg_reduce``), the resident relation's compaction and append (the
-    keep mask's running sum, the destinations, the row moves), or the rest:
+    (``seg_reduce``), a sharded tick's routing of deletes and renumbering
+    by global row id (``searchsorted``), the resident relation's compaction
+    and append (the keep mask's running sum, the destinations, the row
+    moves), or the rest:
     the delta tuples' assembly, the payloads' products and gathers, the
     state fold."""
     g = kernel_group(name)
     if g != "other":
         return g
+    if "searchsorted" in name:
+        return "gid routing (searchsorted)"
     if any(k in name for k in ("Scan", "scan", "index_copy", "index_fill", "where")):
         return "compaction (cumsum, where, index_fill_, index_copy_)"
     return "other"
@@ -2480,6 +2509,338 @@ def serve_phase(ds, db, join, seed: int, card_line: str, rates):
     check(rst["n_admission_failures"] == 0, "serve: admission failures")
     del db2, wide_h, srv, by_cat, mb, views_at, orc, W, Wa
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- shard
+
+#: shard phases: 1% fact ticks of each maintained copy (the first warms the
+#: tick runner, the rest run under sync-debug "error" on NCCL)
+SHARD_TICKS = 3
+#: the 2-rank phase's process group timeout, s
+SHARD_W2_TIMEOUT = 600
+SHARD_W2_NOTE = "2 ranks share one card; gloo stages through the host"
+
+
+def terms_err(C, D, A) -> float:
+    """max |C − D| / Σ|terms| over the covar's entries."""
+    import numpy as np
+
+    return float((np.abs(C - D) / np.maximum(A, 1e-300)).max())
+
+
+def maintained_ticks(ds, db, updates, label: str, sync_free_from: int = 1,
+                     after=None):
+    """A maintained covar (every query rooted at the fact) over ``db``, its
+    init and one tick a update (ticks from ``sync_free_from`` on under
+    ``set_sync_debug_mode("error")``): host covars after init and after
+    each tick, tick walls, runner builds and fused_scan_block launches per
+    tick, the handle, and ``after(maintained batch)`` after init and each
+    tick, outside the walls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.ml.covar import assemble_covar, covar_queries
+
+    qs, layout = covar_queries(ds)
+    h = db.views(qs, maintain=True, roots={q.name: ds.fact for q in qs})
+    t0 = time.perf_counter()
+    out = h.run()
+    C0, N0 = assemble_covar({k: v.cpu().numpy() for k, v in out.items()}, layout)
+    init_s = time.perf_counter() - t0
+    mb = h.maintained
+    Cs, Ns, walls, builds, launches = [C0], [N0], [], [], []
+    seen = [after(mb)] if after else []
+    for i, upd in enumerate(updates):
+        before, built = ops.LAUNCHES["fused_scan_block"], mb.n_fold_traces
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i >= sync_free_from:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = h.apply(upd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        walls.append(time.perf_counter() - t0)
+        C, N = assemble_covar(host, layout)
+        Cs.append(C)
+        Ns.append(N)
+        builds.append(mb.n_fold_traces - built)
+        launches.append(ops.LAUNCHES["fused_scan_block"] - before)
+        if after:
+            seen.append(after(mb))
+    check(all(np.isfinite(C).all() for C in Cs), f"{label}: a covar is not finite")
+    return dict(C=Cs, N=Ns, init_s=init_s, walls=walls, builds=builds,
+                launches=launches, layout=layout, handle=h, after=seen)
+
+
+def shard_w1_phase(ds, db, ref, seed: int, card_line: str):
+    """World size 1 over NCCL in this process, through the port's mesh
+    (``launch/mesh.py``, a ``HashStore``): the fused covar batch against
+    ``main.fused``'s (its launches, N, the float64 oracle); one
+    frontier-batched tree level of ``TREE_NODES`` random masks against
+    the unsharded level and its float64 oracle; a sharded maintained copy
+    with ``SHARD_TICKS`` 1% fact ticks, the steady ones under sync-debug
+    "error" with no runner built, each held against an unsharded copy and
+    the float64 oracle of the post-tick join to 1e-4 of Σ|terms|.
+    Returns what ``shard.w2`` is held against."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.ml.covar import compute_covar
+    from repro_torch.ml.trees import DecisionTree, split_stats, stack_mask_params
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        sdb = db.with_config(mesh=mesh)
+
+        # (a) the fused covar batch, cold then warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        C, N, layout, batch = compute_covar(ds, database=sdb)
+        cold = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C2, N2, _, _ = compute_covar(ds, database=sdb)
+        warm = time.perf_counter() - t0
+        err_main = scaled_err(C, ref["C"])
+        err_oracle = scaled_err(C, ref["G"])
+        bitwise = bool(np.array_equal(C, ref["C"]))
+        rerun_bitwise = bool(np.array_equal(C, C2))
+
+        # (b) one frontier-batched tree level, sharded and not
+        rng = np.random.default_rng(seed)
+        dt_s = DecisionTree(ds, database=sdb)
+        dt_l = DecisionTree(ds, database=db)
+        masks = [{f.attr: (rng.random(f.domain) < 0.7).astype(np.float32)
+                  for f in dt_s.features} for _ in range(TREE_NODES)]
+        params = stack_mask_params(dt_s.features, masks)
+        dt_l.view.run_batched(params)                  # warm both
+        dt_s.view.run_batched(params)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_s = split_stats(dt_s.view.run_batched(params), dt_s.features)
+        tree_s = time.perf_counter() - t0
+        tree_launches = ops.LAUNCHES["fused_scan_block"]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st_l = split_stats(dt_l.view.run_batched(params), dt_l.features)
+        tree_l = time.perf_counter() - t0
+        tree_launches_l = ops.LAUNCHES["fused_scan_block"]
+        join = FactJoin(db.data)
+        orc = oracle_level(join, dt_s.features, ds.label, masks)
+        worst_tree, worst_pair = 0.0, 0.0
+        for f in dt_s.features:
+            o, sc = orc[f.attr]
+            worst_tree = max(worst_tree, float((np.abs(st_s[f.attr] - o)
+                                                / np.maximum(sc, 1e-300)).max()))
+            worst_pair = max(worst_pair, float((np.abs(st_s[f.attr] - st_l[f.attr])
+                                                / np.maximum(sc, 1e-300)).max()))
+        tree_summary = dt_s.view.explain().summary()
+        tree_profiles = {"sharded": device_breakdown(lambda: dt_s.view.run_batched(params)),
+                         "local": device_breakdown(lambda: dt_l.view.run_batched(params))}
+        del dt_s, dt_l, orc, join
+
+        # (c) a sharded maintained copy and an unsharded one, tick for tick
+        updates = fact_updates(ds, seed + 7, SHARD_TICKS)
+        ops.reset_launches()
+        # after init and each tick: the float64 oracle of the join over the
+        # sharded copy's fact, gathered (and its row count)
+        sh = maintained_ticks(ds, sdb, updates, "shard.w1", after=lambda mb: (
+            oracle_covar(FactJoin(mb.db), layout, with_abs=True),
+            mb.epoch_state().relations[ds.fact].n_valid))
+        ivm_launches = dict(ops.LAUNCHES)
+        lo = maintained_ticks(ds, db, updates, "shard.w1.local")
+        msh = sh["handle"].maintained
+        topology = msh.shard_topology()
+        ivm_summary = sh["handle"].explain().summary()
+        # one more tick of each copy, profiled (not held: the checks above
+        # cover the three)
+        extra = fact_updates(ds, seed + 8, 1)[0]
+        tick_profiles = {"sharded": device_breakdown(lambda: sh["handle"].apply(extra),
+                                                     classify=ivm_group),
+                         "local": device_breakdown(lambda: lo["handle"].apply(extra),
+                                                   classify=ivm_group)}
+        orcs = [o for o, _ in sh["after"]]
+        rows = [r for _, r in sh["after"]]
+        vs_local = [terms_err(a, b, o[2]) for a, b, o in zip(sh["C"], lo["C"], orcs)]
+        vs_oracle = [terms_err(a, o[0], o[2]) for a, o in zip(sh["C"], orcs)]
+        local_vs_oracle = [terms_err(b, o[0], o[2]) for b, o in zip(lo["C"], orcs)]
+        del sh["handle"], lo["handle"], msh
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    emit("shard.w1", card=card_line, world_size=1, backend="nccl",
+         covar_cold_s=cold, covar_warm_s=warm, main_fused_warm_s=ref["warm_s"],
+         launches=launches, main_fused_launches=ref["launches"], N=N,
+         covar_vs_main_fused=err_main, covar_bitwise_main_fused=bitwise,
+         covar_bitwise_rerun=rerun_bitwise, covar_vs_oracle=err_oracle,
+         tree_nodes=TREE_NODES, tree_level_s=tree_s, tree_level_local_s=tree_l,
+         tree_launches=tree_launches, tree_launches_local=tree_launches_l,
+         tree_vs_oracle=worst_tree, tree_vs_local=worst_pair,
+         ivm_init_s=sh["init_s"], ivm_local_init_s=lo["init_s"],
+         tick_walls_s=sh["walls"], local_tick_walls_s=lo["walls"],
+         runner_builds_per_tick=sh["builds"], launches_per_tick=sh["launches"],
+         ivm_launches=ivm_launches, ticks_vs_local_terms=vs_local,
+         ticks_vs_oracle_terms=vs_oracle, local_ticks_vs_oracle_terms=local_vs_oracle,
+         fact_rows=rows, N_ticks=sh["N"], topology=topology,
+         summary=ivm_summary, tree_summary=tree_summary, tol=COVAR_TOL,
+         stat_tol=STAT_TOL, phase_s=time.perf_counter() - t_phase)
+    emit("shard.w1.tree.profile", **tree_profiles)
+    emit("shard.w1.tick.profile", **tick_profiles)
+    check(launches["fused_scan_block"] == ref["launches"],
+          f"shard.w1: sharded covar launched fused_scan_block {launches['fused_scan_block']} "
+          f"times, main.fused {ref['launches']}")
+    check(N == ref["N"] and N2 == N, f"shard.w1: N={N} (rerun {N2}), main.fused {ref['N']}")
+    check(err_main <= COVAR_TOL, f"shard.w1: covar vs main.fused {err_main:.3e} > {COVAR_TOL}")
+    check(err_oracle <= COVAR_TOL, f"shard.w1: covar vs oracle {err_oracle:.3e} > {COVAR_TOL}")
+    check(worst_tree <= STAT_TOL and worst_pair <= STAT_TOL,
+          f"shard.w1: tree level vs oracle {worst_tree:.3e}, vs unsharded {worst_pair:.3e} "
+          f"of Σ|terms| > {STAT_TOL}")
+    check(tree_launches == tree_launches_l > 0,
+          f"shard.w1: tree level launches {tree_launches}, unsharded {tree_launches_l}")
+    check(sh["builds"][0] == 1 and sum(sh["builds"][1:]) == 0,
+          f"shard.w1: tick runner builds {sh['builds']}")
+    check(max(vs_local) <= COVAR_TOL and max(vs_oracle) <= COVAR_TOL,
+          f"shard.w1: ticks vs the unsharded copy {vs_local}, vs the oracle "
+          f"{vs_oracle} of Σ|terms| > {COVAR_TOL}")
+    check(all(o[1] == r and n == float(np.float32(r))
+              for o, r, n in zip(orcs, rows, sh["N"])),
+          f"shard.w1: N {sh['N']}, oracle rows {[o[1] for o in orcs]}, rows {rows}")
+    check(topology["n_devices"] == 1 and topology["shard_rel"] == ds.fact,
+          f"shard.w1: topology {topology}")
+    return dict(tick_C=sh["C"], tick_A=[o[2] for o in orcs], tick_N=sh["N"])
+
+
+def shard_w2_rank(rank, world, root, init_file, seed):
+    """One rank of ``shard.w2``: the Retailer arrays mapped from ``root``,
+    the session on the card under a 2-rank mesh over gloo, the fused covar
+    and ``SHARD_TICKS`` ticks of a sharded maintained copy; results to
+    ``root/rank<r>.npz``."""
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=SHARD_W2_TIMEOUT))
+    try:
+        from repro_torch.api import ExecutionConfig, connect
+        from repro_torch.data.datasets import Dataset
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.ml.covar import compute_covar
+
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "dataset.pkl"), "rb") as f:
+            meta, block_size = pickle.load(f)
+        tables = {rel: {a: np.load(os.path.join(root, f"{rel}.{a}.npy"), mmap_mode="r")
+                        for a in attrs} for rel, attrs in meta.pop("attrs").items()}
+        ds = Dataset(tables=tables, **meta)
+        mesh = make_host_mesh(n_data=world, device_type="cuda")
+        db = connect(ds, config=ExecutionConfig(block_size=block_size, mesh=mesh))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        C, N, _, _ = compute_covar(ds, database=db)
+        covar_cold = time.perf_counter() - t0
+        launches = ops.LAUNCHES["fused_scan_block"]
+        t0 = time.perf_counter()
+        compute_covar(ds, database=db)
+        covar_warm = time.perf_counter() - t0
+        updates = fact_updates(ds, seed + 7, SHARD_TICKS)
+        res = maintained_ticks(ds, db, updates, f"shard.w2 rank {rank}",
+                               sync_free_from=SHARD_TICKS)
+        np.savez(os.path.join(root, f"rank{rank}.npz"), C=C, N=N, launches=launches,
+                 tick_C=np.stack(res["C"]), tick_N=np.asarray(res["N"]),
+                 walls=np.asarray([load_s, covar_cold, covar_warm, res["init_s"]]),
+                 tick_walls=np.asarray(res["walls"]), builds=np.asarray(res["builds"]),
+                 tick_launches=np.asarray(res["launches"]))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_w2_phase(ds, db, ref, w1, seed: int, card_line: str):
+    """Two ranks as processes on this card over gloo (``torch.multiprocessing``,
+    a ``file://`` store under ``build/``): the Retailer arrays written once
+    under ``build/`` and mapped by each rank; each runs the fused covar and
+    ``SHARD_TICKS`` ticks.  Rank 0's covar against the main float64 oracle
+    (N exact), every rank's ticks against ``shard.w1``'s to 1e-4 of
+    Σ|terms|.  A rank's failure fails the phase."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "shard_w2")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    for rel, cols in ds.tables.items():
+        for a, c in cols.items():
+            np.save(os.path.join(root, f"{rel}.{a}.npy"), np.asarray(c))
+    meta = dict(name=ds.name, schema=ds.schema, edges=ds.edges,
+                features_cont=ds.features_cont, features_cat=ds.features_cat,
+                label=ds.label, fact=ds.fact,
+                attrs={rel: list(cols) for rel, cols in ds.tables.items()})
+    with open(os.path.join(root, "dataset.pkl"), "wb") as f:
+        pickle.dump((meta, db.config.block_size), f)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(shard_w2_rank, args=(2, root, os.path.join(root, "pg_store"), seed),
+                           nprocs=2, start_method="spawn")
+    except Exception as e:                     # a rank failed: the phase fails
+        raise CheckFailed(f"shard.w2: a rank failed: {e}") from e
+    ranks_s = time.perf_counter() - t0
+    res = [dict(np.load(os.path.join(root, f"rank{r}.npz"))) for r in range(2)]
+    shutil.rmtree(root, ignore_errors=True)
+    G, n_o = ref["G"], ref["n"]
+    err_oracle = scaled_err(res[0]["C"], G)
+    ticks_vs_w1 = [[terms_err(c, w, a) for c, w, a in
+                    zip(r["tick_C"], w1["tick_C"], w1["tick_A"])] for r in res]
+    ranks_equal = bool(np.array_equal(res[0]["C"], res[1]["C"]))
+    walls = {f"rank{r}": dict(zip(("load_s", "covar_cold_s", "covar_warm_s", "ivm_init_s"),
+                                  map(float, x["walls"])),
+                              tick_walls_s=x["tick_walls"].tolist())
+             for r, x in enumerate(res)}
+    emit("shard.w2", card=card_line, world_size=2, backend="gloo", note=SHARD_W2_NOTE,
+         write_s=write_s, ranks_s=ranks_s, walls=walls,
+         fused_scan_block_per_rank=[int(x["launches"]) for x in res],
+         main_fused_launches=ref["launches"],
+         tick_launches_per_rank=[x["tick_launches"].tolist() for x in res],
+         runner_builds_per_rank=[x["builds"].tolist() for x in res],
+         N=float(res[0]["N"]), N_oracle=n_o, covar_vs_oracle=err_oracle,
+         covar_ranks_bitwise=ranks_equal, ticks_vs_w1_terms=ticks_vs_w1, tol=COVAR_TOL,
+         phase_s=time.perf_counter() - t_phase)
+    check(float(res[0]["N"]) == n_o, f"shard.w2: N={res[0]['N']}, oracle {n_o}")
+    check(err_oracle <= COVAR_TOL, f"shard.w2: rank 0 covar vs oracle {err_oracle:.3e}")
+    check(ranks_equal, "shard.w2: the ranks' covars differ (an all-reduce gives every "
+          "rank the same sum)")
+    check(max(max(t) for t in ticks_vs_w1) <= COVAR_TOL,
+          f"shard.w2: ticks vs shard.w1 {ticks_vs_w1} of Σ|terms| > {COVAR_TOL}")
+    check(all((x["tick_N"] == w1["tick_N"]).all() for x in res),
+          f"shard.w2: tick N {[x['tick_N'].tolist() for x in res]} vs w1 {w1['tick_N']}")
+    check(all(0 < int(x["launches"]) < ref["launches"] for x in res),
+          f"shard.w2: launches a rank {[int(x['launches']) for x in res]}")
 
 
 # ---------------------------------------------------------------- LM
@@ -3969,6 +4330,7 @@ def main() -> int:
     # cuBLAS's workspace for deterministic products (lm.train's resumed
     # run): PyTorch's own default on sm_90, set before cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -4023,6 +4385,9 @@ def main() -> int:
 
         # 5. the gathered-XᵀX covar path, against the main phase's oracle
         launches["covar_xtx"] = fused_covar_phase(ds, db, orc)
+        shard_ref = dict(C=orc["C"], G=orc["G"], n=orc["n"], warm_s=orc["warm_s"],
+                         N=float(np.float32(orc["n"])),
+                         launches=launches["fused_scan_block"])
         del orc
 
         # 6.-7. the tree path: a decision tree fused and unfused, a forest
@@ -4041,6 +4406,12 @@ def main() -> int:
 
         # 13. ad-hoc query serving over the same resident tables
         serve_phase(ds, db, join, args.seed, card_line, rates)
+
+        # 13b. domain parallelism: world size 1 over NCCL here, then two
+        # ranks over gloo as processes on the same card
+        w1 = shard_w1_phase(ds, db, shard_ref, args.seed, card_line)
+        shard_w2_phase(ds, db, shard_ref, w1, args.seed, card_line)
+        del w1, shard_ref
 
         # 14. the engine examples, after freeing Retailer
         del ds, db, join

@@ -9,13 +9,14 @@ The checks are copies of the reference's, identical apart from imports:
 alone, ``verify_delta_program`` a maintenance plan's first-order
 soundness, and ``verify_secondary_program`` gates a routed
 re-aggregation; each raises a structured :class:`PlanInvariantError`
-naming the violated rule.  Two are the port's own, for one device:
-``verify_tick_program`` makes the reference's checks of an unsharded tick
-under its rule ids, less those of mesh fields the port's tick does not
-have (a partitioned step psums its views before the fold: that waits for
-sharding), and ``verify_resident`` checks the port's
-:class:`ResidentRelation`, whose live rows ``[0, n_valid)`` are counted
-on the host, with the reference's rule id and check count.
+naming the violated rule.  ``verify_tick_program`` makes the reference's
+checks one for one, the mesh checks included (a partitioned step
+all-reduces its views before the fold: psum-before-fold).
+``verify_resident`` is the port's own: it checks a
+:class:`ResidentRelation`, whose live rows ``[0, n_valid)`` are counted on
+the host, with the reference's rule id and check count, and a rank's
+:class:`ShardedResidentRelation` with the reference's sharded checks as
+they apply to one shard.
 
 Enablement: ``verification_enabled(flag)`` — an explicit ``True``/``False``
 (from ``ExecutionConfig.verify_plans`` / ``PlanConfig.verify_plans``) wins;
@@ -442,32 +443,51 @@ def verify_delta_program(plan, dp) -> VerificationReport:
 
 
 def verify_tick_program(tp, dp) -> VerificationReport:
-    """Verify a single-device tick program against its delta program: the
-    same steps in the same order, signed weights exactly on the update's
-    own delta-tuple scan, and a fold over exactly the affected views.
-    These are the reference's checks of an unsharded tick, under its rule
-    ids, less the ones that read its mesh fields (a partitioned relation
-    with its axis, each step's ``partitioned`` flag and ``psum_vids``):
-    the port's tick has no such fields until views are sharded.  The
-    port's steps carry no separate ``weighted`` flag — the runner weights
-    a step where it ``scans_delta`` — so the weight check reads that."""
+    """Verify a tick program against its delta program: the same steps in
+    the same order, weights applied exactly on the delta-tuple scan, a
+    fold over exactly the affected views, and — the sharding soundness
+    rule — every step that scans partitioned rows all-reduces *all* of its
+    view deltas before any later gather or the state fold, while no other
+    step all-reduces at all.  The reference's checks, one for one, under
+    its rule ids; an unsharded tick passes the mesh checks trivially."""
     ctx = _Ctx()
-    where = f"tick Δ{tp.rel}"
+    where = (f"tick Δ{tp.rel}" if tp.shard_rel is None
+             else f"tick Δ{tp.rel} (shard {tp.shard_rel}@{tp.axis})")
     ctx.check(tp.rel == dp.rel, PSUM_BEFORE_FOLD, where,
               f"tick targets {tp.rel!r} but the delta program maintains "
               f"{dp.rel!r}")
+    ctx.check((tp.shard_rel is None) == (tp.axis is None), PSUM_BEFORE_FOLD,
+              where, "partitioned relation and mesh axis must be set "
+              "together")
     ctx.check(len(tp.steps) == len(dp.steps), PSUM_BEFORE_FOLD, where,
               f"{len(tp.steps)} tick steps for {len(dp.steps)} delta steps")
     for i, (ts, st) in enumerate(zip(tp.steps, dp.steps)):
         sart = f"{where} step {i} ({ts.rel})"
-        ctx.check(ts.scans_delta == (ts.rel == tp.rel), WEIGHT_COMPAT, sart,
-                  f"scans_delta={ts.scans_delta} on a step over {ts.rel!r} "
-                  f"in a tick of {tp.rel!r} — signed ±1 update weights must "
-                  "be folded into the validity mask exactly on the "
-                  "delta-tuple scan")
         ctx.check(ts.prog is st.prog and ts.rel == st.rel
                   and ts.scans_delta == st.scans_delta, PSUM_BEFORE_FOLD,
                   sart, "tick step diverges from its delta step")
+        ctx.check(ts.weighted == ts.scans_delta, WEIGHT_COMPAT, sart,
+                  f"weighted={ts.weighted} on a "
+                  f"{'delta' if ts.scans_delta else 'base-rescan'} step — "
+                  "signed ±1 update weights must be folded into the "
+                  "validity mask exactly on the delta-tuple scan")
+        partitioned = tp.shard_rel is not None and ts.rel == tp.shard_rel
+        ctx.check(ts.partitioned == partitioned, PSUM_BEFORE_FOLD, sart,
+                  f"partitioned={ts.partitioned} but the step scans "
+                  f"{ts.rel!r} and the sharded relation is "
+                  f"{tp.shard_rel!r}")
+        step_vids = tuple(vp.vid for vp in ts.prog.views)
+        if partitioned:
+            ctx.check(tuple(ts.psum_vids) == step_vids, PSUM_BEFORE_FOLD,
+                      sart, f"psums {tuple(ts.psum_vids)} != the step's "
+                      f"views {step_vids} — a later gather or the state "
+                      "fold would read partial per-shard deltas and the "
+                      "published epoch would stop being the same on every "
+                      "rank")
+        else:
+            ctx.check(not ts.psum_vids, PSUM_BEFORE_FOLD, sart,
+                      "an all-reduce after a replicated-row scan would "
+                      "multiply its delta by the rank count")
     ctx.check(tuple(tp.fold_vids) == tuple(sorted(dp.affected)),
               PSUM_BEFORE_FOLD, where,
               f"state fold covers {tuple(tp.fold_vids)} != affected views "
@@ -479,9 +499,13 @@ def verify_resident(rr) -> VerificationReport:
     """Verify a resident relation's capacity contract: pow2 capacity,
     uniform column buffers, ``0 ≤ n_valid ≤ capacity`` (the live rows
     ``[0, n_valid)`` lie within every buffer), a host row count, one
-    device.  Metadata only — never touches device values."""
+    device; for a rank's shard of a partitioned relation, the per-shard
+    upper bounds within the capacity and above the exact total, and a
+    0-d integral device count.  Metadata only — never touches device
+    values."""
     ctx = _Ctx()
-    art = f"resident {rr.name!r}"
+    sharded = hasattr(rr, "gids")
+    art = f"{'sharded ' if sharded else ''}resident {rr.name!r}"
     lens = {a: int(c.shape[0]) for a, c in rr.buffers.items()}
     ctx.check(len(rr.buffers) > 0, RESIDENT_CAPACITY, art,
               "no column buffers")
@@ -491,6 +515,34 @@ def verify_resident(rr) -> VerificationReport:
     ctx.check(cap >= 1 and (cap & (cap - 1)) == 0, RESIDENT_CAPACITY, art,
               f"capacity {cap} is not a power of two — growth doubling and "
               "pad-bucket runner caches assume pow2")
+    if sharded:
+        ndev = rr.n_devices
+        ctx.check(set(lens.values()) <= {cap}, RESIDENT_CAPACITY, art,
+                  f"column buffers {lens} are not the shard's capacity "
+                  f"{cap} (its global-id column's length)")
+        ctx.check(0 <= rr.n_valid <= cap * ndev, RESIDENT_CAPACITY, art,
+                  f"n_valid {rr.n_valid} outside [0, {cap * ndev}]")
+        ub = rr.n_valid_ub
+        ctx.check(tuple(ub.shape) == (ndev,), RESIDENT_CAPACITY, art,
+                  f"per-shard row bound shape {tuple(ub.shape)} != "
+                  f"({ndev},)")
+        ctx.check(int(ub.min()) >= 0 and int(ub.max()) <= cap,
+                  RESIDENT_CAPACITY, art,
+                  f"per-shard row bounds {ub.tolist()} escape [0, {cap}] — "
+                  "a scan or an insert would run past a shard's buffer")
+        ctx.check(rr.n_valid <= int(ub.sum()), RESIDENT_CAPACITY, art,
+                  f"exact count {rr.n_valid} exceeds the per-shard upper "
+                  f"bounds Σ{ub.tolist()}")
+        ctx.check(tuple(rr.n_valid_dev.shape) == (), RESIDENT_CAPACITY, art,
+                  "the shard's device row counter is not a scalar")
+        dt = rr.n_valid_dev.dtype
+        ctx.check(not dt.is_floating_point and not dt.is_complex
+                  and str(dt) != "torch.bool", RESIDENT_CAPACITY, art,
+                  f"device row counter dtype {dt} is not integral")
+        devices = {c.device for c in rr.buffers.values()} | {rr.gids.device}
+        ctx.check(len(devices) == 1, RESIDENT_CAPACITY, art,
+                  f"column buffers on {sorted(map(str, devices))}")
+        return ctx.report(art)
     ctx.check(0 <= rr.n_valid <= cap, RESIDENT_CAPACITY, art,
               f"n_valid {rr.n_valid} outside [0, {cap}]")
     ctx.check(isinstance(rr.n_valid, int) and not isinstance(rr.n_valid, bool),

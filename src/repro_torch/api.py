@@ -1,5 +1,5 @@
 """Session API of the port: one ``Database`` facade over the engine;
-counterpart of ``repro/api.py`` (no mesh).
+counterpart of ``repro/api.py``.
 
     import repro_torch
     db = repro_torch.connect(dataset)              # relations on the card
@@ -17,6 +17,14 @@ counterpart of ``repro/api.py`` (no mesh).
 
     r = db.route(query("q", ["locn"], [COUNT]))    # ad-hoc: exact, subsumed
     r.tier, r.value                                # or compiled and cached
+
+    mesh = launch.mesh.make_host_mesh(n_data=4)    # after init_process_group
+    sdb = db.with_config(mesh=mesh)                # domain-parallel: each
+    sdb.views(queries).run()                       # rank scans its shard
+
+Under a mesh the session is SPMD: every rank of the process group makes
+the same calls with the same updates, in the same order, and gets the same
+(replicated) results.
 
 Entry points run on the card unless the caller asks for the CPU
 (``connect(..., device="cpu")``): without a CUDA device and without that
@@ -85,6 +93,16 @@ class ExecutionConfig:
     pytest or when the ``REPRO_VERIFY`` env var is truthy;
     ``Database.views(debug=True)`` forces it on per batch.
 
+    Domain parallelism: ``mesh`` (a
+    :class:`torch.distributed.device_mesh.DeviceMesh`, e.g. from
+    ``launch/mesh.py``) partitions ``shard_rel`` (default: the largest
+    relation) row-wise over the ``mesh_axis`` axis: batch views run
+    ``CompiledBatch.run_sharded`` and maintained views keep the relation
+    as a :class:`~repro_torch.data.relations.ShardedResidentRelation`; the
+    views of every step over it are all-reduced on the axis's process
+    group.  The caller starts the process group; every rank makes the same
+    session calls.
+
     Routing: ``route_cache_capacity`` bounds the ad-hoc query router's LRU
     cache of serving-time compiled plans (``Database.query`` /
     ``Database.route``); 0 disables caching, so every routed miss is
@@ -98,6 +116,9 @@ class ExecutionConfig:
     fuse_kernels: bool = True
     autotune_cache: Optional[str] = None
     multi_root: bool = True
+    mesh: Optional[object] = None           # DeviceMesh
+    mesh_axis: str = "data"
+    shard_rel: Optional[str] = None
     max_pinned_epochs: Optional[int] = None
     warn_epoch_lag: Optional[int] = None
     workload_capacity: int = 4096
@@ -126,6 +147,9 @@ class ExecutionConfig:
                 or self.route_cache_capacity < 0):
             raise ValueError("route_cache_capacity must be an int >= 0 "
                              "(0 disables plan caching)")
+        if self.mesh is not None:
+            from repro_torch.core.distributed import check_axis
+            check_axis(self.mesh, self.mesh_axis)
 
     def replace(self, **overrides) -> "ExecutionConfig":
         """A copy with the given fields changed."""
@@ -175,6 +199,12 @@ class ViewReport:
     # session query-router stats: tier hit mix, cache occupancy, eviction
     # count — None until Database.query has routed something
     routing: Optional[Dict[str, object]] = None
+    # under a mesh: whether the views run sharded, and the shard topology
+    # (rank count, mesh axis, partitioned relation, per-shard row and
+    # capacity geometry, the all-reduces a tick (maintained) or a run
+    # (batch) issues); None without a mesh
+    sharded: bool = False
+    shard: Optional[Dict[str, object]] = None
 
     @staticmethod
     def _render_autotune(report: list) -> str:
@@ -196,9 +226,23 @@ class ViewReport:
         report carries, not on the mode label, so batch / maintained / served
         handles print consistently."""
         lines = [f"[{self.mode}] backend={self.backend}"
+                 f"{' sharded' if self.sharded else ''}"
                  + (f" dispatches={self.n_dispatches}"
                     if self.n_dispatches is not None else ""),
                  "  " + self.batch.summary()]
+        if self.shard is not None:
+            t = self.shard
+            geom = (f" rows/shard={t['rows_per_shard']}"
+                    f" cap/shard={t['capacity_per_shard']}"
+                    if "rows_per_shard" in t else "")
+            if "psums_per_tick" in t:
+                psums = " psums/tick={%s}" % ", ".join(
+                    f"{r}: {n}" for r, n in t["psums_per_tick"].items())
+            else:
+                psums = f" psums/run={t['psums_per_run']}"
+            lines.append(f"  shard: devices={t['n_devices']} "
+                         f"axis={t['mesh_axis']} rel={t['shard_rel']}"
+                         + geom + psums)
         if self.step is not None:
             lines.append(
                 "  ivm: epoch="
@@ -260,6 +304,8 @@ class ViewHandle:
         self._maintained = maintained
         self._server = None
         self._signatures = None         # lazy {name: QuerySignature}
+        # sharded runners by (axis, shard relation, node axis, sizes)
+        self._sharded: Dict[Tuple, object] = {}
 
     # -- workload recording --------------------------------------------------
 
@@ -318,6 +364,58 @@ class ViewHandle:
                 "db.views(queries, maintain=True) to get apply()/serve()")
         return self._maintained
 
+    # -- batch execution -----------------------------------------------------
+
+    def _shard_rel(self) -> str:
+        sizes = self._database.sizes()
+        rel = self.config.shard_rel or max(sorted(sizes),
+                                           key=lambda k: sizes[k])
+        if rel not in sizes:
+            raise ValueError(f"shard_rel {rel!r} is not a relation "
+                             f"(have: {sorted(sizes)})")
+        return rel
+
+    def _run_sharded(self, params: Optional[Params],
+                     n_nodes: Optional[int] = None):
+        """Mesh execution with the runner cached per (axis, shard relation,
+        padded node axis, relation sizes) — data every rank shares, so the
+        ranks build and run the same runners and issue the same
+        all-reduces in the same order.  The node axis pads to the next
+        power of two, as the local ``run_batched`` does, so a growing tree
+        frontier reuses at most log2 runners."""
+        from repro_torch.core.distributed import sharded_runner
+        from repro_torch.core.engine import _params_on
+
+        cfg = self.config
+        db = self._database.data
+        plan = self.compiled.plan
+        params = _params_on(params, db.device)
+        if plan.batched_params and n_nodes is None:
+            n_nodes = int(params[sorted(plan.batched_params)[0]].shape[0])
+        n_run = n_nodes
+        if n_nodes is not None:
+            n_run = 1 << (n_nodes - 1).bit_length()
+        if n_run != n_nodes:
+            for name in plan.batched_params:
+                v = params[name]
+                params[name] = torch.cat([v, v.new_zeros(
+                    (n_run - n_nodes,) + tuple(v.shape[1:]))])
+        shard_rel = self._shard_rel()
+        key = (cfg.mesh_axis, shard_rel, n_run,
+               tuple(sorted(db.sizes().items())))
+        if key not in self._sharded:
+            self._sharded[key] = sharded_runner(plan, db, cfg.mesh,
+                                                cfg.mesh_axis, shard_rel,
+                                                n_nodes=n_run)
+        run, cols = self._sharded[key]
+        self.compiled.n_dispatches += 1
+        out = run(cols, params)
+        if n_run != n_nodes:
+            outputs = self.compiled.result.outputs
+            out = {q: (v[:n_nodes] if outputs[q].vid in plan.batched_vids
+                       else v) for q, v in out.items()}
+        return out
+
     def run(self, params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
         """Evaluate the views and return ``{name: dense tensor}`` on the
         session's device.  Launches are asynchronous: reading a result
@@ -328,6 +426,10 @@ class ViewHandle:
         read the current epoch (no rescans — :meth:`apply` advances it)."""
         t0 = _time.perf_counter()
         mb = self._maintained
+        if mb is None and self.config.mesh is not None:
+            out = self._run_sharded(params)
+            self._record("run", "sharded_scan", t0)
+            return out
         if mb is None:
             out = self.compiled(self._database.data, params)
             self._record("run", "batch_scan", t0)
@@ -356,6 +458,14 @@ class ViewHandle:
             raise ValueError("maintained views do not support the "
                              "param-batch axis; register a batch view")
         t0 = _time.perf_counter()
+        if self.config.mesh is not None:
+            if not self.compiled.plan.batched_params:
+                raise ValueError("batch was compiled without batched "
+                                 "params; declare Param(..., batched=True) "
+                                 "terms first")
+            out = self._run_sharded(params, n_nodes=n_nodes)
+            self._record("run_batched", "sharded_scan", t0)
+            return out
         out = self.compiled.run_batched(self._database.data, params,
                                         n_nodes=n_nodes)
         self._record("run_batched", "batch_scan", t0)
@@ -426,7 +536,8 @@ class ViewHandle:
             mode="batch", backend=self.config.backend,
             batch=self.compiled.stats,
             n_dispatches=self.compiled.n_dispatches,
-            autotune=plan.last_autotune)
+            autotune=plan.last_autotune,
+            sharded=self.config.mesh is not None)
         mb = self._maintained
         if mb is not None:
             rep.mode = "served" if self._server is not None else "maintained"
@@ -441,8 +552,11 @@ class ViewHandle:
             # both resolutions, labeled: the delta lane does not shadow
             # the init full scan's
             rep.autotune_delta = plan.last_autotune_delta
+            rep.shard = mb.shard_topology()
             if self._server is not None:
                 rep.serving = self._server.stats()
+        elif self.config.mesh is not None:
+            rep.shard = self._shard_topology_batch()
         pieces = []
         if plan.last_verification is not None:
             pieces.append(plan.last_verification.summary())
@@ -452,6 +566,25 @@ class ViewHandle:
         rep.verification = "; ".join(pieces) if pieces else None
         rep.routing = self._database.routing_stats()
         return rep
+
+    def _shard_topology_batch(self) -> Dict[str, object]:
+        """Shard facts of a batch view under a mesh: the relation the next
+        ``run()`` partitions, its per-rank geometry, and the all-reduces one
+        sharded pass issues (one per view of every step over the
+        partitioned relation)."""
+        from repro_torch.core.distributed import axis_info, rows_per_shard
+
+        cfg = self.config
+        shard_rel = self._shard_rel()
+        ndev = axis_info(cfg.mesh, cfg.mesh_axis).size
+        n = self._database.sizes().get(shard_rel, 0)
+        return {"n_devices": ndev, "mesh_axis": cfg.mesh_axis,
+                "shard_rel": shard_rel, "rows": n,
+                "rows_per_shard": -(-n // ndev) if n else 0,
+                "capacity_per_shard": rows_per_shard(n, ndev),
+                "psums_per_run": sum(
+                    len(step.vids) for step in self.compiled.schedule.steps
+                    if step.rel == shard_rel)}
 
 
 class Database:
@@ -533,7 +666,8 @@ class Database:
         if maintain:
             mb = self._engine._compile_maintained(
                 queries, root_override=roots, warm_rels=warm_rels,
-                device=self.data.device, **kw)
+                device=self.data.device, mesh=cfg.mesh,
+                mesh_axis=cfg.mesh_axis, shard_rel=cfg.shard_rel, **kw)
             handle = ViewHandle(self, mb.batch, maintained=mb)
         else:
             handle = ViewHandle(self, self._engine._compile(

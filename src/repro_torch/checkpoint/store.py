@@ -132,9 +132,21 @@ def save_view_state(ckpt_dir: str, maintained, keep: int = 3,
                     epoch: Optional[int] = None) -> str:
     """Snapshot a ``MaintainedBatch`` (its update counter names the step).
     Epoch-atomic: ``snapshot_state`` resolves one epoch before anything is
-    written; pass a pinned ``epoch`` to checkpoint that exact version."""
+    written; pass a pinned ``epoch`` to checkpoint that exact version.
+
+    The store stays mesh-agnostic: a sharded batch's snapshot is already
+    placement-free, every rank takes it (it gathers), only the batch's
+    writer (``is_writer``: rank 0) writes it, and every rank returns after
+    the batch's ``checkpoint_barrier`` — so a restore that follows reads a
+    complete checkpoint on every rank."""
     tree = maintained.snapshot_state(epoch=epoch)
-    return save(ckpt_dir, int(tree["step"]), tree, keep=keep)
+    step = int(tree["step"])
+    if maintained.is_writer:
+        path = save(ckpt_dir, step, tree, keep=keep)
+    else:
+        path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    maintained.checkpoint_barrier()
+    return path
 
 
 def restore_view_state(ckpt_dir: str, maintained,

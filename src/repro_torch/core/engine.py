@@ -1,6 +1,5 @@
 """Engine internals: compile a batch of aggregate queries into an executable;
-counterpart of ``repro/core/engine.py`` (no deprecated ``compile`` shims,
-no mesh).
+counterpart of ``repro/core/engine.py`` (no deprecated ``compile`` shims).
 
 The public entry point is the session facade (``repro_torch.connect`` →
 ``Database.views``); this module is what it drives:
@@ -9,6 +8,7 @@ The public entry point is the session facade (``repro_torch.connect`` →
     batch = eng._compile(queries)             # layers 1-6
     results = batch(db)                       # {query name: dense tensor}
     results = batch.run_batched(db, params)   # N parameter settings at once
+    results = batch.run_sharded(db, mesh)     # one rank's shard, summed
     mb = eng._compile_maintained(queries)     # incrementally maintained
 """
 
@@ -154,6 +154,34 @@ class CompiledBatch:
                    for q, v in out.items()}
         return out
 
+    # -- domain-parallel (paper layer 7 over a mesh axis) --------------------
+
+    def run_sharded(self, db, mesh, axis: str = "data",
+                    shard_rel: Optional[str] = None,
+                    params: Optional[Params] = None,
+                    n_nodes: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Partition ``shard_rel`` (default: the largest relation — the
+        paper's choice) across the mesh axis; this rank runs the plan on
+        its row block and every view of a step over the partitioned
+        relation is all-reduced right after the step (LMFAO's merge of
+        per-thread results).  SPMD: every rank of the axis calls it; each
+        gets the whole result.
+
+        Batched plans shard too: ``n_nodes`` is read off the first batched
+        param when omitted, so a node frontier runs domain-parallel in one
+        pass."""
+        from repro_torch.core.distributed import sharded_runner
+
+        params = _params_on(params, db.device)
+        if self.plan.batched_params and n_nodes is None:
+            n_nodes = int(params[sorted(self.plan.batched_params)[0]].shape[0])
+        sizes = db.sizes()
+        shard_rel = shard_rel or max(sizes, key=lambda k: sizes[k])
+        run, cols = sharded_runner(self.plan, db, mesh, axis, shard_rel,
+                                   n_nodes=n_nodes)
+        self.n_dispatches += 1
+        return run(cols, params)
+
 
 def _params_on(params: Optional[Params], device) -> Dict[str, object]:
     """The params with every array (numpy or torch) on ``device`` (the
@@ -224,7 +252,8 @@ class Engine:
     def _compile_maintained(self, queries: Sequence[Query], *,
                             root_override: Optional[Dict[str, str]] = None,
                             warm_rels: Sequence[str] = (), device=None,
-                            **compile_kw):
+                            mesh=None, mesh_axis: str = "data",
+                            shard_rel: Optional[str] = None, **compile_kw):
         """Compile a query batch for incremental view maintenance (the
         reference's ``Engine._compile_incremental``): returns a
         :class:`~repro_torch.core.ivm.MaintainedBatch` whose ``init(db)``
@@ -233,6 +262,11 @@ class Engine:
         delta scans.  ``warm_rels`` builds those relations' delta programs
         now instead of at their first update; ``device`` is where a state
         restored before any ``init`` lies (the session's).
+
+        With a ``mesh`` the maintained state shards: ``shard_rel`` (default
+        the largest relation at init) partitions row-wise over
+        ``mesh_axis`` and every relation tick all-reduces the views of its
+        steps over that relation before the state fold.
 
         Rejects non-invertible (MIN/MAX-style) aggregates up front: signed
         multiplicities maintain SUM-like aggregates only."""
@@ -252,7 +286,8 @@ class Engine:
                                 "(maintain=False) instead")
         batch = self._compile(queries, root_override=root_override,
                               **compile_kw)
-        mb = MaintainedBatch(batch, device=device)
+        mb = MaintainedBatch(batch, device=device, mesh=mesh,
+                             mesh_axis=mesh_axis, shard_rel=shard_rel)
         for rel in warm_rels:
             mb.delta_program(rel)
         return mb

@@ -1,5 +1,5 @@
 """Incremental view maintenance: delta programs over the materialized view
-DAG; counterpart of ``repro/core/ivm.py`` (single device: no mesh path).
+DAG; counterpart of ``repro/core/ivm.py``.
 The static verifier checks every delta and tick program once, when it is
 built, and every resident relation at init, publish and restore, when
 ``verify_plans`` is on (``MaintainedBatch.last_verifications``).  The
@@ -39,6 +39,19 @@ buffer), and publishes the next epoch with one reference swap.  Readers
 batch publishes nothing.  A steady-state tick copies the update to the
 card once (pinned, asynchronous), runs a cached tick runner, and neither
 copies relation columns to the host nor waits for the card.
+
+With a ``mesh`` the batch is **sharded**: one relation (``shard_rel``,
+default the largest) lives row-partitioned over ``mesh_axis`` as a
+:class:`~repro_torch.data.relations.ShardedResidentRelation`, the rest
+whole on every rank.  SPMD: every rank applies the same updates in the
+same order.  Delta tuples of the sharded relation partition like its rows
+(inserts round-robin, deletes routed by global row id), every view of a
+step that scans partitioned rows is all-reduced over the axis right after
+the step — before any later gather or the state fold, so the published
+state is the same on every rank (psum-before-fold) — and compaction and
+append never leave their shard.  The no-sync steady tick is unchanged; the
+growth check's exact count is the one documented sync, and only when a
+shard's upper bound would overflow its capacity.
 """
 
 from __future__ import annotations
@@ -52,20 +65,24 @@ from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis.verify import (verification_enabled,
                                          verify_delta_program,
                                          verify_resident,
                                          verify_tick_program)
+from repro_torch.core import distributed as shd
 from repro_torch.core.engine import _params_on
 from repro_torch.core.groups import ViewGroup
 from repro_torch.core.ir import StepProgram, build_programs, fuse_programs
+from repro_torch.core.plan import all_reduce_views
 from repro_torch.core.pushdown import AggColSpec, ViewDef
 from repro_torch.core.schedule import build_schedule
 from repro_torch.core.schema import DatabaseSchema
 from repro_torch.data.relations import (Database, DeltaBatchUpdate, Relation,
-                                        ResidentRelation, _resident_advance,
-                                        check_delete_idx,
+                                        ResidentRelation,
+                                        ShardedResidentRelation,
+                                        _resident_advance, check_delete_idx,
                                         check_update_columns, next_pow2)
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import span
@@ -126,24 +143,58 @@ class DeltaProgram:
 
 
 @dataclasses.dataclass(frozen=True)
+class TickStep:
+    """One step of a tick, with its runtime obligations made declarative:
+    ``weighted`` steps fold the update's signed ±1 multiplicities into the
+    validity; ``partitioned`` steps scan row-partitioned buffers, so their
+    view deltas in ``psum_vids`` must be all-reduced over the mesh axis
+    *before* any later gather or the state fold reads them."""
+
+    prog: StepProgram
+    rel: str
+    scans_delta: bool
+    weighted: bool
+    partitioned: bool
+    psum_vids: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
 class TickProgram:
-    """The declarative form of one relation's tick: its steps (the
-    ``scans_delta`` ones fold the update's signed ±1 multiplicities into the
-    validity) and the vids the state fold covers."""
+    """The declarative form of one relation's tick: which steps apply
+    update weights, which all-reduce, and which vids the state fold
+    covers.  Both tick runners (local and sharded) execute exactly this
+    artifact, so psum-before-fold is data the verifier can check."""
 
     rel: str
-    steps: Tuple[DeltaStep, ...]
+    axis: Optional[str]             # mesh axis name (None = unsharded)
+    shard_rel: Optional[str]        # row-partitioned relation (None = local)
+    steps: Tuple[TickStep, ...]
     fold_vids: Tuple[int, ...]      # state entries the fold writes
 
     def summary(self) -> str:
+        n_psum = sum(len(ts.psum_vids) for ts in self.steps)
+        shard = f", {n_psum} psums @{self.axis}" if self.shard_rel else ""
         return (f"tick Δ{self.rel}: {len(self.steps)} steps, "
-                f"folds {len(self.fold_vids)} views")
+                f"folds {len(self.fold_vids)} views{shard}")
 
 
-def build_tick_program(dp: DeltaProgram) -> TickProgram:
-    """Lower a delta program to its tick form: weights ride exactly the
-    delta-tuple scans.  Pure."""
-    return TickProgram(rel=dp.rel, steps=dp.steps,
+def build_tick_program(dp: DeltaProgram, shard_rel: Optional[str] = None,
+                       axis: Optional[str] = None) -> TickProgram:
+    """Lower a delta program to its tick form under a placement: weights
+    ride exactly the delta-tuple scans, and under a mesh every step that
+    scans the partitioned relation (a delta scan of its partitioned delta
+    tuples, or a rescan of its partitioned rows) all-reduces all of its
+    view deltas immediately.  Pure — built and verified without a mesh."""
+    steps = []
+    for st in dp.steps:
+        partitioned = shard_rel is not None and st.rel == shard_rel
+        steps.append(TickStep(
+            prog=st.prog, rel=st.rel, scans_delta=st.scans_delta,
+            weighted=st.scans_delta, partitioned=partitioned,
+            psum_vids=(tuple(vp.vid for vp in st.prog.views)
+                       if partitioned else ())))
+    return TickProgram(rel=dp.rel, axis=axis, shard_rel=shard_rel,
+                       steps=tuple(steps),
                        fold_vids=tuple(sorted(dp.affected)))
 
 
@@ -286,9 +337,13 @@ class MaintainedBatch:
     batches pad to the next power of two with zero-weight rows and resident
     buffers grow by doubling, so a stream of varying batch sizes against
     growing relations builds at most log₂ runners per relation and a
-    steady-state tick builds none (``n_fold_traces`` counts the builds)."""
+    steady-state tick builds none (``n_fold_traces`` counts the builds).
 
-    def __init__(self, batch, device=None):
+    With a ``mesh`` the batch is sharded over ``mesh_axis`` (the module's
+    docstring): ``shard_rel`` is fixed at the first init or restore."""
+
+    def __init__(self, batch, device=None, mesh=None,
+                 mesh_axis: str = "data", shard_rel: Optional[str] = None):
         self.batch = batch
         self.plan = batch.plan
         if self.plan.batched_params:
@@ -297,6 +352,12 @@ class MaintainedBatch:
                 f"plans (batched params: {sorted(self.plan.batched_params)})")
         #: the device of the state; ``init`` takes the relations'
         self.device = None if device is None else torch.device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            shd.check_axis(mesh, mesh_axis)
+        self.shard_rel = shard_rel    # resolved at first init/load_state
+        self._ax: Optional[shd.AxisInfo] = None
         self._current: Optional[EpochState] = None
         #: delta scan steps executed across all applied updates
         self.n_delta_scan_steps = 0
@@ -363,28 +424,79 @@ class MaintainedBatch:
         columns are views of the resident buffers)."""
         return self._require().database(self.batch.schema)
 
+    def _axis(self) -> shd.AxisInfo:
+        """The mesh axis as this rank sees it (group, size, index)."""
+        if self._ax is None:
+            self._ax = shd.axis_info(self.mesh, self.mesh_axis)
+        return self._ax
+
+    def _resolve_shard_rel(self, sizes: Mapping[str, int]) -> str:
+        """Fix the partitioned relation (config override or the largest)
+        the first time state materializes; frozen afterwards so runner
+        caches and epochs agree."""
+        if self.shard_rel is None:
+            self.shard_rel = max(sorted(sizes), key=lambda r: sizes[r])
+        elif self.shard_rel not in sizes:
+            raise ValueError(f"shard_rel {self.shard_rel!r} is not a "
+                             f"relation (have: {sorted(sizes)})")
+        return self.shard_rel
+
+    def _make_resident(self, rel: Relation):
+        """Relation → resident form under the batch's placement: this
+        rank's shard of the partitioned relation, every other whole."""
+        if self.mesh is not None and rel.name == self.shard_rel:
+            return ShardedResidentRelation.from_relation(rel, self._axis())
+        return ResidentRelation.from_relation(rel)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints: always without a mesh,
+        global rank 0 under one (every rank holds the same state)."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    def checkpoint_barrier(self) -> None:
+        """Under a mesh, wait until every rank has reached this point (the
+        writer after its write): an ``all_reduce`` of one element on the
+        default group, read on the host — a documented sync of the
+        checkpoint path, never of a tick."""
+        if self.mesh is not None:
+            t = torch.zeros(1, device=self.device)
+            dist.all_reduce(t)
+            t.cpu()
+
     def init(self, db: Database, params=None) -> Dict[str, torch.Tensor]:
         """Full recompute: move every base relation into capacity-padded
         buffers and materialize every view, then publish the first epoch.
         Re-init on a live batch publishes a fresh epoch (the epoch clock
         keeps counting so pinned readers stay unambiguous).  Scans read
-        each relation's live rows only."""
+        each relation's live rows only; under a mesh the partitioned
+        relation's views are all-reduced right after their step."""
         with span("ivm.init"):
             self.device = db.device
-            rels = {name: ResidentRelation.from_relation(r)
+            if self.mesh is not None:
+                self._resolve_shard_rel(db.sizes())
+            rels = {name: self._make_resident(r)
                     for name, r in db.relations.items()}
             if self._verify:
                 for rr in rels.values():
                     verify_resident(rr)
-            run = self.plan.bind_arrays({name: rr.n_valid
-                                         for name, rr in rels.items()},
-                                        device=self.device)
-            views = dict(run({name: rr.columns() for name, rr in rels.items()},
-                             _params_on(params, self.device)))
+            views = self._full_scan(rels, _params_on(params, self.device))
             prev = self._current
             self._current = EpochState(epoch=prev.epoch + 1 if prev else 0,
                                        step=0, views=views, relations=rels)
         return self.results()
+
+    def _full_scan(self, rels: Mapping[str, object], params):
+        """Every view over the resident relations, this rank's shard of the
+        partitioned one included (freshly laid out: its scanned prefix is
+        exactly its live rows)."""
+        run = self.plan.bind_arrays(
+            {name: int(next(iter(rr.columns().values())).shape[0])
+             for name, rr in rels.items()}, device=self.device)
+        psum = ({self.shard_rel: self._axis().group}
+                if self.mesh is not None else None)
+        return dict(run({name: rr.columns() for name, rr in rels.items()},
+                        params, psum_groups=psum))
 
     def epoch_state(self, epoch: Optional[int] = None) -> EpochState:
         """Resolve an epoch to its state: the published epoch by default, or
@@ -486,7 +598,9 @@ class MaintainedBatch:
         artifact the tick runner executes."""
         if rel not in self._tick_programs:
             dp = self.delta_program(rel)
-            tp = build_tick_program(dp)
+            tp = (build_tick_program(dp) if self.mesh is None
+                  else build_tick_program(dp, shard_rel=self.shard_rel,
+                                          axis=self.mesh_axis))
             if self._verify:
                 self.last_verifications[f"tick Δ{rel}"] = \
                     verify_tick_program(tp, dp)
@@ -534,8 +648,12 @@ class MaintainedBatch:
             n_scans = 0
             for rel, ins, del_idx in prepared:
                 with span("ivm.tick", rel=rel):
-                    n_scans += self._apply_rel(views, rels, rel, ins, del_idx,
-                                               params)
+                    if self.mesh is not None and rel == self.shard_rel:
+                        n_scans += self._apply_rel_mesh(views, rels, rel, ins,
+                                                        del_idx, params)
+                    else:
+                        n_scans += self._apply_rel(views, rels, rel, ins,
+                                                   del_idx, params)
 
             # phase 3 — publish: one reference swap; capacity contracts
             # re-checked on the advanced relations first (host metadata)
@@ -599,7 +717,6 @@ class MaintainedBatch:
         if key in self._runners:
             return self._runners[key]
         self.n_fold_traces += 1
-        backend = self.plan.backend
         n_delta = ins_pad + del_pad
         tp = self.tick_program(dp.rel)
         step_cfgs = self.plan.resolve_delta_configs(
@@ -629,20 +746,8 @@ class MaintainedBatch:
                 w.append(-(torch.arange(del_pad, device=device) < n_del)
                          .to(torch.float32))
             weights = torch.cat(w) if len(w) > 1 else w[0]
-            # arrays doubles as state reads (unaffected children) and delta
-            # writes: a step's finalize overwrites its vid, so a later
-            # gather of an affected child reads its *delta*
-            arrays = dict(state)
-            for ts, cfg in zip(tp.steps, step_cfgs):
-                if ts.scans_delta:
-                    backend.run_step(ts.prog, delta_cols, arrays, p,
-                                     n_valid=n_delta, config=cfg,
-                                     weights=weights)
-                else:
-                    base = rels[ts.rel]
-                    backend.run_step(ts.prog, base.columns(), arrays, p,
-                                     n_valid=base.n_valid, config=cfg)
-            new_views = {vid: state[vid] + arrays[vid] for vid in tp.fold_vids}
+            new_views = self._scan_steps(tp, step_cfgs, state, delta_cols,
+                                         n_delta, weights, rels, p)
             bufs = _resident_advance(rr.buffers, rr.n_valid, ins, del_idx,
                                      n_ins, n_del, cap)
             return new_views, ResidentRelation(
@@ -651,10 +756,164 @@ class MaintainedBatch:
         self._runners[key] = run
         return run
 
+    def _scan_steps(self, tp: TickProgram, step_cfgs, state, delta_cols,
+                    n_delta: int, weights, rels, p):
+        """A tick's steps and its state fold, as ``tp`` declares them:
+        weighted steps scan the delta tuples, the rest rescan their base
+        relation (a sharded one: this rank's prefix against its device
+        count), and a partitioned step's view deltas are all-reduced
+        before anything downstream reads them (psum-before-fold)."""
+        backend = self.plan.backend
+        # arrays doubles as state reads (unaffected children) and delta
+        # writes: a step's finalize overwrites its vid, so a later gather
+        # of an affected child reads its *delta*
+        arrays = dict(state)
+        for ts, cfg in zip(tp.steps, step_cfgs):
+            if ts.scans_delta:
+                backend.run_step(ts.prog, delta_cols, arrays, p,
+                                 n_valid=n_delta, config=cfg,
+                                 weights=weights if ts.weighted else None)
+            else:
+                base = rels[ts.rel]
+                backend.run_step(ts.prog, base.columns(), arrays, p,
+                                 n_valid=base.scan_valid, config=cfg)
+            if ts.psum_vids:
+                all_reduce_views(arrays, ts.psum_vids, self._axis().group)
+        return {vid: state[vid] + arrays[vid] for vid in tp.fold_vids}
+
+    # -- sharded delta path ---------------------------------------------------
+
+    def _apply_rel_mesh(self, views: Dict[int, torch.Tensor],
+                        rels: Dict[str, object], rel: str, ins, del_idx,
+                        params) -> int:
+        """One tick of the partitioned relation: stage the update (this
+        rank's block of the round-robin insert layout; the sorted global
+        delete positions, replicated), grow every shard together when a
+        host upper bound would overflow its capacity (the one documented
+        sync), then run the cached sharded tick runner.  Returns the delta
+        scan steps it ran."""
+        ax = self._axis()
+        ndev = ax.size
+        rr = rels[rel]
+        n_ins = 0 if ins is None else len(next(iter(ins.values())))
+        n_del = 0 if del_idx is None else len(del_idx)
+        blk = next_pow2(-(-n_ins // ndev)) if n_ins else 0
+        ins_pad = blk * ndev
+        del_pad = next_pow2(n_del) if n_del else 0
+        ins_dev = {a: shd.put_strided(c, blk, ax, self.device)
+                   for a, c in (ins or {}).items()}
+        del_dev = (shd.put_replicated(
+            np.pad(np.sort(del_idx).astype(np.int64), (0, del_pad - n_del),
+                   constant_values=shd.GID_SENTINEL), self.device)
+            if n_del else None)
+        # every shard's insert block lands behind its survivors, inside its
+        # capacity: check the host bounds, and read the exact counts (a
+        # sync) only when a bound would overflow
+        if next_pow2(int(rr.n_valid_ub.max()) + blk) > rr.capacity:
+            rr = rr.synced()
+            rr = rr.grown(int(rr.n_valid_ub.max()) + blk)
+        shares = np.asarray([shd.local_insert_count(n_ins, s, ndev, blk)
+                             for s in range(ndev)], np.int64)
+        dp = self.delta_program(rel)
+        runner = self._tick_runner_mesh(dp, rr.capacity, ins_pad, del_pad,
+                                        rels, params)
+        new_views, rels[rel] = runner(
+            {vid: views[vid] for vid in dp.state_vids}, rr, rels, ins_dev,
+            del_dev, n_ins, n_del, shares, params)
+        views.update(new_views)
+        return dp.n_scans
+
+    def _tick_runner_mesh(self, dp: DeltaProgram, cap: int, ins_pad: int,
+                          del_pad: int, rels, params):
+        """The sharded counterpart of :meth:`_tick_runner`, for the
+        partitioned relation: assemble this rank's delta tuples (its insert
+        block, its rows the delete batch hits), run the delta scans and
+        all-reduce their views before the fold, and advance the shard
+        (compaction and append inside it).  No host sync: the shard's live
+        count and its deleted rows stay on the device.
+
+        Cache key: the local one's with the mesh's marker — relation, pad
+        buckets, capacities (the same on every rank), param names."""
+        ax = self._axis()
+        ndev, shard = ax.size, ax.index
+        base_caps = {r: rels[r].capacity for r in dp.base_rels}
+        key = ("mesh", dp.rel, cap, ins_pad, del_pad,
+               tuple(sorted(base_caps.items())), tuple(sorted(params)))
+        if key in self._runners:
+            return self._runners[key]
+        self.n_fold_traces += 1
+        blk = ins_pad // ndev
+        n_delta = blk + del_pad
+        tp = self.tick_program(dp.rel)
+        step_cfgs = self.plan.resolve_delta_configs(
+            dp.steps, [n_delta if st.scans_delta else base_caps[st.rel]
+                       for st in dp.steps], device=self.device)
+
+        def run(state, rr, rels, ins, dels, n_ins, n_del, shares, p):
+            n_scan = rr.n_scan
+            k_ins = int(shares[shard])
+            device = rr.gids.device
+            if del_pad:
+                live = torch.arange(n_scan, device=device) < rr.n_valid_dev
+                hit, slots, n_del_loc = shd.local_delete(
+                    rr.gids[:n_scan], live, dels, del_pad)
+            else:
+                hit = slots = None
+            if dp.steps:
+                delta_cols = {}
+                for a, buf in rr.buffers.items():
+                    segs = []
+                    if blk:
+                        segs.append(ins[a])
+                    if del_pad:
+                        segs.append(buf.index_select(0, slots))
+                    delta_cols[a] = (torch.cat(segs) if len(segs) > 1
+                                     else segs[0])
+                w = []
+                if blk:
+                    w.append((torch.arange(blk, device=device) < k_ins)
+                             .to(torch.float32))
+                if del_pad:
+                    w.append(-(torch.arange(del_pad, device=device)
+                               < n_del_loc).to(torch.float32))
+                weights = torch.cat(w) if len(w) > 1 else w[0]
+                new_views = self._scan_steps(tp, step_cfgs, state, delta_cols,
+                                             n_delta, weights, rels, p)
+            else:
+                new_views = {}
+            bufs, gids, nv = shd.local_advance(
+                rr.buffers, rr.gids, rr.n_valid_dev, n_scan, hit, dels, ins,
+                rr.n_valid - n_del, shard, ndev, blk, k_ins)
+            return new_views, dataclasses.replace(
+                rr, buffers=bufs, gids=gids,
+                n_valid=rr.n_valid - n_del + n_ins,
+                n_valid_ub=rr.n_valid_ub + shares, n_valid_dev=nv)
+
+        self._runners[key] = run
+        return run
+
     def shard_topology(self) -> Optional[Dict[str, object]]:
-        """Shard facts for the server's stats: ``None``, as the reference
-        gives when unsharded (the port maintains views on one device)."""
-        return None
+        """Shard facts for ``explain()`` and the server's stats: rank count,
+        the partitioned relation and its per-shard geometry, and the
+        all-reduces one tick of each relation issues.  ``None`` when
+        unsharded."""
+        if self.mesh is None:
+            return None
+        ndev = self._axis().size
+        top: Dict[str, object] = {
+            "n_devices": ndev, "mesh_axis": self.mesh_axis,
+            "shard_rel": self.shard_rel}
+        es = self._current
+        if es is not None and self.shard_rel in es.relations:
+            rr = es.relations[self.shard_rel]
+            top["rows"] = rr.n_valid
+            top["rows_per_shard"] = -(-rr.n_valid // ndev)
+            top["capacity_per_shard"] = rr.capacity
+        top["psums_per_tick"] = {
+            rel: sum(len(st.prog.views) for st in dp.steps
+                     if st.rel == self.shard_rel)
+            for rel, dp in sorted(self._delta_programs.items())}
+        return top
 
     # -- snapshots (checkpoint/store.py hooks) -------------------------------
 
@@ -669,22 +928,28 @@ class MaintainedBatch:
     def snapshot_state(self, epoch: Optional[int] = None):
         """Host tree of one epoch's full maintained state: epoch/update
         counters, every view tensor, and the base relations trimmed to their
-        valid rows.  Resolving the epoch up front makes the snapshot atomic
-        — a concurrent ``apply`` cannot tear it — and a pinned ``epoch``
-        checkpoints that exact version.  Copies to the host, and so waits
-        for the card: a snapshot is an export, not a tick."""
+        valid rows, in the oracle's row order.  Resolving the epoch up front
+        makes the snapshot atomic — a concurrent ``apply`` cannot tear it —
+        and a pinned ``epoch`` checkpoints that exact version.  Copies to
+        the host, and so waits for the card: a snapshot is an export, not a
+        tick.  Placement-free: a sharded relation is gathered (a collective:
+        under a mesh every rank takes the snapshot)."""
         es = self.epoch_state(epoch)
         return {"epoch": np.asarray(es.epoch, np.int64),
                 "step": np.asarray(es.step, np.int64),
                 "views": {f"v{vid:04d}": v.cpu().numpy()
                           for vid, v in sorted(es.views.items())},
                 "relations": {name: {a: c.cpu().numpy()
-                                     for a, c in rr.columns().items()}
+                                     for a, c in rr.to_relation()
+                                     .columns.items()}
                               for name, rr in es.relations.items()}}
 
     def load_state(self, tree) -> None:
         """Rebuild an epoch from a host snapshot (this package's or the
-        reference's: the layout is the same) on the batch's device."""
+        reference's: the layout is the same) on the batch's device.
+        Snapshots are placement-free, so one written by a single-device
+        batch restores into a sharded one and back: the relations become
+        resident under *this* batch's mesh."""
         if self.device is None:
             raise ValueError("the maintained batch has no device: open it "
                              "through a session (Database.views)")
@@ -692,8 +957,12 @@ class MaintainedBatch:
         def on(a):
             return torch.from_numpy(np.array(a)).to(self.device)
 
+        if self.mesh is not None:
+            self._resolve_shard_rel(
+                {name: int(np.asarray(next(iter(cols.values()))).shape[0])
+                 for name, cols in tree["relations"].items()})
         views = {int(k[1:]): on(v) for k, v in tree["views"].items()}
-        rels = {name: ResidentRelation.from_relation(
+        rels = {name: self._make_resident(
                     Relation(name, {a: on(c) for a, c in cols.items()}))
                 for name, cols in tree["relations"].items()}
         if self._verify:

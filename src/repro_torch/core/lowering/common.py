@@ -1,5 +1,5 @@
 """Lowering primitives over the group-program IR, in torch; counterpart of
-``repro/core/lowering/common.py`` (no offsets: the port shards nothing).
+``repro/core/lowering/common.py``.
 
 Payload construction — gathers of incoming views, term evaluation in the
 product's axis frame, marginalization of extra axes, validity masking — is
@@ -52,14 +52,23 @@ def block_columns(rel_cols: Cols, block_size: int,
     return cols_blocked, n_blocks, B, n_pad
 
 
-def block_validity(blk_i: int, B: int, n_valid: int, device: torch.device,
+def block_validity(blk_i: int, B: int, n_pad: int, n_valid, offset,
+                   device: torch.device,
                    weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B,) float mask of the block's rows below ``n_valid`` — zero on the
-    padded rows of the last block, whose codes are 0 and would otherwise
-    land in segment 0 — times the block's signed row ``weight`` if
-    given."""
+    """(B,) float mask of the block's rows inside both the local (possibly
+    padded) partition of ``n_pad`` rows and the global window ``[offset,
+    offset + n_valid)`` — zero on the padded rows past either, whose codes
+    are 0 and would otherwise land in segment 0 — times the block's signed
+    row ``weight`` if given.  ``n_valid`` is a host int or a 0-d device
+    tensor (a shard's own row count, which only the device knows after a
+    delete), so the mask is built without a sync either way."""
     row_idx = blk_i * B + torch.arange(B, device=device)
-    valid = (row_idx < n_valid).to(torch.float32)
+    limit = n_valid - offset
+    if isinstance(limit, torch.Tensor):
+        limit = limit.clamp(max=n_pad)
+    else:
+        limit = min(n_pad, limit)
+    valid = (row_idx < limit).to(torch.float32)
     return valid if weight is None else valid * weight
 
 

@@ -65,15 +65,17 @@ class TorchBackend:
 
     def run_step(self, prog: StepProgram, rel_cols: Mapping[str, torch.Tensor],
                  arrays: Dict[int, torch.Tensor], params: Params, *,
-                 n_valid: int, config, n_nodes: Optional[int] = None,
+                 n_valid, config, n_nodes: Optional[int] = None,
                  weights: Optional[torch.Tensor] = None,
                  offset: int = 0) -> None:
         """``weights`` (optional, (n_rows,) float) multiply each row's
         contribution — signed multiplicities of a maintained view's delta
         scan (+1 insert, -1 delete, 0 padding).  Rows count where they lie
-        in the global window ``[offset, offset + n_valid)``, as in the
-        reference (the port shards nothing, so its callers pass offset 0)."""
-        cols_blocked, n_blocks, B, _ = common.block_columns(
+        in the global window ``[offset, offset + n_valid)``: a rank's shard
+        of a partitioned relation starts at its ``offset``
+        (``core/distributed.py``).  ``n_valid`` is a host int or a 0-d
+        device tensor (``common.block_validity``)."""
+        cols_blocked, n_blocks, B, n_pad = common.block_columns(
             rel_cols, config.block_size, weights)
         w_blocked = cols_blocked.pop(common.ROW_WEIGHT, None)
         device = next(iter(rel_cols.values())).device
@@ -86,7 +88,7 @@ class TorchBackend:
         for blk_i in range(n_blocks):
             blk_cols = {a: c[blk_i] for a, c in cols_blocked.items()}
             valid = common.block_validity(
-                blk_i, B, n_valid - offset, device,
+                blk_i, B, n_pad, n_valid, offset, device,
                 None if w_blocked is None else w_blocked[blk_i])
             gathered = common.gather_children(prog.gathers, blk_cols, arrays, B)
             for vp, acc in zip(prog.views, accs):

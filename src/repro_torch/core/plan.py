@@ -1,5 +1,5 @@
 """Executable plan: IR build -> shared-scan schedule -> backend lowering;
-counterpart of ``repro/core/plan.py`` (no sharded psum).
+counterpart of ``repro/core/plan.py``.
 With ``PlanConfig.verify_plans`` on (auto: under pytest or ``REPRO_VERIFY``)
 the static verifier checks every plan at compile time.
 
@@ -11,6 +11,13 @@ the static verifier checks every plan at compile time.
     hand-written kernels; ``torch``: plain torch reductions), each step in
     row blocks of its own size: ``block_size="auto"`` resolves one per step
     at bind time through ``autotune.py``.
+
+Domain parallelism (``core/distributed.py``): a rank scans its shard of
+the partitioned relation in the global window its ``offsets`` entry
+shifts, and the views of a step over that relation are all-reduced on the
+relation's process group (``psum_groups``, the reference's ``psum_axes``;
+one collective a step) right after the step, before any later step
+gathers them.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis.verify import verification_enabled
 from repro_torch.core.aggregates import Params
@@ -218,11 +226,15 @@ class ExecutablePlan:
 
     def bind(self, n_rows: Dict[str, int], n_nodes: Optional[int] = None,
              device=None):
-        """Returns fn(columns, params) -> {query: tensor} for relations of
-        ``n_rows`` rows on ``device``.  ``n_nodes`` is the param-batch
-        (node) axis size — required iff the plan has batched params, in
-        which case each batched param carries a leading axis of that size
-        and batched query outputs gain a leading node axis.  ``"auto"``
+        """Returns fn(columns, params, offsets=None, psum_groups=None) ->
+        {query: tensor} for relations of ``n_rows`` valid rows on
+        ``device`` (columns may be padded beyond them).  ``offsets`` shift
+        a relation's validity window for a rank's shard and
+        ``psum_groups`` all-reduce its steps' views on a process group
+        (``core/distributed.py``).  ``n_nodes`` is the param-batch (node)
+        axis size — required iff the plan has batched params, in which
+        case each batched param carries a leading axis of that size and
+        batched query outputs gain a leading node axis.  ``"auto"``
         blocking resolves here, once per bind, by probes on ``device``
         (required then)."""
         if self.batched_params and n_nodes is None:
@@ -233,39 +245,58 @@ class ExecutablePlan:
         with span("compile.bind", n_steps=len(self.schedule.steps)):
             step_configs = self.resolve_step_configs(n_rows, n_nodes, device)
 
-        def run(columns: Columns, params: Params):
+        def run(columns: Columns, params: Params,
+                offsets: Optional[Mapping[str, int]] = None,
+                psum_groups: Optional[Mapping[str, object]] = None):
             return self.extract_outputs(self._run_steps(
-                columns, params, n_rows, n_nodes, step_configs))
+                columns, params, n_rows, n_nodes, step_configs, offsets,
+                psum_groups))
 
         return run
 
     def bind_arrays(self, n_rows: Dict[str, int], device=None):
-        """Like :meth:`bind`, but the returned fn(columns, params) yields
-        *every* materialized view tensor keyed by vid, not just the query
-        outputs: the full scan of a maintained batch (``core/ivm.py``),
-        which keeps these tensors as its state.  ``n_rows`` are the
-        relations' valid row counts (their columns may run past them).
-        Maintained batches have no param-batch axis."""
+        """Like :meth:`bind`, but the returned fn(columns, params,
+        n_valid=None, psum_groups=None) yields *every* materialized view
+        tensor keyed by vid, not just the query outputs: the full scan of a
+        maintained batch (``core/ivm.py``), which keeps these tensors as
+        its state.  ``n_rows`` are the relations' row counts (their columns
+        may run past them), which the autotuner keys on; ``n_valid``
+        overrides a relation's valid rows with a 0-d device tensor (a
+        shard's own count).  Maintained batches have no param-batch
+        axis."""
         n_rows = dict(n_rows)
         with span("compile.bind", n_steps=len(self.schedule.steps),
                   arrays=True):
             step_configs = self.resolve_step_configs(n_rows, None, device)
 
-        def run(columns: Columns, params: Params):
-            return self._run_steps(columns, params, n_rows, None,
-                                   step_configs)
+        def run(columns: Columns, params: Params,
+                n_valid: Optional[Mapping[str, object]] = None,
+                psum_groups: Optional[Mapping[str, object]] = None):
+            nv = dict(n_rows)
+            if n_valid:
+                nv.update(n_valid)
+            return self._run_steps(columns, params, nv, None, step_configs,
+                                   psum_groups=psum_groups)
 
         return run
 
     def _run_steps(self, columns: Columns, params: Params,
-                   n_rows: Dict[str, int], n_nodes: Optional[int],
-                   step_configs: Sequence[PlanConfig]) -> Dict[int, torch.Tensor]:
+                   n_rows: Dict[str, object], n_nodes: Optional[int],
+                   step_configs: Sequence[PlanConfig],
+                   offsets: Optional[Mapping[str, int]] = None,
+                   psum_groups: Optional[Mapping[str, object]] = None
+                   ) -> Dict[int, torch.Tensor]:
+        offsets = offsets or {}
+        psum_groups = psum_groups or {}
         arrays: Dict[int, torch.Tensor] = {}
         for step, prog, cfg in zip(self.schedule.steps, self.step_programs,
                                    step_configs):
             self.backend.run_step(prog, columns[step.rel], arrays, params,
-                                  n_valid=n_rows[step.rel], config=cfg,
-                                  n_nodes=n_nodes)
+                                  n_valid=n_rows[step.rel],
+                                  offset=offsets.get(step.rel, 0),
+                                  config=cfg, n_nodes=n_nodes)
+            if step.rel in psum_groups:
+                all_reduce_views(arrays, step.vids, psum_groups[step.rel])
         return arrays
 
     def extract_outputs(self, arrays: Mapping[int, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -295,6 +326,26 @@ class ExecutablePlan:
                                dtype=torch.int64, device=device)
             self._col_indices[key] = idx
         return idx
+
+
+def all_reduce_views(arrays: Dict[int, torch.Tensor], vids: Sequence[int],
+                     group) -> None:
+    """Replace each of ``arrays[vid]`` by its sum over the ranks of
+    ``group`` (the reference's ``psum`` of each view), in ONE
+    ``all_reduce`` of the views flattened side by side — as XLA combines
+    the reference's psums of a step — so a step costs one collective
+    however many views it holds.  The sums come back contiguous (a view's
+    finalize may leave it permuted)."""
+    if not vids:
+        return
+    flat = torch.cat([arrays[v].reshape(-1) for v in vids])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    o = 0
+    for v in vids:
+        shape = arrays[v].shape
+        n = arrays[v].numel()
+        arrays[v] = flat[o:o + n].view(shape)
+        o += n
 
 
 # ---------------------------------------------------------------------------

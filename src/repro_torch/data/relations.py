@@ -1,5 +1,5 @@
 """Columnar relation storage on a torch device; counterpart of
-``repro/data/relations.py`` (single device: no sharded resident relation).
+``repro/data/relations.py``.
 
 Relations are dictionaries of same-length 1-D tensors: int32 codes for
 key/categorical attributes, float32 for continuous ones, all on one device.
@@ -14,7 +14,10 @@ batches — the unit consumed by maintained views (``core/ivm.py``) and by
 capacity-padded (power-of-two) column buffers plus the valid-row count,
 which the host always knows, so appends and deletes are device
 scatter/compaction ops and a steady-state update never copies relation
-columns to the host or waits for the card.
+columns to the host or waits for the card.  :class:`ShardedResidentRelation`
+is one rank's row shard of a relation partitioned over a mesh axis
+(``core/distributed.py``): its own valid prefix, which after a delete only
+the device knows, and the rows' global ids.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import schema as sch
 
@@ -300,6 +304,11 @@ class ResidentRelation:
                 for a, c in rel.columns.items()}
         return cls(rel.name, bufs, n)
 
+    @property
+    def scan_valid(self) -> int:
+        """The valid rows a scan of :meth:`columns` counts."""
+        return self.n_valid
+
     def columns(self) -> Dict[str, torch.Tensor]:
         """The live rows of every column (views of the buffers)."""
         return {a: c[:self.n_valid] for a, c in self.buffers.items()}
@@ -320,6 +329,142 @@ class ResidentRelation:
         bufs = _resident_advance(self.buffers, self.n_valid, dict(ins or {}),
                                  del_idx, n_ins, n_del, cap)
         return ResidentRelation(self.name, bufs, n_new)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedResidentRelation:
+    """This rank's shard of a resident relation partitioned row-wise over
+    one mesh axis (``ax``, a :class:`~repro_torch.core.distributed.AxisInfo`):
+    ``capacity``-row (power-of-two, the same on every rank) column buffers
+    with the shard's *own* valid prefix.  Compaction and append stay local
+    to a shard: there is no global row order on the device.
+
+    The oracle's row order survives through ``gids``: an int64 buffer
+    holding, per live row, its position in the equivalent single-device
+    :class:`Relation` (deletes renumber survivors on the device, appends
+    take fresh trailing positions round-robin across shards).  Positional
+    delete batches route to their owning shard by matching ``gids``, so a
+    steady tick needs no host-side placement map.
+
+    Counts: ``n_valid`` is the *exact* total live rows (host arithmetic,
+    the same on every rank); ``n_valid_dev`` is this shard's live rows, a
+    0-d device tensor, since a delete's shard is data-dependent;
+    ``n_valid_ub`` holds every shard's host **upper bound** (inserts are
+    counted, local deletes are not).  Scans read the prefix ``[0,
+    n_scan)`` — this shard's bound — against the device count; every slot
+    below the capacity holds values a scan may read (codes in their
+    domains, finite floats), live or not.  Growth checks run against the
+    bounds and call :meth:`synced` (one ``all_reduce`` of the per-shard
+    counts, copied to the host: a documented sync of metadata, never of
+    columns) only when a bound would overflow."""
+
+    name: str
+    buffers: Dict[str, torch.Tensor]    # (capacity,) each: this shard
+    gids: torch.Tensor                  # (capacity,) int64
+    n_valid: int                        # exact total live rows (host)
+    n_valid_ub: np.ndarray              # (ndev,) per-shard bounds (host)
+    n_valid_dev: torch.Tensor           # 0-d int64: this shard's live rows
+    ax: object                          # core.distributed.AxisInfo
+
+    @property
+    def n_devices(self) -> int:
+        return self.ax.size
+
+    @property
+    def shard(self) -> int:
+        return self.ax.index
+
+    @property
+    def capacity(self) -> int:
+        """Per-shard capacity (the same on every rank)."""
+        return int(self.gids.shape[0])
+
+    @property
+    def n_scan(self) -> int:
+        """Rows a scan of this shard reads: its host upper bound."""
+        return int(self.n_valid_ub[self.shard])
+
+    @property
+    def scan_valid(self) -> torch.Tensor:
+        """The valid rows a scan counts: this shard's device count."""
+        return self.n_valid_dev
+
+    @classmethod
+    def from_relation(cls, rel: Relation, ax,
+                      min_capacity: int = 1) -> "ShardedResidentRelation":
+        """Round-robin split: shard ``s`` takes global rows ``s, s + ndev,
+        …`` with gids equal to those row indices (any split works: gids
+        carry the order)."""
+        ndev, s = ax.size, ax.index
+        n = rel.n_rows
+        counts = np.asarray([len(range(r, n, ndev)) for r in range(ndev)],
+                            np.int64)
+        cap = next_pow2(max(int(counts.max()), min_capacity, 1))
+        k = int(counts[s])
+
+        def lay(col):
+            col = col[s::ndev]
+            return torch.cat([col, col.new_zeros(cap - k)]) if cap > k \
+                else col.contiguous()
+
+        device = next(iter(rel.columns.values())).device
+        gids = torch.arange(s, s + ndev * k, ndev, dtype=torch.int64,
+                            device=device)
+        return cls(rel.name, {a: lay(c) for a, c in rel.columns.items()},
+                   torch.cat([gids, gids.new_zeros(cap - k)]), n, counts,
+                   torch.tensor(k, dtype=torch.int64, device=device), ax)
+
+    def columns(self) -> Dict[str, torch.Tensor]:
+        """The scanned prefix ``[0, n_scan)`` of every column (views of the
+        buffers); rows past :attr:`scan_valid` are dead."""
+        n = self.n_scan
+        return {a: c[:n] for a, c in self.buffers.items()}
+
+    def to_relation(self) -> Relation:
+        """The whole relation in the oracle's row order, on every rank: each
+        rank scatters its live rows by gid into a zeroed global buffer and
+        the buffers are summed over the axis — exact, since every position
+        has one nonzero contribution, and an ``all_reduce``, which gloo
+        offers on CUDA tensors too.  A collective: every rank calls it."""
+        n, k = self.n_valid, self.n_scan
+        device = self.gids.device
+        live = torch.arange(k, device=device) < self.n_valid_dev
+        idx = torch.where(live, self.gids[:k], torch.full_like(
+            self.gids[:k], n))
+        cols = {}
+        for a, c in self.buffers.items():
+            out = c.new_zeros(n + 1)
+            out.index_put_((idx,), torch.where(live, c[:k], c.new_zeros(())),
+                           accumulate=True)
+            out = out[:n].contiguous()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.ax.group)
+            cols[a] = out
+        return Relation(self.name, cols)
+
+    def synced(self) -> "ShardedResidentRelation":
+        """Bounds refreshed to the exact per-shard counts: one
+        ``all_reduce`` of a (ndev,) vector, copied to the host — the
+        documented sync of the growth check."""
+        vec = torch.zeros(self.n_devices, dtype=torch.int64,
+                          device=self.gids.device)
+        vec[self.shard] = self.n_valid_dev
+        dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=self.ax.group)
+        return dataclasses.replace(self, n_valid_ub=vec.cpu().numpy())
+
+    def grown(self, min_rows_per_shard: int) -> "ShardedResidentRelation":
+        """Capacity >= ``min_rows_per_shard`` (power-of-two doubling, every
+        shard together, so buffers stay uniform); the new rows are zeros."""
+        cap = next_pow2(max(min_rows_per_shard, 1))
+        old = self.capacity
+        if cap <= old:
+            return self
+
+        def pad(buf):
+            return torch.cat([buf, buf.new_zeros(cap - old)])
+
+        return dataclasses.replace(
+            self, buffers={a: pad(c) for a, c in self.buffers.items()},
+            gids=pad(self.gids))
 
 
 # --------------------------------------------------------------------- deltas

@@ -1,1 +1,2 @@
-"""launch substrate; counterpart of ``repro/launch`` (``serve.py`` only)."""
+"""launch substrate; counterpart of ``repro/launch`` (``serve.py``,
+``train.py`` and ``mesh.py``; no ``dryrun.py``)."""

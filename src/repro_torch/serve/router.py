@@ -1,5 +1,5 @@
 """Signature router: the serving front door for ad-hoc aggregates;
-counterpart of ``repro/serve/router.py`` (one device: no mesh runner).
+counterpart of ``repro/serve/router.py``.
 
 ``Database.query(q)`` / ``ViewServer.query(q)`` accept an *arbitrary*
 group-by aggregate — not just the batches a session compiled up front —
@@ -26,6 +26,10 @@ fallback_scan) read ``Database.data`` — the session's base-relation
 snapshot, which delta folds do NOT advance (maintained state keeps its
 own resident copy).  A driver that folds updates and also expects fresh
 *scan* answers must keep ``Database.data`` current (``apply_delta``).
+
+Under the session's mesh a scan tier runs domain-parallel and records
+``"sharded_scan"`` (else ``"batch_scan"``); hit tiers read the replicated
+epoch and launch nothing.
 
 Answers stay tensors on the session's device: the router never copies one
 to the host, and a hit-tier route (exact or subsumed on a maintained
@@ -213,7 +217,12 @@ class QueryRouter:
             return value, epoch, "epoch_read", False
         out = cand.handle.run(params)
         self.n_base_scans += 1
-        return fn(out[cand.view]), None, "batch_scan", True
+        return fn(out[cand.view]), None, self._scan_hit(), True
+
+    def _scan_hit(self) -> str:
+        """How a base scan ran: sharded under the session's mesh."""
+        return ("sharded_scan" if self._db.config.mesh is not None
+                else "batch_scan")
 
     def _compile_and_run(self, q: Query, params: Optional[Params],
                          cache: bool):
@@ -224,7 +233,7 @@ class QueryRouter:
             self._cache_insert(signature_of(q).key(), handle)
         out = handle.run(params)
         self.n_base_scans += 1
-        return out[q.name], "batch_scan"
+        return out[q.name], self._scan_hit()
 
     # -- front door ----------------------------------------------------------
 

@@ -1,5 +1,5 @@
 """Snapshot-consistent serving over maintained aggregate views;
-counterpart of ``repro/serve/views.py`` (one device).
+counterpart of ``repro/serve/views.py``.
 
 :class:`ViewServer` wraps a :class:`~repro_torch.core.ivm.MaintainedBatch`
 and gives every request a *pinned epoch* — an immutable version of the
@@ -22,6 +22,14 @@ share the device's one stream, so the caching allocator never hands a
 pinned epoch's memory to another stream's work.  ``checkpoint()``
 snapshots a pinned epoch through the crash-safe store, so a checkpoint
 taken mid-update-stream is a clean version, not a torn mix.
+
+The server is mesh-agnostic: when the maintained batch is sharded
+(``ExecutionConfig.mesh``), every rank's epochs hold the same view tensors
+— every tick all-reduces partial deltas *before* the state fold — so the
+pin / swap / read code is the same, reads launch and sync nothing on every
+rank, and only ``apply`` (its all-reduces) and ``checkpoint`` (the
+snapshot's gather; every rank calls it, rank 0 writes) touch the mesh.
+``stats()["shard"]`` reports the topology.
 
 Telemetry: every read and update observes a latency histogram
 (``serve.read_us`` / ``ivm.tick_us``), reads record their query signature

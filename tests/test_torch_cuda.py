@@ -1289,3 +1289,46 @@ def test_warm_train_step_syncs_nothing(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(met["loss"])) and int(state["step"]) == 3
+
+
+# -------------------------------------------------- domain parallelism
+
+def _card_ranks(world, tmp_path, backend):
+    from torch_dist_harness import card_covar_case, run_ranks
+    return run_ranks(card_covar_case, world, tmp_path, 2, 3, backend=backend)
+
+
+def _scaled(C, D):
+    d = np.sqrt(np.maximum(np.outer(np.diag(D), np.diag(D)), 1e-300))
+    return float((np.abs(C - D) / d).max())
+
+
+def test_world_size_1_nccl_covar_and_ticks(cuda_device, tmp_path):
+    """World size 1 over NCCL, in a subprocess: the sharded covar launches
+    what the unsharded one does and sums the same rows (the scan kernels
+    add in an order that varies by run, so two unsharded runs are not
+    bitwise alike either: held at 1e-4 of each entry's Cauchy–Schwarz
+    bound, N exact); a sharded maintained copy's ticks after the first
+    run under sync-debug "error" and build no runner."""
+    r, = _card_ranks(1, tmp_path, "nccl")
+    assert r["launches_s"] == r["launches_l"] > 0
+    assert r["N_s"] == r["N_l"] == 2 * 60_000
+    assert _scaled(r["C_s"], r["C_l"]) <= 1e-4
+    assert r["builds"] == [1, 0, 0]
+    for C, N in r["ticks"]:
+        assert np.isfinite(C).all() and N == r["N_l"]
+
+
+def test_two_gloo_ranks_on_the_card_sum_to_one_rank(cuda_device, tmp_path):
+    """Two ranks over gloo on one card: each scans half the fact rows, the
+    all-reduced covar is the same on both (bitwise) and equals one rank's
+    unsharded covar; each rank launches fewer blocks than the whole."""
+    ranks = _card_ranks(2, tmp_path, "gloo")
+    np.testing.assert_array_equal(ranks[0]["C_s"], ranks[1]["C_s"])
+    for r in ranks:
+        assert r["N_s"] == r["N_l"]
+        assert _scaled(r["C_s"], r["C_l"]) <= 1e-4
+        assert 0 < r["launches_s"] < r["launches_l"]
+    for (C0, N0), (C1, N1) in zip(ranks[0]["ticks"], ranks[1]["ticks"]):
+        np.testing.assert_array_equal(C0, C1)
+        assert N0 == N1

@@ -185,6 +185,10 @@ def test_port_imports_neither_jax_nor_the_reference(tmp_path):
             ds, database=db.with_config(block_size="auto"))
         assert Na == N and ba.plan.last_autotune
         assert ba.plan.autotuner.n_timed > 0
+        from repro_torch.core import distributed
+        from repro_torch.launch import mesh
+        assert distributed.GID_SENTINEL == 2**31 - 1
+        assert callable(mesh.make_host_mesh)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

@@ -90,45 +90,14 @@ SERVING_KEYS = ("epoch", "step", "n_reads", "n_updates", "n_rejected_updates",
                 "n_delta_scan_steps", "epoch_lag", "n_lag_warnings")
 
 
-def mesh_checks(jtp):
-    """The reference's checks of an unsharded tick program that read its
-    mesh fields: relation and axis set together, and each step's
-    ``partitioned`` flag and ``psum_vids``.  The port's tick has no such
-    fields until views are sharded, and its ``weighted`` check reads
-    ``scans_delta`` instead, one for one."""
-    return 1 + 2 * len(jtp.steps)
-
-
-def single_device(rep, jmb):
-    """The reference's report ``rep`` as the port's verifier gives it on
-    one device: a tick program's report less its mesh checks."""
-    if not rep.artifact.startswith("tick Δ"):
-        return rep
-    jtp = jmb.tick_program(rep.artifact[len("tick Δ"):])
-    return dataclasses.replace(rep, n_checks=rep.n_checks - mesh_checks(jtp))
-
-
-def single_device_line(verification, jmb):
-    """The reference's ``explain()`` verification line with every tick
-    report taken as :func:`single_device` gives it."""
-    if verification is None or jmb is None:
-        return verification
-    ticks = {r.summary(): single_device(r, jmb).summary()
-             for r in jmb.last_verifications.values()}
-    return "; ".join(ticks.get(p, p) for p in verification.split("; "))
-
-
-def assert_same_report(got, want, jmb=None):
+def assert_same_report(got, want):
     """Equal but for the backend's name: the port's ``torch`` against the
-    reference's ``xla``, both without hand-written kernels (0 launches).
-    ``jmb``, the reference's maintained batch, takes the mesh checks out of
-    its tick reports."""
+    reference's ``xla``, both without hand-written kernels (0 launches);
+    the tick reports whole, mesh checks included."""
     for f in REPORT_FIELDS:
         g, w = getattr(got, f), getattr(want, f)
         if f == "backend":
             assert (g, w) == ("torch", "xla")
-        elif f == "verification":
-            assert g == single_device_line(w, jmb)
         else:
             assert g == w, f
     assert dataclasses.asdict(got.batch) == dataclasses.asdict(want.batch)
@@ -160,30 +129,26 @@ def test_explain_unified_report_matches_reference():
     live.apply(TR.DeltaBatchUpdate().delete("R1", np.array([2])))
     jlive.apply(JR.DeltaBatchUpdate().delete("R1", np.array([2])))
     rep = live.explain()
-    assert_same_report(rep, jlive.explain(), jlive.maintained)
+    assert_same_report(rep, jlive.explain())
     assert rep.mode == "maintained" and rep.epoch == 1 and rep.step == 1
     assert rep.n_delta_scan_steps > 0
     srv, jsrv = live.serve(max_pinned_epochs=4), jlive.serve(max_pinned_epochs=4)
     srv.read("q_count")
     jsrv.read("q_count")
     rep = live.explain()
-    assert_same_report(rep, jlive.explain(), jlive.maintained)
+    assert_same_report(rep, jlive.explain())
     assert rep.mode == "served" and rep.serving["n_reads"] == 1
     assert rep.max_pinned_epochs == 4
     s = rep.summary()
     assert "serve:" in s and "ivm:" in s and "verify:" in s
-    # the summary's lines are the reference's but for the backend's name,
-    # the latencies and the tick's mesh checks; a routed query adds the
-    # routing line to both
+    # the summary's lines are the reference's but for the backend's name
+    # and the latencies; a routed query adds the routing line to both
     ts.route(T.query("q_x1", ["x1"], [T.COUNT]))
     js.route(J.query("q_x1", ["x1"], [J.COUNT]))
     got, want = live.explain(), jlive.explain()
     assert got.routing["tiers"] == want.routing["tiers"]
     lines = [ln.split(" read_p50")[0] for ln in got.summary().splitlines()]
     jlines = [ln.split(" read_p50")[0] for ln in want.summary().splitlines()]
-    verify = "  verify: "
-    jlines = [verify + single_device_line(ln[len(verify):], jlive.maintained)
-              if ln.startswith(verify) else ln for ln in jlines]
     assert lines == [ln.replace("backend=xla", "backend=torch")
                      for ln in jlines]
     assert any(ln.startswith("  routing:") for ln in lines)
@@ -272,7 +237,7 @@ def test_ivm_verifier_reports_match_reference(maintained_pair):
         assert [(s.rel, s.scans_delta) for s in tp.steps] \
             == [(s.rel, s.weighted) for s in jtp.steps]
         rep = TV.verify_tick_program(tp, dp)
-        same_report(rep, single_device(JV.verify_tick_program(jtp, jdp), jb))
+        same_report(rep, JV.verify_tick_program(jtp, jdp))
         assert rep.invariants == ("psum-before-fold", "weight-compat")
         rep = TV.verify_resident(TR.ResidentRelation.from_relation(
             ts.relation(rel)))
@@ -281,9 +246,8 @@ def test_ivm_verifier_reports_match_reference(maintained_pair):
         assert rep.invariants == ("resident-capacity",)
     assert mb.last_verifications.keys() == jb.last_verifications.keys()
     for k, rep in mb.last_verifications.items():
-        same_report(rep, single_device(jb.last_verifications[k], jb))
-    assert h.explain().verification == \
-        single_device_line(jh.explain().verification, jb)
+        same_report(rep, jb.last_verifications[k])
+    assert h.explain().verification == jh.explain().verification
     assert set(TV.ALL_INVARIANTS) == set(JV.ALL_INVARIANTS)
 
 
@@ -365,18 +329,54 @@ def test_planted_second_order_product(maintained_pair):
 
 def test_planted_unweighted_delta_scan_in_tick(maintained_pair):
     """tests/test_analysis.py:353: the tick's delta-tuple scan loses its
-    signed weights — ``weighted=False`` in the reference, where the flag is
-    a field of its own, ``scans_delta=False`` in the port, whose runner
-    weights the steps that scan the delta."""
+    signed weights (``weighted=False``, a field of its own in both)."""
     for mb, V, I, _ in _both(maintained_pair):
         dp = mb.delta_program("R2")
         tp = I.build_tick_program(dp)
         idx = _first(range(len(tp.steps)), lambda i: tp.steps[i].scans_delta)
-        flag = "weighted" if V is JV else "scans_delta"
         bad = dataclasses.replace(tp, steps=tuple(
-            dataclasses.replace(s, **{flag: False}) if i == idx else s
+            dataclasses.replace(s, weighted=False) if i == idx else s
             for i, s in enumerate(tp.steps)))
         _expect("weight-compat", V.verify_tick_program, bad, dp)
+
+
+def test_sharded_tick_program_verifies_clean(maintained_pair):
+    """tests/test_analysis.py:146: the sharded placement verifies without a
+    mesh — a tick built for a synthetic shard choice, its partitioned steps
+    all-reducing their views — with the reference's checks and counts."""
+    for rel in ("R1", "R2", "R3"):
+        reps = []
+        for mb, V, I, _ in _both(maintained_pair):
+            dp = mb.delta_program(rel)
+            tp = I.build_tick_program(dp, shard_rel="R2", axis="data")
+            rep = V.verify_tick_program(tp, dp)
+            assert "psum-before-fold" in rep.invariants
+            assert [(ts.partitioned, len(ts.psum_vids)) for ts in tp.steps] \
+                == [(ts.rel == "R2", len(ts.prog.views) if ts.rel == "R2"
+                     else 0) for ts in tp.steps]
+            reps.append(rep)
+            if rel == "R1":
+                assert any(ts.partitioned and ts.psum_vids
+                           for ts in tp.steps)
+        same_report(*reps)
+        assert reps[0].artifact == f"tick Δ{rel} (shard R2@data)"
+
+
+def test_planted_missing_psum_in_sharded_tick(maintained_pair):
+    """A partitioned step whose ``psum_vids`` were left empty would fold
+    one rank's partial delta: psum-before-fold, in both packages; so would
+    an axis without a relation."""
+    for mb, V, I, _ in _both(maintained_pair):
+        dp = mb.delta_program("R2")
+        tp = I.build_tick_program(dp, shard_rel="R2", axis="data")
+        idx = _first(range(len(tp.steps)), lambda i: tp.steps[i].partitioned)
+        bad = dataclasses.replace(tp, steps=tuple(
+            dataclasses.replace(s, psum_vids=()) if i == idx else s
+            for i, s in enumerate(tp.steps)))
+        err = _expect("psum-before-fold", V.verify_tick_program, bad, dp)
+        assert "partial per-shard deltas" in err.detail
+        half = dataclasses.replace(tp, shard_rel=None)
+        _expect("psum-before-fold", V.verify_tick_program, half, dp)
 
 
 def test_planted_tick_divergence_and_short_fold(maintained_pair):

@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""The engine's domain parallelism on several cards: one rank a card over
+NCCL, or ranks on the CPU over gloo.
+
+    python3 tools/torch_shard_cards.py [--ranks 4] [--scale 200] [--device cuda]
+
+Spawns ``--ranks`` processes (rank r on card r), each generating Retailer
+at ``--scale`` from ``--seed`` and opening the session under a
+``("data", "model")`` mesh of ``launch/mesh.py``.  Every rank runs, sharded
+and unsharded: the covar batch (cold, then a warm wall each way), one
+frontier-batched tree level of 16 random masks, and a maintained covar
+rooted at the fact with three 1% fact ticks (the last two under
+sync-debug "error" on the card); then a checkpoint of the sharded batch
+(rank 0 writes, every rank restores into a fresh batch) and the fact
+gathered back.  Each rank prints one JSON line; the last line holds the
+checks: the sharded covar and ticks within 1e-4 of each entry's
+Cauchy–Schwarz bound of the unsharded ones (N exact), the tree level
+within 1e-4 of the largest statistic, one runner built, the restore
+bitwise, the gathered fact equal to the unsharded copy's, the ranks'
+covars bitwise alike.  Exits 1 if a check fails, and when a rank fails.
+"""
+
+import argparse
+import datetime
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+#: the checks' limit: float32 sums in another order (the covar's own rule)
+TOL = 1e-4
+
+
+def scaled(C, D) -> float:
+    d = np.sqrt(np.maximum(np.outer(np.diag(D), np.diag(D)), 1e-300))
+    return float((np.abs(C - D) / d).max())
+
+
+def walled(fn, on_card: bool):
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def rank_main(rank, world, init_file, args, out):
+    on_card = args.device == "cuda"
+    torch.set_num_threads(2)
+    if on_card:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        import repro_torch
+        from repro_torch.data import datasets as TD
+        from repro_torch.data.relations import DeltaBatchUpdate
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.ml.covar import assemble_covar, compute_covar, covar_queries
+        from repro_torch.ml.trees import DecisionTree, split_stats, stack_mask_params
+
+        dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+        ds = TD.make("retailer", scale=args.scale, seed=args.seed)
+        mesh = make_host_mesh(n_data=world, device_type=args.device)
+        db = repro_torch.connect(ds, device=dev, config=repro_torch.ExecutionConfig(
+            block_size=args.block_size))
+        sdb = db.with_config(mesh=mesh)
+        res = {"rank": rank, "device": str(dev),
+               "card": torch.cuda.get_device_name(rank) if on_card else "cpu"}
+        ops.reset_launches()
+        C_s, N_s, layout, _ = compute_covar(ds, database=sdb)
+        res["launches"] = ops.LAUNCHES["fused_scan_block"]
+        _, res["covar_warm_s"] = walled(lambda: compute_covar(ds, database=sdb), on_card)
+        C_l, N_l, _, _ = compute_covar(ds, database=db)
+        _, res["covar_local_warm_s"] = walled(lambda: compute_covar(ds, database=db),
+                                              on_card)
+        res["covar_vs_local"] = scaled(C_s, C_l)
+        res["N"] = [N_s, N_l]
+
+        rng = np.random.default_rng(args.seed)
+        dt_s = DecisionTree(ds, database=sdb)
+        dt_l = DecisionTree(ds, database=db)
+        masks = [{f.attr: (rng.random(f.domain) < 0.7).astype(np.float32)
+                  for f in dt_s.features} for _ in range(16)]
+        p = stack_mask_params(dt_s.features, masks)
+        st_s = split_stats(dt_s.view.run_batched(p), dt_s.features)
+        st_l = split_stats(dt_l.view.run_batched(p), dt_l.features)
+        res["tree_vs_local"] = max(float(np.abs(st_s[k] - st_l[k]).max()
+                                         / (np.abs(st_l[k]).max() + 1e-30)) for k in st_s)
+
+        qs, _ = covar_queries(ds)
+        roots = {q.name: ds.fact for q in qs}
+        hs = sdb.views(qs, maintain=True, roots=roots)
+        hl = db.views(qs, maintain=True, roots=roots)
+        hs.run()
+        hl.run()
+        fact = ds.tables[ds.fact]
+        n = len(next(iter(fact.values())))
+        urng = np.random.default_rng(args.seed + 1)
+        res["tick_vs_local"], res["tick_walls_s"] = [], []
+        for i in range(3):
+            pick = urng.integers(0, n, n // 100)
+            upd = (DeltaBatchUpdate()
+                   .insert(ds.fact, {a: np.asarray(c)[pick] for a, c in fact.items()})
+                   .delete(ds.fact, urng.choice(n, n // 100, replace=False)))
+
+            def tick():
+                if i and on_card:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = hs.apply(upd)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode(0)
+                return assemble_covar({k: v.cpu().numpy() for k, v in out.items()}, layout)
+
+            (Ca, _), wall = walled(tick, on_card)
+            Cb, _ = assemble_covar({k: v.cpu().numpy() for k, v in hl.apply(upd).items()},
+                                   layout)
+            res["tick_walls_s"].append(wall)
+            res["tick_vs_local"].append(scaled(Ca, Cb))
+        res["builds"] = hs.maintained.n_fold_traces
+        res["topology"] = hs.maintained.shard_topology()
+
+        ckpt = os.path.join(out, "ckpt")
+        hs.snapshot(ckpt)
+        res["ckpt_steps"] = sorted(os.listdir(ckpt))
+        restored = sdb.views(qs, maintain=True, roots=roots)
+        res["restored_step"] = restored.restore(ckpt)
+        r1, r2 = hs.results(), restored.results()
+        res["restored_bitwise"] = all(torch.equal(r1[k], r2[k]) for k in r1)
+        g = hs.maintained.db.relation(ds.fact).columns
+        loc = hl.maintained.db.relation(ds.fact).columns
+        res["gathered_equal"] = all(torch.equal(g[a], loc[a]) for a in loc)
+        np.save(os.path.join(out, f"C{rank}.npy"), C_s)
+        print(json.dumps(res, default=str), flush=True)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f, default=str)
+    finally:
+        dist.destroy_process_group()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--scale", type=float, default=200.0,
+                    help="Retailer scale: 60,000 fact rows per unit")
+    ap.add_argument("--block-size", type=int, default=1 << 20)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args()
+    if args.device == "cuda" and torch.cuda.device_count() < args.ranks:
+        print(f"torch_shard_cards: {args.ranks} ranks need as many cards "
+              f"({torch.cuda.device_count()} found)", file=sys.stderr)
+        return 2
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        mp.start_processes(rank_main, args=(args.ranks, os.path.join(out, "pg"), args, out),
+                           nprocs=args.ranks, start_method="spawn")
+    except Exception as e:
+        print(f"torch_shard_cards: a rank failed: {e}", file=sys.stderr)
+        return 1
+    ranks = []
+    for r in range(args.ranks):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    Cs = [np.load(os.path.join(out, f"C{r}.npy")) for r in range(args.ranks)]
+    checks = {
+        "covar": all(r["covar_vs_local"] <= TOL and r["N"][0] == r["N"][1] for r in ranks),
+        "tree": all(r["tree_vs_local"] <= TOL for r in ranks),
+        "ticks": all(max(r["tick_vs_local"]) <= TOL and r["builds"] == 1 for r in ranks),
+        "checkpoint": all(r["restored_bitwise"] and r["restored_step"] == 3
+                          and len(r["ckpt_steps"]) == 1 for r in ranks),
+        "gathered": all(r["gathered_equal"] for r in ranks),
+        "ranks_bitwise": all(np.array_equal(Cs[0], c) for c in Cs[1:]),
+    }
+    print(json.dumps({"ranks": args.ranks, "device": args.device, "scale": args.scale,
+                      "checks": checks, "ok": all(checks.values())}), flush=True)
+    return 0 if all(checks.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
