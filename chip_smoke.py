@@ -172,6 +172,19 @@ Phases, one JSON line each (``{"phase": ...}``):
                crashed after 100 steps and resumed (bitwise against the
                straight run under deterministic algorithms), the reference
                test's compressed smoke run, ``examples/torch_serve_lm.py``.
+ 24. lm.shard — the LM on a ("data", "model") mesh of (1, 1) over NCCL at
+               world size 1 (``distributed/sharding.py``: DTensor placements,
+               every constraint and collective of the sharded steps),
+               internlm2-1.8b whole in bf16, against the unsharded port in
+               the same run: the sharded prefill at B 4 × 4,096 with
+               ``"flash"`` (24 ``flash_attention`` launches on each rank's
+               local heads; last-position logits, tokens/s), sharded decode
+               (batch 8, 64 new tokens; ms a step), sharded training at
+               lm.train's B 8 × 4,096 (the first step's loss and grad norm
+               from the unsharded step's state, three warm steps under
+               sync-debug "error", tokens/s and peak memory beside
+               lm.train's), and in float32 at 4 layers of full width the
+               params after one step and 16 decode steps' logits.
 
 The ``kernels`` phase also holds ``flash_attention`` against its plain
 version at the attention shapes of internlm2-1.8b's prefill (the summary's
@@ -3380,12 +3393,14 @@ def examples_phase():
 #: (MLA) is 29.8 GiB in bf16 at its 27 layers, 59.6 GiB in float32: the
 #: checks run 8 layers (18.2 GiB).  llama-3.2-vision-90b is 161 GiB in
 #: bf16: 20 layers (4 super-blocks, 33.8 GiB) for the walls, one
-#: super-block of 5 in float32.  whisper-small runs whole.  mamba2-2.7b's
-#: float32 checks run 32 of its 64 layers for the script's time (the same
-#: code paths, and room for lm.train), its bf16 walls all 64.
+#: super-block of 5 in float32.  whisper-small runs whole.  For the
+#: script's time (the same code paths, and room for lm.train and lm.shard)
+#: mamba2-2.7b's float32 checks run 16 of its 64 layers and zamba2-1.2b's
+#: 20 of 38 (three groups of six and the tail of two); their bf16 walls
+#: run every layer.
 LM_FAMILIES = (("lm.moe", "qwen3-moe-235b-a22b", 4, 8),
-               ("lm.ssm", "mamba2-2.7b", 32, None),
-               ("lm.hybrid", "zamba2-1.2b", None, None),
+               ("lm.ssm", "mamba2-2.7b", 16, None),
+               ("lm.hybrid", "zamba2-1.2b", 20, None),
                ("lm.mla", "deepseek-v2-lite-16b", 8, None),
                ("lm.vlm", "llama-3.2-vision-90b", 5, 20),
                ("lm.audio", "whisper-small", None, None))
@@ -3647,7 +3662,7 @@ def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
         gib = full.param_count() * (4 if dtype == "float32" else 2) / 2**30
         why = ("the weights of the full depth and the phase's activations do not "
                "fit in 80 GB" if gib > 40 else
-               "the script's time: the same code paths at half the depth")
+               "the script's time: the same code paths at a cut depth")
         res["reduced"] = ({"n_layers": [full.n_layers, cfg.n_layers],
                            "full_depth_weights_gib": gib, "why": why}
                           if depth else {})
@@ -4246,7 +4261,9 @@ def lm_train_examples():
 
 
 def lm_train_phase(seed: int):
-    """(a)-(d) of training on the card; every line carries the card."""
+    """(a)-(d) of training on the card; every line carries the card.
+    Returns (a)'s tokens/s and peak memory (``lm.shard`` stands beside
+    them)."""
     import torch
 
     t0 = time.perf_counter()
@@ -4262,6 +4279,295 @@ def lm_train_phase(seed: int):
     torch.cuda.empty_cache()
     emit("lm.train.examples", card=smi, **lm_train_examples())
     emit("lm.train.done", card=smi, phase_s=time.perf_counter() - t0)
+    return {k: full[k] for k in ("train_tokens_per_s", "peak_mem_gib")}
+
+
+# ------------------------------------------------------------- lm.shard
+
+#: lm.shard: train steps after the cold one; the float32 checks' depth at
+#: full width, their batch, and a learning rate that moves the params on
+#: the first step (warmup 0); decode steps held against the unsharded ones
+SHARD_WARM_STEPS = 3
+SHARD_F32_LAYERS = 4
+SHARD_F32_BATCH, SHARD_F32_SEQ = 2, 1024
+SHARD_F32_TRAIN = dict(attn_impl="chunked", ce_chunk=512, peak_lr=1e-2, warmup=0,
+                       total_steps=10)
+SHARD_DECODE_CHECK = 16
+#: sharded against unsharded in the same run: the loss and the params after
+#: a step as tests/test_distributed.py:86-90 holds them (1e-3, 5e-3); the
+#: bf16 gradient norm relative (its leaves round to bf16); the bf16
+#: prefill's last-position logits relative to their max (bf16's 2⁻⁷)
+SHARD_LOSS_TOL, SHARD_PARAM_TOL, SHARD_GNORM_TOL, SHARD_PREFILL_TOL = 1e-3, 5e-3, 1e-2, 1e-2
+
+
+def decode_run(step, params, cache, prompts, n_new: int):
+    """``BatchedServer.generate``'s loop over a serve step: each prompt
+    teacher-forced, then ``n_new`` greedy tokens; (B, P + n_new) on the
+    card.  Sharded logits are read whole."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.serve.engine import greedy
+
+    plen = prompts.shape[1]
+    toks = prompts[:, :1]
+    out = [toks]
+    for pos in range(plen + n_new - 1):
+        lg, cache = step(params, cache, toks, pos)
+        if isinstance(lg, DTensor):
+            lg = lg.full_tensor()
+        toks = prompts[:, pos + 1:pos + 2] if pos + 1 < plen else greedy(lg)
+        out.append(toks)
+    return torch.cat(out, dim=1)
+
+
+def restore_state(state, params0) -> None:
+    """A train state back to its initial values: the params copied from
+    ``params0``, moments and step zeroed (``init_state``'s)."""
+    from repro_torch.train.adamw import tree_leaves
+
+    for p, q in zip(tree_leaves(state["params"]), params0):
+        p.copy_(q)
+    for t in tree_leaves(state["m"]) + tree_leaves(state["v"]):
+        t.zero_()
+    state["step"].zero_()
+
+
+def lm_shard_phase(seed: int, card_line: str, train_ref=None):
+    """internlm2-1.8b on a ("data", "model") mesh of (1, 1) over NCCL at
+    world size 1 (``distributed/sharding.py``: every placement, constraint
+    and collective of the sharded path, on the card), against the
+    unsharded port in the same run: (a) the bf16 prefill at B 4 × 4,096
+    with ``"flash"`` (24 kernel launches on the local heads), its
+    last-position logits and tokens/s; (b) bf16 decode, batch 8, 64 new
+    tokens, ms a step; (c) training at lm.train's B 8 × 4,096 in two
+    microbatches: the first step's loss and grad norm from the unsharded
+    step's state, then SHARD_WARM_STEPS warm steps under sync-debug
+    "error", tokens/s and peak memory beside lm.train's (``train_ref``);
+    (d) float32 at SHARD_F32_LAYERS layers of full width: the params after
+    one step, and SHARD_DECODE_CHECK decode steps' logits."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed.sharding import param_pspecs, rules_for, shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import init_sharded_cache, make_serve_step
+    from repro_torch.train.adamw import tree_leaves
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import (TrainConfig, init_state, make_prefill_step,
+                                        make_train_step, state_pspecs)
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        rules = rules_for(mesh)
+        cfg = configs.get(LM_ARCH)
+
+        # (a) the sharded prefill, counters zeroed just before it
+        params = lm_params(cfg, seed)
+        sparams = shard_tree(params, param_pspecs(M.model_specs(cfg), rules, mesh), mesh)
+        rng = np.random.default_rng(seed + 5)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
+        tcfg = TrainConfig(attn_impl="flash")
+        steps = {"sharded": (make_prefill_step(cfg, tcfg, mesh), sparams),
+                 "unsharded": (make_prefill_step(cfg, tcfg), params)}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        got = steps["sharded"][0](sparams, batch)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        local_heads = list(got.placements), tuple(got.to_local().shape)
+        got = got.full_tensor()
+        want = steps["unsharded"][0](params, batch)
+        prefill_rel = float((got.float() - want.float()).abs().max()) / float(
+            want.float().abs().max())
+        prefill_bitwise = bool(torch.equal(got, want))
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        walls = {}
+        for label, (fn, p) in steps.items():
+            fn(p, batch)                                    # warm
+            ws = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(p, batch)
+                torch.cuda.synchronize()
+                ws.append(time.perf_counter() - t0)
+            walls[label] = ws
+        tokens = LM_BF16_BATCH * LM_SEQ
+
+        # (b) bf16 decode: batch 8, 64 new tokens after a 64-token prompt
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+        max_len = SERVE_PROMPT + SERVE_GEN
+        dec = {}
+        for label, step, p, cache in (
+                ("sharded", make_serve_step(cfg, mesh), sparams,
+                 init_sharded_cache(cfg, SERVE_BATCH, max_len, mesh)),
+                ("unsharded", make_serve_step(cfg), params,
+                 M.init_cache(cfg, SERVE_BATCH, max_len, "cuda"))):
+            decode_run(step, p, cache, prompts[:, :8], 8)   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = decode_run(step, p, cache, prompts, SERVE_GEN)
+            torch.cuda.synchronize()
+            dec[label] = (time.perf_counter() - t0, toks)
+        dsteps = SERVE_PROMPT + SERVE_GEN - 1
+        dec_ms = {label: w / dsteps * 1e3 for label, (w, _) in dec.items()}
+        same_tokens = bool(torch.equal(dec["sharded"][1], dec["unsharded"][1]))
+        del params, sparams, steps, dec
+        torch.cuda.empty_cache()
+
+        # (c) training: the first step from one state both ways, then warm
+        tcfg = TrainConfig(**TRAIN_CFG)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        state = init_state(cfg, tcfg, gen, "cuda")
+        params0 = [p.clone() for p in tree_leaves(state["params"])]
+        pipe = TokenPipeline(PipelineConfig(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=seed),
+                             cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met_u = make_train_step(cfg, tcfg)(state, pipe.batch_at(0))
+        met_u = {k: float(v) for k, v in met_u.items()}
+        unsharded_step_s = time.perf_counter() - t0
+        restore_state(state, params0)
+        del params0
+        sstate = shard_tree(state, state_pspecs(cfg, tcfg, mesh), mesh)
+        del state
+        sstep = make_train_step(cfg, tcfg, mesh)
+        metrics = []
+
+        def step(s, b):
+            s, met = sstep(s, b)
+            metrics.append(met)
+            if len(metrics) == 1:                 # the first step is cold
+                torch.cuda.set_sync_debug_mode("error")
+            return s, met
+
+        loop = TrainLoop(step, pipe, LoopConfig(max_steps=1 + SHARD_WARM_STEPS,
+                                                log_every=0), log=lambda m: None)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        try:
+            sstate = loop.run(sstate)
+        except RuntimeError as e:
+            raise CheckFailed(f"lm.shard: a sharded train step failed or "
+                              f"synchronised: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        train_launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_walls = [r.wall for r in loop.records]
+        warm = sorted(train_walls[1:])[len(train_walls[1:]) // 2]
+        met_s = {k: float(v) for k, v in metrics[0].items()}
+        losses = loop.losses()
+        placements = sorted({repr(tuple(t.placements)) for t in tree_leaves(sstate)})
+        del sstate, loop, metrics
+        torch.cuda.empty_cache()
+
+        # (d) float32 at SHARD_F32_LAYERS layers of full width: the params
+        # after one step from one state both ways, then decode
+        cfg4 = cfg.with_(n_layers=SHARD_F32_LAYERS, dtype="float32")
+        tcfg4 = TrainConfig(**SHARD_F32_TRAIN)
+        gen.manual_seed(seed + 3)
+        st = init_state(cfg4, tcfg4, gen, "cuda")
+        params0 = [p.clone() for p in tree_leaves(st["params"])]
+        pipe4 = TokenPipeline(PipelineConfig(SHARD_F32_BATCH, SHARD_F32_SEQ, cfg.vocab,
+                                             seed=seed + 3), cfg4, device="cuda")
+        b4 = pipe4.batch_at(0)
+        st, m4u = make_train_step(cfg4, tcfg4)(st, b4)
+        after_u = [p.clone() for p in tree_leaves(st["params"])]
+        f32_moved = max(float((p - q).abs().max()) for p, q in zip(after_u, params0))
+        restore_state(st, params0)
+        del params0
+        sst = shard_tree(st, state_pspecs(cfg4, tcfg4, mesh), mesh)
+        sst, m4s = make_train_step(cfg4, tcfg4, mesh)(sst, b4)
+        f32_param_err = max(float((p.full_tensor() - q).abs().max())
+                            for p, q in zip(tree_leaves(sst["params"]), after_u))
+        del after_u
+        f32_loss = (float(m4u["loss"]), float(m4s["loss"]))
+        f32_gnorm = (float(m4u["grad_norm"]), float(m4s["grad_norm"]))
+        cache_u = M.init_cache(cfg4, SERVE_BATCH, SHARD_DECODE_CHECK, "cuda")
+        cache_s = init_sharded_cache(cfg4, SERVE_BATCH, SHARD_DECODE_CHECK, mesh)
+        su, ss = make_serve_step(cfg4), make_serve_step(cfg4, mesh)
+        decode_excess = decode_err = 0.0
+        for pos in range(SHARD_DECODE_CHECK):
+            tk = prompts[:, pos:pos + 1]
+            lu, cache_u = su(st["params"], cache_u, tk, pos)
+            ls, cache_s = ss(sst["params"], cache_s, tk, pos)
+            ls = ls.full_tensor()
+            decode_excess = max(decode_excess, allclose_excess(ls, lu, DECODE_TOL))
+            decode_err = max(decode_err, float((ls - lu).abs().max()))
+        del st, sst, cache_u, cache_s
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    ref = train_ref or {}
+    train_tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("lm.shard", card=card_line, arch=LM_ARCH, world_size=1, backend="nccl",
+         mesh={"data": 1, "model": 1}, layers=cfg.n_layers,
+         prefill_batch=LM_BF16_BATCH, seq=LM_SEQ, prefill_launches=launches,
+         prefill_logits_placements=[repr(p) for p in local_heads[0]],
+         prefill_local_logits_shape=local_heads[1],
+         prefill_vs_unsharded_rel=prefill_rel, prefill_bitwise=prefill_bitwise,
+         prefill_tol=SHARD_PREFILL_TOL, prefill_walls_s=walls["sharded"],
+         unsharded_prefill_walls_s=walls["unsharded"],
+         prefill_tokens_per_s=tokens / sorted(walls["sharded"])[1],
+         unsharded_prefill_tokens_per_s=tokens / sorted(walls["unsharded"])[1],
+         decode_steps=dsteps, ms_per_decode_step=dec_ms["sharded"],
+         unsharded_ms_per_decode_step=dec_ms["unsharded"],
+         decode_same_tokens=same_tokens,
+         serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN),
+         train=TRAIN_CFG, train_batch=TRAIN_BATCH, train_seq=TRAIN_SEQ,
+         first_step_loss=met_s["loss"], unsharded_first_step_loss=met_u["loss"],
+         first_step_grad_norm=met_s["grad_norm"],
+         unsharded_first_step_grad_norm=met_u["grad_norm"],
+         unsharded_first_step_s=unsharded_step_s, step_walls_s=train_walls,
+         losses=losses, median_warm_step_s=warm,
+         train_tokens_per_s=train_tokens / warm,
+         lm_train_tokens_per_s=ref.get("train_tokens_per_s"),
+         peak_mem_gib=peak, lm_train_peak_mem_gib=ref.get("peak_mem_gib"),
+         train_launches=train_launches, state_placements=placements,
+         sync_debug="error after the first step; lifted only for the loss read",
+         f32_layers=SHARD_F32_LAYERS, f32_batch=SHARD_F32_BATCH, f32_seq=SHARD_F32_SEQ,
+         f32_train=SHARD_F32_TRAIN, f32_params_moved=f32_moved,
+         f32_param_err=f32_param_err, f32_loss=f32_loss, f32_grad_norm=f32_gnorm,
+         f32_decode_steps=SHARD_DECODE_CHECK, f32_decode_max_abs=decode_err,
+         f32_decode_over_tol=decode_excess, decode_tol=DECODE_TOL,
+         tol=dict(loss=SHARD_LOSS_TOL, params=SHARD_PARAM_TOL,
+                  grad_norm_rel=SHARD_GNORM_TOL),
+         phase_s=time.perf_counter() - t_phase)
+    check(launches["flash_attention"] == cfg.n_layers and sum(launches.values()) == cfg.n_layers,
+          f"lm.shard: the sharded prefill launched {launches}, expected "
+          f"{cfg.n_layers} flash_attention")
+    check(finite and prefill_rel <= SHARD_PREFILL_TOL,
+          f"lm.shard: sharded prefill vs unsharded {prefill_rel:.3e} of max|logits| "
+          f"> {SHARD_PREFILL_TOL} (or not finite)")
+    check(all(math.isfinite(x) for x in losses),
+          f"lm.shard: sharded train losses {losses}")
+    check(abs(met_s["loss"] - met_u["loss"]) <= SHARD_LOSS_TOL
+          and abs(met_s["grad_norm"] - met_u["grad_norm"])
+          <= SHARD_GNORM_TOL * met_u["grad_norm"],
+          f"lm.shard: first step loss {met_s['loss']} / {met_u['loss']}, grad norm "
+          f"{met_s['grad_norm']} / {met_u['grad_norm']} (sharded / unsharded)")
+    check(sum(train_launches.values()) == 0,
+          f"lm.shard: the train steps launched {train_launches}")
+    check(f32_moved > SHARD_PARAM_TOL and f32_param_err <= SHARD_PARAM_TOL
+          and abs(f32_loss[0] - f32_loss[1]) <= SHARD_LOSS_TOL,
+          f"lm.shard: float32 params after a step {f32_param_err:.3e} (moved "
+          f"{f32_moved:.3e}), loss {f32_loss}")
+    check(decode_excess <= 1.0, f"lm.shard: float32 sharded decode vs unsharded "
+          f"{decode_err:.3e} beyond {DECODE_TOL} (allclose)")
+    return launches
 
 
 def plan_specs_for(scale: float, block_size: int):
@@ -4431,7 +4737,12 @@ def main() -> int:
 
         # 23. training: no kernel runs under grad
         torch.cuda.empty_cache()
-        lm_train_phase(args.seed)
+        train_ref = lm_train_phase(args.seed)
+
+        # 24. the LM on a mesh: NCCL at world size 1, the sharded prefill
+        # through flash_attention on each rank's local heads
+        torch.cuda.empty_cache()
+        lm_shard_phase(args.seed, card_line, train_ref)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

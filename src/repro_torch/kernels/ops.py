@@ -3,7 +3,9 @@
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor runs the plain version in ``ref.py``; a CUDA tensor launches the
-hand-written kernel (or raises).  ``LAUNCHES`` counts kernel launches per
+hand-written kernel (or raises).  A DTensor raises on either device: its
+``data_ptr`` is not its shard's, so the caller hands a kernel each rank's
+local shard (``models/layers.py`` ``_local_heads``).  ``LAUNCHES`` counts kernel launches per
 wrapper and nothing else, so a run can show that it went through the
 kernels.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.covar_xtx import covar_xtx_cuda
@@ -38,11 +41,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _check_local(name: str, *tensors) -> None:
+    """A kernel reads raw pointers: a DTensor (whose ``data_ptr`` is not
+    its local shard's) raises rather than reach it."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes plain tensors, not DTensors: pass each "
+                        "rank's local shard (DTensor.to_local())")
+
+
 def _check_no_grad(name: str, *tensors) -> None:
     """No kernel has a backward (nor has the reference's Pallas kernel), and
     a kernel's output carries no ``grad_fn``: a wrapper called where
     autograd would record it raises on either device rather than return a
     result that trains on the CPU and silently detaches on the card."""
+    _check_local(name, *tensors)
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -13,6 +13,9 @@ unless the caller asks for the CPU.
     mesh = make_host_mesh(n_data=4, device_type="cpu")
     db = repro_torch.connect(ds, device="cpu",
                              config=ExecutionConfig(mesh=mesh))
+
+The same meshes carry the LM's sharded steps (``distributed/sharding.py``):
+``make_train_step(cfg, tcfg, make_host_mesh(n_data=2, n_model=2))``.
 """
 
 from __future__ import annotations

@@ -16,18 +16,38 @@ Attention offers three implementations:
   * ``flash``   — ``kernels/ops.py:flash_attention``, the counterpart of the
                   reference's ``pallas``: the hand-written CUDA kernel on
                   the card, its plain version on the CPU.  The default.
+
+Under a mesh (``distributed/sharding.py``) the tensors are DTensors.  Each
+weight is read through ``sharding.fsdp`` (its FSDP dimensions gathered
+where it is used); attention and the MLP first gather the sequence of their
+input (``constrain(x, "batch", None, None)``: the reference's GSPMD
+re-gathers a sequence-sharded residual inside the block, Megatron-SP); the
+embedding is a lookup into the vocab-sharded table (DTensor's masked
+partial sum; a plain ``w[tokens]`` index would gather the table).  The
+attention core runs on each rank's local (batch, heads) shard
+(``_local_heads``: every implementation, the flash kernel included, sees
+plain tensors), and decode attends over the length-sharded cache with a
+softmax whose max and sum are all-reduced over the length's ranks
+(``_decode_attention_sharded``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (carry_mesh, constrain, fsdp,
+                                              local_shard_offsets,
+                                              mesh_dims_sharding, place,
+                                              replicated_like)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
@@ -105,7 +125,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     dt = x.dtype
     x = wide(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * w.to(x.dtype)).to(dt)
+    return (x * fsdp(w).to(x.dtype)).to(dt)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -115,8 +135,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32, device=x.device)
                       * (math.log(theta) / half))
     ang = positions[..., None].float() * freqs             # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicated_like(torch.cos(ang)[..., None, :], x)
+    sin = replicated_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
@@ -167,7 +187,7 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int,
 
     if torch.is_grad_enabled():
         def run(qi, i):
-            return checkpoint(body, qi, k, v, i, use_reentrant=False,
+            return checkpoint(carry_mesh(body), qi, k, v, i, use_reentrant=False,
                               preserve_rng_state=False)
     else:
         def run(qi, i):
@@ -178,6 +198,10 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int,
 
 def attention_core(q, k, v, *, causal: bool = True, window: int = 0,
                    impl: str = "flash", chunk: int = 512):
+    if isinstance(q, DTensor):
+        return _local_heads(functools.partial(
+            attention_core, causal=causal, window=window, impl=impl,
+            chunk=chunk), q, k, v)
     if impl == "dense":
         return _dense_attention(q, k, v, causal=causal, window=window)
     if impl == "chunked":
@@ -192,6 +216,42 @@ def attention_core(q, k, v, *, causal: bool = True, window: int = 0,
         return o.transpose(1, 2)
     raise ValueError(f"unknown attention impl {impl!r} (the port has "
                      "'dense', 'chunked' and 'flash')")
+
+
+def _kv_heads_needed(h0: int, hl: int, g: int) -> Tuple[slice, Any]:
+    """The key/value heads that local query heads ``h0 .. h0 + hl − 1``
+    read (query head ``h`` reads ``h // g``): a slice where they group
+    evenly, so the local kernel's own ``j // (hl / n)`` mapping holds; else
+    one index a query head (plain multi-head attention locally)."""
+    need = [(h0 + j) // g for j in range(hl)]
+    n = need[-1] - need[0] + 1
+    if hl % n == 0 and need == [need[0] + j // (hl // n) for j in range(hl)]:
+        return slice(need[0], need[-1] + 1)
+    return need
+
+
+def _local_heads(fn, q, k, v):
+    """``fn`` over each rank's local shard: q (B, S, H, hd) with batch over
+    the batch axes and heads over ``model``, k and v (B, T, Kv, hd) alike,
+    or kv heads replicated where ``model`` does not divide them (GQA: 8 kv
+    heads on a 16-way axis); the sequence whole.  Where the kv heads are
+    replicated and the q heads split, each rank is given the kv heads its
+    global q heads read, and the gradients of k and v are partial sums over
+    the ranks that split the heads.  Returns a DTensor laid out like q."""
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv", None)
+    v = constrain(v, "batch", None, "kv", None)
+    mesh = q.device_mesh
+    (_, _, hl, _), (_, _, h0, _) = local_shard_offsets(q.shape, q.placements, mesh)
+    q_split, k_split = mesh_dims_sharding(q, 2), mesh_dims_sharding(k, 2)
+    grad_pl = tuple(Partial() if i in q_split and i not in k_split else p
+                    for i, p in enumerate(k.placements))
+    ql = q.to_local()
+    kl, vl = k.to_local(grad_placements=grad_pl), v.to_local(grad_placements=grad_pl)
+    if not k_split:
+        idx = _kv_heads_needed(h0, hl, q.shape[2] // k.shape[2])
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    return DTensor.from_local(fn(ql, kl, vl), mesh, q.placements, run_check=False)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
@@ -213,6 +273,56 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
     return o.reshape(b, 1, h, hd)
 
 
+def _all_reduce(t: torch.Tensor, mesh, dims, op) -> torch.Tensor:
+    """``t`` reduced in place over the mesh dimensions ``dims`` (one
+    collective each, in mesh order, on every rank alike)."""
+    for i in dims:
+        dist.all_reduce(t, op=op, group=mesh.get_group(i))
+    return t
+
+
+def _decode_attention_sharded(q, k, v, cache, widx: int, valid: int, *,
+                              window: int = 0):
+    """Decode against a cache (B, T, Kv, hd) whose length is sharded over
+    ``model`` (context-parallel decode; its kv heads instead where
+    ``model`` does not divide the length) and batch over the batch axes.
+    The new key and value are written at ``widx`` by the rank that holds
+    that position, and nowhere else; each rank scores its q heads (those
+    of its kv heads) against its part of the length, and the softmax's max
+    and sum and the weighted values are all-reduced over the length's
+    ranks.  q, k, v: (B, 1, ·, hd) DTensors; returns o (B, 1, H, hd) as a
+    DTensor split like the cache's batch and heads."""
+    ck, cv = cache["k"], cache["v"]
+    mesh = ck.device_mesh
+    heads = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                  for p in ck.placements)
+    ql, kn, vn = (place(x, mesh, heads).to_local() for x in (q, k, v))
+    ckl, cvl = ck.to_local(), cv.to_local()
+    (_, tl, _, _), (_, t0, _, _) = local_shard_offsets(ck.shape, ck.placements, mesh)
+    if t0 <= widx < t0 + tl:
+        ckl[:, widx - t0] = kn[:, 0].to(ckl.dtype)
+        cvl[:, widx - t0] = vn[:, 0].to(cvl.dtype)
+    b, _, h, hd = ql.shape
+    kv = ckl.shape[2]
+    scores = torch.einsum("bkgd,btkd->bkgt", ql.reshape(b, kv, h // kv, hd),
+                          ckl).float() / math.sqrt(hd)
+    cols = t0 + torch.arange(tl, device=ql.device)
+    mask = cols < valid
+    if window > 0:
+        mask &= cols > valid - 1 - window
+    scores = scores.masked_fill(~mask, -1e30)
+    length = mesh_dims_sharding(ck, 1)
+    m = _all_reduce(scores.amax(dim=-1, keepdim=True), mesh, length,
+                    dist.ReduceOp.MAX)
+    p = torch.exp(scores - m)
+    p = p / _all_reduce(p.sum(dim=-1, keepdim=True), mesh, length,
+                        dist.ReduceOp.SUM)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(ql.dtype), cvl).float()
+    o = _all_reduce(o, mesh, length, dist.ReduceOp.SUM).to(ql.dtype)
+    return DTensor.from_local(o.reshape(b, 1, h, hd), mesh, heads,
+                              run_check=False)
+
+
 # --------------------------------------------------------------------------
 # Standard GQA attention block (params + apply)
 # --------------------------------------------------------------------------
@@ -230,6 +340,7 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def proj_heads(x, w):
     """einsum("bsd,dhk->bshk") as one matrix product."""
+    w = fsdp(w)
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
@@ -242,6 +353,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, positions, impl="flash",
     ``cross_kv``: (k, v) projected from a context (cross-attention): q is
     not roped, no cache is read or written, and attention is non-causal
     (decode passes ``impl="dense"``)."""
+    x = constrain(x, "batch", None, None)
     q = proj_heads(x, p["wq"])
     if cross_kv is not None:
         k, v = cross_kv
@@ -261,15 +373,20 @@ def attn_apply(p, x, cfg: ModelConfig, *, positions, impl="flash",
             widx = decode_pos
             valid = decode_pos + 1
             ring_window = cfg.window
-        cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
-        o = decode_attention(q, cache["k"], cache["v"], valid,
-                             window=ring_window)
+        if isinstance(cache["k"], DTensor):
+            o = _decode_attention_sharded(q, k, v, cache, widx, valid,
+                                          window=ring_window)
+        else:
+            cache["k"][:, widx:widx + 1] = k.to(cache["k"].dtype)
+            cache["v"][:, widx:widx + 1] = v.to(cache["v"].dtype)
+            o = decode_attention(q, cache["k"], cache["v"], valid,
+                                 window=ring_window)
     else:
         o = attention_core(q, k, v, causal=causal and cross_kv is None,
                            window=cfg.window, impl=impl, chunk=cfg.attn_chunk)
-    h, hd, d = p["wo"].shape
-    out = o.reshape(*o.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
+    wo = fsdp(p["wo"])
+    h, hd, d = wo.shape
+    out = o.reshape(*o.shape[:2], h * hd) @ wo.reshape(h * hd, d)
     return out, cache
 
 
@@ -287,9 +404,10 @@ def mlp_specs(d: int, f: int) -> Dict[str, ParamSpec]:
 
 
 def mlp_apply(p, x):
-    g = torch.nn.functional.silu(x @ p["wg"])
-    u = x @ p["wu"]
-    return (g * u) @ p["wd"]
+    x = constrain(x, "batch", None, None)
+    g = torch.nn.functional.silu(x @ fsdp(p["wg"]))
+    u = x @ fsdp(p["wu"])
+    return (g * u) @ fsdp(p["wd"])
 
 
 # --------------------------------------------------------------------------
@@ -303,8 +421,15 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p, tokens):
-    return p["embedding"][tokens]
+    w = fsdp(p["embedding"])
+    if isinstance(w, DTensor):
+        # vocab-parallel: a masked partial sum over the vocab's ranks,
+        # reduced here, where DTensor still holds its mask
+        tokens = constrain(tokens, "batch", None)
+        return constrain(torch.nn.functional.embedding(tokens, w),
+                         "batch", None, None)
+    return w[tokens]
 
 
 def logits_apply(p, x):
-    return x @ p["embedding"].t()
+    return x @ fsdp(p["embedding"]).t()

@@ -14,9 +14,12 @@ The reference's ``lax.scan`` over stacked layers is a Python loop that
 indexes the stacked tensors (two levels for the hybrid's groups and the
 VLM's super-blocks).  Its ``remat`` is ``torch.utils.checkpoint`` around
 each layer, taken only under grad (``_maybe_remat``); its ``scan_unroll``
-(a switch of XLA's cost analysis) has no counterpart.  Without a mesh the
-reference's sharding constraints are no-ops: the port leaves them out until
-sharding is ported (ROADMAP Queue 1).
+(a switch of XLA's cost analysis) has no counterpart.  The reference's
+sharding constraints (``distributed/sharding.py`` ``constrain``) stand
+where it has them: no-ops without a mesh.  Under a mesh (the train, prefill
+and serve steps' ``mesh_context``) parameters, activations and the decode
+cache are DTensors; the dense and MoE families with GQA attention run
+there (``MESH_FAMILIES``), the others raise.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import carry_mesh, constrain, current_mesh
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -36,11 +40,19 @@ from repro_torch.models.layers import (ParamSpec, attn_apply, attn_specs,
                                        mlp_specs, p_, proj_heads, rms_norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+#: the families a mesh runs (with GQA attention: not MLA's latent)
+MESH_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+    if current_mesh() is not None and (cfg.family not in MESH_FAMILIES
+                                       or cfg.kv_lora):
+        raise NotImplementedError(
+            f"{cfg.name}: the port shards the {MESH_FAMILIES} families with "
+            f"GQA attention over a mesh, not {cfg.family!r}"
+            + (" with MLA" if cfg.kv_lora else ""))
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +171,7 @@ def dense_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None,
                         decode_pos=decode_pos, causal=causal)
     x = x + h
     x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
-    return x, nc
+    return constrain(x, "batch", "seq", None), nc
 
 
 def moe_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None):
@@ -168,7 +180,7 @@ def moe_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None):
                         decode_pos=decode_pos)
     x = x + h
     h, aux = moe_mod.moe_apply(p["moe"], rms_norm(x, p["ln2"]), cfg)
-    return x + h, nc, aux
+    return constrain(x + h, "batch", "seq", None), nc, aux
 
 
 def ssm_block(p, x, cfg, *, state=None):
@@ -178,7 +190,7 @@ def ssm_block(p, x, cfg, *, state=None):
     if state is not None:
         state["h"].copy_(ns["h"])
         state["conv"].copy_(ns["conv"])
-    return x + h
+    return constrain(x + h, "batch", "seq", None)
 
 
 def _cross_kv(p, context):
@@ -191,7 +203,8 @@ def cross_block(p, x, cfg, *, context, impl):
     h, _ = attn_apply(p["attn"], rms_norm(x, p["ln1"]), cfg, positions=None,
                       impl=impl, causal=False, cross_kv=_cross_kv(p["attn"], context))
     x = x + h
-    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+    return constrain(x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"])),
+                     "batch", "seq", None)
 
 
 def decoder_block(p, x, cfg, *, enc, positions, impl, cache=None,
@@ -205,7 +218,8 @@ def decoder_block(p, x, cfg, *, enc, positions, impl, cache=None,
     h, _ = attn_apply(p["cross"], rms_norm(x, p["ln2"]), cfg, positions=None,
                       impl=impl, causal=False, cross_kv=_cross_kv(p["cross"], enc))
     x = x + h
-    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln3"]))
+    return constrain(x + mlp_apply(p["mlp"], rms_norm(x, p["ln3"])),
+                     "batch", "seq", None)
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
@@ -218,7 +232,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
         return fn
 
     def remat(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(carry_mesh(fn), *args, use_reentrant=False,
                           preserve_rng_state=False, **kwargs)
 
     return remat
@@ -232,7 +246,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             impl: str = "flash") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x, aux = forward_hidden(params, batch, cfg, impl)
-    return logits_apply(params, x), aux
+    return constrain(logits_apply(params, x), "batch", None, "vocab"), aux
 
 
 def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -247,6 +261,7 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = embed_apply(params, tokens).to(cfg.torch_dtype)
+    x = constrain(x, "batch", "seq", None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
     dense = _maybe_remat(dense_block, cfg)
@@ -433,4 +448,4 @@ def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig,
             x = ssm_block(layer(params["tail"], i), x, cfg,
                           state=layer(cache["tail"], i))
     x = rms_norm(x, params["final_norm"])
-    return logits_apply(params, x), cache
+    return constrain(logits_apply(params, x), "batch", None, "vocab"), cache

@@ -12,8 +12,22 @@ output.
 Each kept bucket receives exactly one token, so the buckets are built by
 one ``index_copy_`` into ``E·C + 1`` rows a group whose last row takes every
 overflow and is dropped (the reference's ``segment_sum`` of masked rows
-gives the same values).  The reference's sharding constraints are no-ops
-without a mesh and are left out until sharding is ported.
+gives the same values).  The reference's sharding constraints on the
+buckets and the expert outputs stand where it has them (no-ops without a
+mesh).
+
+Under a mesh (x a DTensor) the dispatch runs on each rank's local tokens:
+x's sequence is gathered and its batch kept over the batch axes where the
+dispatch groups split evenly with it (else the tokens are replicated), so
+each rank routes whole groups of its own.  DTensor has no sharding rule
+for ``topk``, ``one_hot``/``cumsum`` ranks, ``index_copy_`` or
+``index_select`` over a flattened (group, expert, slot) index, so these run
+on plain local tensors: the router is replicated for them (one d × E
+tensor), the load-balance loss's token sums are partial sums over the
+batch axes, reduced by DTensor.  The buckets become a DTensor again for
+the expert products, sharded over ``experts`` by the reference's
+``constrain`` (expert parallelism over ``model``), and the expert outputs
+are gathered over ``model`` for the combine.
 """
 
 from __future__ import annotations
@@ -23,7 +37,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.distributed.sharding import (constrain, fsdp,
+                                              mesh_dims_sharding, place)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec, p_, wide
 
@@ -76,6 +93,56 @@ def dispatch(top_e: torch.Tensor, cfg: ModelConfig, ng: int):
     return pos, pos < cap, cap
 
 
+class _Tokens:
+    """Where ``moe_apply``'s local tensors live: ``mesh`` None (plain
+    tensors, every method the identity) or the mesh with the placements of
+    the dispatch's tokens: batch over ``bdims`` (dimension 0), everything
+    else replicated."""
+
+    def __init__(self, x, ng: int):
+        self.mesh = x.device_mesh if isinstance(x, DTensor) else None
+        self.bdims = []
+        if self.mesh is None:
+            self.x = x
+            return
+        x = constrain(x, "batch", None, None)
+        bdims = mesh_dims_sharding(x, 0)
+        if ng % math.prod(self.mesh.size(i) for i in bdims):
+            bdims = []                   # groups straddle ranks: replicate
+        self.bdims = bdims
+        self.x = place(x, self.mesh, self.placements())
+
+    def placements(self, partial: bool = False):
+        return tuple((Partial() if partial else Shard(0)) if i in self.bdims
+                     else Replicate() for i in range(self.mesh.ndim))
+
+    def local(self, t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def replicated(self, w):
+        """A parameter whole on every rank, as a local tensor whose
+        gradient is a partial sum over the batch axes."""
+        if self.mesh is None:
+            return w
+        w = place(w, self.mesh, (Replicate(),) * self.mesh.ndim)
+        return w.to_local(grad_placements=self.placements(partial=True))
+
+    def like_x(self, t):
+        """A local tensor with one row block a rank, as a DTensor."""
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh, self.placements(),
+                                  run_check=False)
+
+    def total(self, t):
+        """The sum over every rank's tokens of a local partial sum."""
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh, self.placements(partial=True),
+                                  run_check=False).redistribute(
+            self.mesh, (Replicate(),) * self.mesh.ndim)
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss)."""
     b, s, d = x.shape
@@ -83,44 +150,54 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch
     t = b * s
     ng = _dispatch_groups(cfg, t)
     tg = t // ng
-    xf = x.reshape(t, d)
+    tok = _Tokens(x, ng)
+    xf = tok.local(tok.x).reshape(-1, d)                  # this rank's tokens
+    ngl = xf.shape[0] // tg                               # and its groups
 
-    probs, top_w, top_e = route(p, xf, cfg)
+    probs, top_w, top_e = route({"router": tok.replicated(p["router"])}, xf, cfg)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
     # Switch aux loss: fraction of assignments per expert × mean router prob
-    load = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, top_e.reshape(-1), torch.ones(t * k, dtype=torch.float32,
-                                         device=x.device)) / (t * k)
-    aux = e * torch.sum(load * probs.mean(dim=0))
+    counts = torch.zeros(e, dtype=torch.float32, device=xf.device).index_add_(
+        0, top_e.reshape(-1), torch.ones(top_e.numel(), dtype=torch.float32,
+                                         device=xf.device))
+    if tok.mesh is None:
+        load, mean_p = counts / (t * k), probs.mean(dim=0)
+    else:
+        load, mean_p = tok.total(counts) / (t * k), tok.total(probs.sum(dim=0)) / t
+    aux = e * torch.sum(load * mean_p)
 
     # per-group capacity bucketing: rank within (group, expert) via cumsum
-    pos, keep, cap = dispatch(top_e, cfg, ng)
-    ge = top_e.reshape(ng, tg * k)
-    w_kept = torch.where(keep, top_w.reshape(ng, tg * k), 0.0)
+    pos, keep, cap = dispatch(top_e, cfg, ngl)
+    ge = top_e.reshape(ngl, tg * k)
+    w_kept = torch.where(keep, top_w.reshape(ngl, tg * k), 0.0)
     rows = e * cap + 1                                     # + overflow row
-    group = torch.arange(ng, device=x.device)[:, None]
+    group = torch.arange(ngl, device=xf.device)[:, None]
     bucket = group * rows + torch.where(keep, ge * cap + pos, e * cap)
     src = xf.repeat_interleave(k, dim=0)                   # (t·k, d)
-    buckets = torch.zeros(ng * rows, d, dtype=x.dtype, device=x.device)
+    buckets = torch.zeros(ngl * rows, d, dtype=x.dtype, device=xf.device)
     buckets.index_copy_(0, bucket.reshape(-1), src)
-    buckets = buckets.reshape(ng, rows, d)[:, :-1].reshape(ng, e, cap, d)
+    buckets = buckets.reshape(ngl, rows, d)[:, :-1].reshape(ngl, e, cap, d)
+    buckets = constrain(tok.like_x(buckets), "batch", "experts", None, None)
 
     # batched per-expert SwiGLU
-    g = F.silu(torch.einsum("gecd,edf->gecf", buckets, p["wg"]))
-    u = torch.einsum("gecd,edf->gecf", buckets, p["wu"])
-    yb = torch.einsum("gecf,efd->gecd", g * u, p["wd"])    # (g, e, cap, d)
+    g = F.silu(torch.einsum("gecd,edf->gecf", buckets, fsdp(p["wg"])))
+    u = torch.einsum("gecd,edf->gecf", buckets, fsdp(p["wu"]))
+    yb = torch.einsum("gecf,efd->gecd", g * u, fsdp(p["wd"]))  # (g, e, cap, d)
+    yb = constrain(yb, "batch", "experts", None, None)
+    if tok.mesh is not None:                               # every expert's rows
+        yb = place(yb, tok.mesh, tok.placements())
 
     # gather back + weighted combine over the k assignments
     safe = group * (e * cap) + torch.where(keep, ge * cap + pos, 0)
-    y_flat = yb.reshape(ng * e * cap, d).index_select(0, safe.reshape(-1))
-    y = (y_flat * w_kept.reshape(-1, 1).to(y_flat.dtype)).reshape(t, k, d).sum(dim=1)
+    y_flat = tok.local(yb).reshape(ngl * e * cap, d).index_select(0, safe.reshape(-1))
+    y = (y_flat * w_kept.reshape(-1, 1).to(y_flat.dtype)).reshape(-1, k, d).sum(dim=1)
 
-    out = y.reshape(b, s, d).to(x.dtype)
+    out = tok.like_x(y.reshape(-1, s, d).to(x.dtype))
     if cfg.n_shared_experts:
-        gs = F.silu(x @ p["swg"])
-        us = x @ p["swu"]
-        out = out + (gs * us) @ p["swd"]
+        gs = F.silu(tok.x @ fsdp(p["swg"]))
+        us = tok.x @ fsdp(p["swu"])
+        out = out + (gs * us) @ fsdp(p["swd"])
     return out, aux
 
 

@@ -9,6 +9,13 @@ deepseek, SSM states for Mamba2, both for the hybrid).  A VLM or audio
 server takes the raw context (vision embeddings or frames) and encodes it
 once.  There is no ``jit``: the step runs eagerly, and the decode cache is
 updated in place.
+
+``make_serve_step(cfg, mesh)`` runs the step on a mesh's ranks: parameters
+placed by ``param_pspecs(M.model_specs(cfg))`` and the cache by
+``param_pspecs(M.cache_specs(...))`` (``init_sharded_cache``), its length
+over ``model`` (context-parallel decode: each rank attends over its part
+of the length, and the new entry is written by the rank that holds its
+position).
 """
 
 from __future__ import annotations
@@ -19,19 +26,32 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (mesh_context, param_pspecs,
+                                              rules_for, shard_tree)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.device import resolve_device
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """serve_step(params, cache, tokens(B,1), pos, context?) ->
-    (logits(B,1,V), cache)."""
+    (logits(B,1,V), cache); with ``mesh`` on its ranks (logits a DTensor,
+    batch over the batch axes, vocab over ``model``)."""
 
     def serve_step(params, cache, tokens, pos, context=None):
-        return M.decode_step(params, cache, tokens, pos, cfg, context=context)
+        with mesh_context(mesh):
+            return M.decode_step(params, cache, tokens, pos, cfg, context=context)
 
     return serve_step
+
+
+def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh):
+    """A zero decode cache placed on ``mesh`` by the reference's cache
+    specs (``cache_seq`` over ``model``, ``cache_batch`` over the batch
+    axes), on the mesh's device type."""
+    specs = param_pspecs(M.cache_specs(cfg, batch, max_len), rules_for(mesh), mesh)
+    return shard_tree(M.init_cache(cfg, batch, max_len, mesh.device_type),
+                      specs, mesh)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

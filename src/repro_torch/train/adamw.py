@@ -11,6 +11,13 @@ pieces of at most ``PIECE`` elements, so its float32 temporaries stay a few
 hundred MB whatever the leaf (a stacked leaf of a large model holds
 billions of elements).  ``torch.optim.AdamW`` is not used: it keeps bf16
 moments for bf16 parameters.
+
+Sharded state (DTensor leaves, ``distributed/sharding.py``): the update is
+elementwise over a parameter, its gradient and moments, which share their
+placements, so it runs on the local shards (``_pieces`` of a sharded leaf
+has no DTensor rule); ``global_norm`` sums each leaf's local squares over
+the mesh dimensions that shard it, never over those that replicate it, so
+every element counts once.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import dataclasses
 from typing import Any, Callable, List, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 #: elements of one piece of the in-place update (a 512 MB float32 temporary)
 PIECE = 1 << 27
@@ -71,12 +80,38 @@ def init_moments(params) -> Tuple[Any, Any]:
     return tree_map(z, params), tree_map(z, params)
 
 
+def local(t):
+    """A DTensor's local shard (a replicated scalar's value); anything else
+    as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def shard_dims(t) -> Tuple[int, ...]:
+    """The mesh dimensions a DTensor is sharded over (none for a plain
+    tensor)."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(t.placements) if isinstance(p, Shard))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ over leaves of Σ x²), each leaf in float32 (no float32 copy
-    of a bf16 leaf is made)."""
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square()
-          for x in tree_leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    of a bf16 leaf is made).  Sharded leaves add their local squares, summed
+    over the mesh dimensions that shard them: one all-reduce per set of
+    such dimensions, in the same order on every rank."""
+    groups = {}
+    for x in tree_leaves(tree):
+        sq = torch.linalg.vector_norm(local(x), dtype=torch.float32).square()
+        groups.setdefault(shard_dims(x), []).append(sq)
+    mesh = next((x.device_mesh for x in tree_leaves(tree)
+                 if isinstance(x, DTensor)), None)
+    total = []
+    for dims in sorted(groups):
+        part = torch.stack(groups[dims]).sum()
+        for i in dims:
+            dist.all_reduce(part, group=mesh.get_group(i))
+        total.append(part)
+    return torch.sqrt(torch.stack(total).sum())
 
 
 def _clip_scale(n: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -102,12 +137,17 @@ def update(params, grads, m, v, step, lr, cfg: AdamWConfig):
     reference's ``clip_by_global_norm`` returns it."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
+    step, lr = local(step), local(lr)
     t = (step.to(torch.float32) if isinstance(step, torch.Tensor)
          else torch.tensor(float(step))) + 1.0
     bc1 = 1.0 - torch.pow(cfg.b1, t)
     bc2 = 1.0 - torch.pow(cfg.b2, t)
-    for p, g, m_, v_ in zip(tree_leaves(params), tree_leaves(grads),
-                            tree_leaves(m), tree_leaves(v)):
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(m), tree_leaves(v)):
+        if len({tuple(x.placements) for x in leaf if isinstance(x, DTensor)}) > 1:
+            raise ValueError("a parameter, its gradient and moments must share "
+                             "their placements")
+        p, g, m_, v_ = (local(x) for x in leaf)
         if not (p.is_contiguous() and m_.is_contiguous() and v_.is_contiguous()):
             raise ValueError("update writes parameters and moments in place: "
                              "they must be contiguous")

@@ -15,6 +15,12 @@ The loop's one host synchronisation a step is the read of the loss; a
 checkpoint copies the state to the host.  Both lift
 ``torch.cuda.set_sync_debug_mode`` while they run, so a caller can run the
 steps under ``"error"`` and see any other synchronisation raise.
+
+A sharded state (DTensor leaves, ``make_train_step(..., mesh)``) runs the
+same loop on every rank: a checkpoint gathers the state on every rank,
+global rank 0 alone writes it, and every rank waits on a barrier after the
+write (as the engine's ``save_view_state``), so a resume reads a complete
+checkpoint; a resume places each leaf as the running state's.
 """
 
 from __future__ import annotations
@@ -26,10 +32,13 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.models.weights import state_from_numpy, state_to_numpy
+from repro_torch.train.adamw import tree_leaves
 
 
 @dataclasses.dataclass
@@ -63,6 +72,20 @@ def host_sync():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def _save(ckpt_dir: str, step: int, host, keep: int, state) -> str:
+    """``store.save`` of a gathered state: on a mesh global rank 0 writes
+    and every rank returns after a barrier."""
+    sharded = any(isinstance(t, DTensor) for t in tree_leaves(state))
+    if not sharded:
+        return store.save(ckpt_dir, step, host, keep=keep)
+    if dist.get_rank() == 0:
+        path = store.save(ckpt_dir, step, host, keep=keep)
+    else:
+        path = f"{ckpt_dir}/step_{step:08d}"
+    dist.barrier()
+    return path
 
 
 class TrainLoop:
@@ -109,7 +132,7 @@ class TrainLoop:
                                              or done == cfg.max_steps):
                 with host_sync():
                     host = state_to_numpy(state)
-                path = store.save(cfg.ckpt_dir, done, host, keep=cfg.keep)
+                    path = _save(cfg.ckpt_dir, done, host, cfg.keep, state)
                 self.log(f"[loop] checkpoint @ step {done} -> {path}")
         self.state = state
         return state

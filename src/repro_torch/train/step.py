@@ -15,24 +15,38 @@ when ``cfg.remat`` is set.  State layout (a plain dict tree): params / m /
 v / step / (ef residual); a step updates its tensors in place (the
 reference's launcher donates them) and returns the state with
 ``{"loss", "grad_norm", "lr"}`` as device tensors: nothing in a step reads
-a value on the host.  The steps take no mesh: sharding waits for the
-port's ``distributed/sharding.py``, and with it the reference's
-``abstract_state``, ``state_pspecs`` and ``batch_pspecs``.
+a value on the host.
+
+With a mesh (a ``DeviceMesh`` with the reference's axis names) the steps
+run under ``distributed/sharding.py``'s ``mesh_context``: the state is a
+tree of DTensors placed by ``state_pspecs`` (``shard_tree``), the batch by
+``batch_pspecs``' rule (a plain batch, the same on every rank, is cut
+locally; a sharded one is gathered first when ``grad_accum`` slices it into
+microbatches: token ids only), gradients come back in their parameter's
+placements, the optimizer and the gradient compression run on the local
+shards, and the metrics are plain replicated tensors on every rank.
+``abstract_state`` gives the state's shapes and dtypes on the ``meta``
+device, with no allocation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import compression as comp
+from repro_torch.distributed.sharding import (P, carry_mesh, constrain, fsdp,
+                                              mesh_context, param_pspecs, place,
+                                              rules_for, spec_for)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_params, logits_apply, wide
+from repro_torch.models.layers import init_params, logits_apply, map_specs, wide
 from repro_torch.train import adamw
 from repro_torch.train.schedules import SCHEDULES
 
@@ -59,9 +73,32 @@ def _ce_sum(params, xi, li, mi):
     """Σ (log-sum-exp − gold logit) · mask over one chunk: the head's
     logits in float32 (float64 for a float64 model)."""
     logits = wide(logits_apply(params, xi))
+    logits = constrain(logits, "batch", None, "vocab")
+    if isinstance(logits, DTensor):
+        return _local_ce_sum(logits, li, mi)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
     return torch.sum((lse - gold) * mi)
+
+
+def _local_ce_sum(logits, li, mi):
+    """``_ce_sum`` under a mesh: the chunk's logits gathered over vocab,
+    then the sum over each rank's own rows on local tensors, all-reduced
+    over the batch's ranks.  DTensor's gather of a gold logit from
+    vocab-sharded logits gives a masked partial sum that its later ops
+    fail to reduce (torch 2.11 and 2.13), and whether it shards the gather
+    is its cost model's choice: so none is asked of it."""
+    logits = constrain(logits, "batch", None, None)
+    li, mi = constrain(li, "batch", None), constrain(mi, "batch", None)
+    ll = logits.to_local()
+    lse = torch.logsumexp(ll, dim=-1)
+    gold = torch.gather(ll, -1, li.to_local()[..., None].long())[..., 0]
+    part = torch.sum((lse - gold) * mi.to_local())
+    mesh = logits.device_mesh
+    rows = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in logits.placements)
+    return DTensor.from_local(part, mesh, rows, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
 
 
 def chunked_ce(params, x, labels, mask, cfg: ModelConfig, chunk: int):
@@ -70,13 +107,14 @@ def chunked_ce(params, x, labels, mask, cfg: ModelConfig, chunk: int):
     reference pads it with masked rows: the same sum)."""
     s = x.shape[1]
     chunk = min(chunk, s)
+    params = {"embedding": fsdp(params["embedding"])}     # gathered once
 
     def chunk_loss(xi, li, mi):
         return _ce_sum(params, xi, li, mi)
 
     if torch.is_grad_enabled():
         def run(*xs):
-            return checkpoint(chunk_loss, *xs, use_reentrant=False,
+            return checkpoint(carry_mesh(chunk_loss), *xs, use_reentrant=False,
                               preserve_rng_state=False)
     else:
         run = chunk_loss
@@ -106,19 +144,48 @@ def _check_attn(tcfg: TrainConfig) -> None:
             "(the reference's Pallas kernel has none either)")
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """Returns train_step(state, batch) -> (state, metrics)."""
+def _value(t):
+    """A metric as a plain tensor: a DTensor's replicated value."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
+    return t
+
+
+def _placed(batch):
+    """Under a mesh each batch leaf cut to its batch shard (``batch_pspecs``'
+    spec, replicated where the batch axes do not divide it); as it is
+    without one."""
+    return {k: constrain(a, "batch", *([None] * (a.dim() - 1)))
+            for k, a in batch.items()}
+
+
+def _whole(t):
+    """A batch leaf whole on every rank: a sharded one is gathered (token
+    ids, a few MB at most)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, rules=None):
+    """Returns train_step(state, batch) -> (state, metrics); with ``mesh``
+    the step runs on its ranks (every rank calls it alike)."""
     _check_attn(tcfg)
     sched = SCHEDULES[tcfg.schedule]
 
     def grads_of(params, leaves, batch):
-        loss, _ = _loss_fn(params, batch, cfg, tcfg)
+        loss, _ = _loss_fn(params, _placed(batch), cfg, tcfg)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not reach has a zero gradient, as in JAX
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        # a leaf the loss does not reach has a zero gradient, as in JAX;
+        # under a mesh each comes back in its parameter's placements
+        return loss.detach(), [torch.zeros_like(p) if g is None else
+                               place(g, p.device_mesh, p.placements)
+                               if isinstance(p, DTensor) else g
                                for p, g in zip(leaves, gs)]
 
     def train_step(state, batch):
+        with mesh_context(mesh, rules):
+            return step_body(state, batch)
+
+    def step_body(state, batch):
         params = state["params"]
         leaves = adamw.tree_leaves(params)
         for p in leaves:
@@ -127,9 +194,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             with torch.enable_grad():
                 if tcfg.grad_accum > 1:
                     n = tcfg.grad_accum
+                    batch = {k: _whole(a) for k, a in batch.items()}
                     per = batch["tokens"].shape[0] // n
-                    sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                            for p in leaves]
+                    sums = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
                     loss = torch.zeros((), dtype=torch.float32,
                                        device=batch["tokens"].device)
                     for i in range(n):
@@ -154,8 +221,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         else:
             new_ef = state.get("ef")
 
-        lr = sched(state["step"], peak_lr=tcfg.peak_lr, warmup=tcfg.warmup,
-                   total=tcfg.total_steps)
+        lr = sched(adamw.local(state["step"]), peak_lr=tcfg.peak_lr,
+                   warmup=tcfg.warmup, total=tcfg.total_steps)
         new_p, new_m, new_v, gnorm = adamw.update(
             params, grads, state["m"], state["v"], state["step"], lr, tcfg.adam)
         del grads
@@ -163,18 +230,23 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                      "step": state["step"] + 1}
         if new_ef is not None:
             new_state["ef"] = new_ef
-        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return new_state, {"loss": _value(loss), "grad_norm": gnorm, "lr": lr}
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """Forward-only prefill: backbone + last-position logits."""
+def make_prefill_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, rules=None):
+    """Forward-only prefill: backbone + last-position logits (under a mesh
+    a DTensor, batch over the batch axes and vocab over ``model``)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x, _ = M.forward_hidden(params, batch, cfg, impl=tcfg.attn_impl)
-        return logits_apply(params, x[:, -1:, :])
+        with mesh_context(mesh, rules):
+            x, _ = M.forward_hidden(params, _placed(batch), cfg,
+                                    impl=tcfg.attn_impl)
+            # the last position of a sequence-sharded x: gathered first
+            x = constrain(x, "batch", None, None)
+            return logits_apply(params, x[:, -1:, :])
 
     return prefill_step
 
@@ -200,3 +272,38 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig,
             lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
             params)
     return state
+
+
+def abstract_state(cfg: ModelConfig, tcfg: TrainConfig) -> Dict[str, Any]:
+    """The state's tree of shapes and dtypes as tensors on the ``meta``
+    device: nothing is allocated (the reference's ``ShapeDtypeStruct``
+    tree)."""
+    params = map_specs(lambda s: torch.empty(s.shape, dtype=cfg.torch_dtype,
+                                             device="meta"), M.model_specs(cfg))
+    f32 = functools.partial(torch.empty_like, dtype=torch.float32)
+    state = {"params": params, "m": adamw.tree_map(f32, params),
+             "v": adamw.tree_map(f32, params),
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    if tcfg.compress_grads:
+        state["ef"] = adamw.tree_map(f32, params)
+    return state
+
+
+def state_pspecs(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    rules = rules_for(mesh)
+    pspec = param_pspecs(M.model_specs(cfg), rules, mesh)
+    state = {"params": pspec, "m": pspec, "v": pspec, "step": P()}
+    if tcfg.compress_grads:
+        state["ef"] = pspec
+    return state
+
+
+def batch_pspecs(cfg: ModelConfig, mesh):
+    rules = rules_for(mesh)
+    bspec = spec_for(("batch", None), rules)
+    out = {"tokens": bspec}
+    if cfg.family == "vlm":
+        out["vision"] = spec_for(("batch", None, None), rules)
+    if cfg.family == "audio":
+        out["frames"] = spec_for(("batch", None, None), rules)
+    return out

@@ -1332,3 +1332,23 @@ def test_two_gloo_ranks_on_the_card_sum_to_one_rank(cuda_device, tmp_path):
     for (C0, N0), (C1, N1) in zip(ranks[0]["ticks"], ranks[1]["ticks"]):
         np.testing.assert_array_equal(C0, C1)
         assert N0 == N1
+
+
+# ------------------------------------------------------ the LM on a mesh
+
+def test_world_size_1_nccl_sharded_prefill_and_train(cuda_device, tmp_path):
+    """World size 1 over NCCL, in a subprocess, on a (1, 1) mesh: the
+    sharded bf16 prefill launches ``flash_attention`` once a layer on the
+    local heads and reads the unsharded prefill's logits (the same kernels
+    on the same tensors); a kernel wrapper refuses a DTensor; warm sharded
+    train steps run under sync-debug "error"."""
+    from torch_dist_harness import card_lm_case, run_ranks
+
+    r, = run_ranks(card_lm_case, 1, tmp_path, backend="nccl")
+    cfg = configs.get_smoke("internlm2-1.8b")
+    assert r["launches"]["flash_attention"] == cfg.n_layers
+    assert sum(r["launches"].values()) == cfg.n_layers
+    scale = np.abs(r["want"]).max()
+    assert np.abs(r["got"] - r["want"]).max() <= 1e-2 * scale
+    assert r["refused"] is not None and "not DTensors" in r["refused"]
+    assert all(np.isfinite(r["losses"]))

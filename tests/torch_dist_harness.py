@@ -110,10 +110,11 @@ def host(out):
     return {k: v.detach().cpu().double().numpy() for k, v in out.items()}
 
 
-def mesh_of(shape, names):
-    """A CPU mesh over the whole group (the reference's ``jax.make_mesh``)."""
+def mesh_of(shape, names, device_type="cpu"):
+    """A mesh over the whole group (the reference's ``jax.make_mesh``), on
+    the CPU unless ``device_type`` says otherwise."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
 
 
 def chain_tables(seed=7):
@@ -423,3 +424,167 @@ def card_covar_case(rank, world, scale, n_ticks):
     return dict(C_s=C_s, N_s=N_s, C_l=C_l, N_l=N_l, launches_s=launches_s,
                 launches_l=launches_l, ticks=ticks, builds=builds,
                 tables={a: np.asarray(c) for a, c in fact.items()})
+
+
+# --------------------------------------------------------------- LM cases
+
+def _local_shapes(tree):
+    """``[(global shape, local shape)]`` of a tree's DTensor leaves, in
+    ``tree_leaves`` order."""
+    from repro_torch.train.adamw import tree_leaves
+
+    return [(tuple(t.shape), tuple(t.to_local().shape)) for t in tree_leaves(tree)]
+
+
+def lm_case(rank, world, runs, tmp_dir=None):
+    """The LM's sharded steps: for each ``(shape, cases)`` of ``runs`` a
+    ``("data", "model")`` mesh of ``shape`` over the whole group (several
+    meshes share one group), one dict a case (smoke configs, numpy inputs
+    made by the parent); a list of results a run:
+
+      * ``train``: ``state`` placed by ``state_pspecs``, a step a batch of
+        ``batches`` (the smoke config with ``cfg``'s overrides); the metrics, the gathered params and every leaf's
+        (global, local) shape after the steps;
+      * ``prefill``: ``params`` placed by ``param_pspecs``, one prefill of
+        ``tokens`` with ``impl``; the gathered logits;
+      * ``decode``: a zero cache placed by the cache specs, one step a
+        column of ``tokens``; the gathered logits of each and the cache's
+        shapes;
+      * ``loop``: ``TrainLoop`` runs of ``steps`` steps, straight and
+        stopped at ``stop`` then resumed from its checkpoint (under
+        ``tmp_dir``); both runs' losses and params.
+    """
+    return [_lm_cases(shape, cases, os.path.join(tmp_dir, "x".join(map(str, shape))))
+            for shape, cases in runs]
+
+
+def _lm_cases(shape, cases, tmp_dir):
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed.sharding import param_pspecs, rules_for
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import params_from_numpy, state_to_numpy
+    from repro_torch.serve.engine import init_sharded_cache, make_serve_step
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import (TrainConfig, make_prefill_step,
+                                        make_train_step, state_pspecs)
+
+    mesh = mesh_of(shape, ("data", "model"))
+    rules = rules_for(mesh)
+    out = []
+    for case in cases:
+        cfg = configs.get_smoke(case["arch"]).with_(**case.get("cfg", {}))
+        kind = case["kind"]
+        if kind in ("train", "loop"):
+            tcfg = TrainConfig(**case["tcfg"])
+            specs = state_pspecs(cfg, tcfg, mesh)
+        else:
+            specs = param_pspecs(M.model_specs(cfg), rules, mesh)
+        if kind == "train":
+            state = params_from_numpy(case["state"], "cpu", mesh, specs)
+            step = make_train_step(cfg, tcfg, mesh)
+            metrics = []
+            for b in case["batches"]:
+                state, met = step(state, {"tokens": torch.from_numpy(b)})
+                metrics.append({k: float(v) for k, v in met.items()})
+            out.append(dict(metrics=metrics, params=state_to_numpy(state["params"]),
+                            shapes=_local_shapes(state),
+                            plain_metrics=all(type(v) is torch.Tensor
+                                              for v in met.values())))
+        elif kind == "prefill":
+            params = params_from_numpy(case["params"], "cpu", mesh, specs)
+            logits = make_prefill_step(cfg, TrainConfig(attn_impl=case["impl"]),
+                                       mesh)(params, {"tokens": torch.from_numpy(
+                                           case["tokens"])})
+            out.append(dict(logits=logits.full_tensor().numpy(),
+                            placements=[repr(p) for p in logits.placements]))
+        elif kind == "decode":
+            params = params_from_numpy(case["params"], "cpu", mesh, specs)
+            toks = torch.from_numpy(case["tokens"])
+            cache = init_sharded_cache(cfg, toks.shape[0], case["max_len"], mesh)
+            step = make_serve_step(cfg, mesh)
+            logits = []
+            for pos in range(case["steps"]):
+                lg, cache = step(params, cache, toks[:, pos:pos + 1], pos)
+                logits.append(lg.full_tensor().numpy())
+            out.append(dict(logits=logits, shapes=_local_shapes(cache),
+                            cache=state_to_numpy(cache)))
+        else:                                               # loop
+            pipe = TokenPipeline(PipelineConfig(*case["pipe"], cfg.vocab, seed=0),
+                                 cfg, device="cpu")
+            runs = {}
+            for label, stops in (("straight", [case["steps"]]),
+                                 ("resumed", [case["stop"], case["steps"]])):
+                ckpt = os.path.join(tmp_dir, label)
+                losses = []
+                for n in stops:
+                    state = params_from_numpy(case["state"], "cpu", mesh, specs)
+                    loop = TrainLoop(make_train_step(cfg, tcfg, mesh), pipe,
+                                     LoopConfig(max_steps=n, ckpt_every=case["stop"],
+                                                ckpt_dir=ckpt, log_every=0),
+                                     log=lambda m: None)
+                    state = loop.run(state)
+                    losses += loop.losses()
+                runs[label] = dict(losses=losses,
+                                   params=state_to_numpy(state["params"]),
+                                   files=sorted(os.listdir(ckpt)))
+            out.append(runs)
+    return out
+
+
+def card_lm_case(rank, world):
+    """internlm2-1.8b's smoke config in bf16 on the card, on a (1, 1) mesh
+    (NCCL): the sharded prefill with ``"flash"`` and the unsharded one
+    (their logits and the kernel's launches), a kernel wrapper given a
+    DTensor (the error), and two warm sharded dense train steps under
+    sync-debug "error" (their losses)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed.sharding import param_pspecs, rules_for, shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    from repro_torch.train.step import (TrainConfig, init_state, make_prefill_step,
+                                        make_train_step, state_pspecs)
+
+    torch.cuda.set_device(0)
+    mesh = mesh_of((1, 1), ("data", "model"), "cuda")
+    cfg = configs.get_smoke("internlm2-1.8b").with_(dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = init_params(M.model_specs(cfg), gen, cfg.torch_dtype, "cuda")
+    sparams = shard_tree(params, param_pspecs(M.model_specs(cfg), rules_for(mesh), mesh),
+                         mesh)
+    tokens = torch.randint(0, cfg.vocab, (2, 200), generator=gen, device="cuda")
+    tcfg = TrainConfig(attn_impl="flash")
+    ops.reset_launches()
+    got = make_prefill_step(cfg, tcfg, mesh)(sparams, {"tokens": tokens})
+    launches = dict(ops.LAUNCHES)
+    want = make_prefill_step(cfg, tcfg)(params, {"tokens": tokens})
+    q = DTensor.from_local(torch.zeros(1, 2, 8, 16, device="cuda", dtype=torch.bfloat16),
+                           mesh, [Replicate(), Replicate()], run_check=False)
+    try:
+        ops.flash_attention(q, q.to_local(), q.to_local())
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    tcfg = TrainConfig(attn_impl="dense", ce_chunk=8)
+    state = init_state(cfg.with_(dtype="float32"), tcfg, gen, "cuda")
+    state = shard_tree(state, state_pspecs(cfg, tcfg, mesh), mesh)
+    pipe = TokenPipeline(PipelineConfig(4, 16, cfg.vocab, seed=0), cfg, device="cuda")
+    step = make_train_step(cfg.with_(dtype="float32"), tcfg, mesh)
+    state, _ = step(state, pipe.batch_at(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = []
+        for i in (1, 2):
+            state, met = step(state, pipe.batch_at(i))
+            losses.append(met["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return dict(got=got.full_tensor().float().cpu().numpy(),
+                want=want.float().cpu().numpy(), launches=launches,
+                refused=refused, losses=[float(x) for x in losses],
+                placements=[repr(p) for p in got.placements])

@@ -18,6 +18,23 @@ Cauchy–Schwarz bound of the unsharded ones (N exact), the tree level
 within 1e-4 of the largest statistic, one runner built, the restore
 bitwise, the gathered fact equal to the unsharded copy's, the ranks'
 covars bitwise alike.  Exits 1 if a check fails, and when a rank fails.
+
+    python3 tools/torch_shard_cards.py --lm [--ranks 4] [--n-model 2] [--smoke]
+
+runs the LM's sharding instead (``distributed/sharding.py``): each rank
+builds internlm2-1.8b's train state from ``--seed`` (whole, bf16; the
+smoke config with ``--smoke``) on a ``(ranks / n_model, n_model)`` mesh,
+keeps its shard (``state_pspecs``), and takes ``--steps`` sharded train
+steps of B 8 × 4,096 in two microbatches (chunked attention, remat), then
+a sharded prefill of B 4 × 4,096 with ``"flash"`` (the kernel on each
+rank's local heads) and 8 sharded decode steps on the trained shards;
+rank 0 then does the same unsharded from the same state.  The last line
+holds the checks: each step's loss within 1e-3 and grad norm within 1e-2
+(relative) of the unsharded step's, the params after the steps within
+5e-3, the prefill's last-position and the decode logits within 5e-2 of
+their max (bf16: the products' partial sums cross ranks), one
+``flash_attention`` launch a layer on every rank, every rank's state a
+shard (its bytes at most half the whole's).
 """
 
 import argparse
@@ -150,6 +167,136 @@ def rank_main(rank, world, init_file, args, out):
         dist.destroy_process_group()
 
 
+#: the LM mode's limits: tests/test_distributed.py:86-90 (loss, params);
+#: the grad norm relative (a bf16 gradient's partial sums cross ranks)
+LM_LOSS_TOL, LM_GNORM_TOL, LM_PARAM_TOL = 1e-3, 1e-2, 5e-3
+#: bf16 logits, relative to their max (chip_smoke.py's BF16_PREFILL_TOL)
+LM_LOGITS_TOL = 5e-2
+
+
+def lm_serve(cfg, params, tokens, mesh):
+    """The last-position logits of a ``"flash"`` prefill of ``tokens`` and
+    the logits of 8 decode steps over its first columns (a fresh cache),
+    on ``mesh`` (None: unsharded), whole on every rank; and the prefill's
+    ``flash_attention`` launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import init_sharded_cache, make_serve_step
+    from repro_torch.train.step import TrainConfig, make_prefill_step
+
+    def whole(t):
+        return t.full_tensor() if mesh is not None else t
+
+    ops.reset_launches()
+    pre = whole(make_prefill_step(cfg, TrainConfig(attn_impl="flash"), mesh)(
+        params, {"tokens": tokens}))
+    launches = ops.LAUNCHES["flash_attention"]
+    b = tokens.shape[0]
+    cache = (init_sharded_cache(cfg, b, 16, mesh) if mesh is not None
+             else M.init_cache(cfg, b, 16, tokens.device))
+    step = make_serve_step(cfg, mesh)
+    dec = []
+    for pos in range(8):
+        lg, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+        dec.append(whole(lg).float())
+    return pre.float(), torch.stack(dec), launches
+
+
+def rel_max(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def lm_rank_main(rank, world, init_file, args, out):
+    on_card = args.device == "cuda"
+    torch.set_num_threads(2)
+    if on_card:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=600))
+    try:
+        from repro_torch import configs
+        from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+        from repro_torch.distributed.sharding import full_tree, shard_tree
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.train.adamw import tree_leaves
+        from repro_torch.train.step import (TrainConfig, init_state, make_train_step,
+                                            state_pspecs)
+
+        dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+        cfg = (configs.get_smoke if args.smoke else configs.get)("internlm2-1.8b")
+        seq = 64 if args.smoke else 4096
+        tcfg = TrainConfig(attn_impl="chunked", ce_chunk=min(512, seq), grad_accum=2,
+                           peak_lr=3e-4, warmup=0, total_steps=8)
+        mesh = make_host_mesh(n_data=world // args.n_model, n_model=args.n_model,
+                              device_type=args.device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        state = init_state(cfg, tcfg, gen, dev)
+        whole = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+        sstate = shard_tree(state, state_pspecs(cfg, tcfg, mesh), mesh)
+        if rank:
+            del state
+        local = sum(t.to_local().numel() * t.element_size() for t in tree_leaves(sstate))
+        pipe = TokenPipeline(PipelineConfig(8, seq, cfg.vocab, seed=args.seed), cfg,
+                             device=dev)
+        step = make_train_step(cfg, tcfg, mesh)
+        res = {"rank": rank, "device": str(dev), "mesh": list(mesh.shape),
+               "card": torch.cuda.get_device_name(rank) if on_card else "cpu",
+               "state_bytes": whole, "local_state_bytes": local,
+               "walls_s": [], "losses": [], "grad_norms": []}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(rank)
+        for i in range(args.steps):
+            (sstate, met), wall = walled(lambda: step(sstate, pipe.batch_at(i)), on_card)
+            res["losses"].append(float(met["loss"]))
+            res["grad_norms"].append(float(met["grad_norm"]))
+            res["walls_s"].append(wall)
+        res["tokens_per_s"] = 8 * seq / min(res["walls_s"][1:] or res["walls_s"])
+        if on_card:
+            res["peak_mem_gib"] = torch.cuda.max_memory_allocated(rank) / 2**30
+        tokens = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab, (4, seq))).to(dev)
+        pre, dec, res["prefill_launches"] = lm_serve(cfg, sstate["params"], tokens, mesh)
+        res["layers"] = cfg.n_layers
+        params = full_tree(sstate["params"])
+        del sstate
+        if rank == 0:
+            ustep = make_train_step(cfg, tcfg)
+            res["unsharded_losses"], res["unsharded_grad_norms"] = [], []
+            for i in range(args.steps):
+                state, met = ustep(state, pipe.batch_at(i))
+                res["unsharded_losses"].append(float(met["loss"]))
+                res["unsharded_grad_norms"].append(float(met["grad_norm"]))
+            res["param_err"] = max(float((a.float() - b.float()).abs().max()) for a, b in
+                                   zip(tree_leaves(params), tree_leaves(state["params"])))
+            del state
+            upre, udec, _ = lm_serve(cfg, params, tokens, None)
+            res["prefill_rel"], res["decode_rel"] = rel_max(pre, upre), rel_max(dec, udec)
+        print(json.dumps(res, default=str), flush=True)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f, default=str)
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_checks(ranks) -> dict:
+    r0 = ranks[0]
+    return {
+        "losses": all(abs(a - b) <= LM_LOSS_TOL for a, b in
+                      zip(r0["losses"], r0["unsharded_losses"])),
+        "grad_norms": all(abs(a - b) <= LM_GNORM_TOL * b for a, b in
+                          zip(r0["grad_norms"], r0["unsharded_grad_norms"])),
+        "params": r0["param_err"] <= LM_PARAM_TOL,
+        "prefill_decode": max(r0["prefill_rel"], r0["decode_rel"]) <= LM_LOGITS_TOL,
+        # the kernel on the card; its plain version (no launch) on the CPU
+        "prefill_launches": all(r["prefill_launches"] == (
+            r["layers"] if r["device"].startswith("cuda") else 0) for r in ranks),
+        "ranks_alike": all(r["losses"] == r0["losses"] for r in ranks),
+        "sharded": all(2 * r["local_state_bytes"] <= r["state_bytes"] for r in ranks),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
@@ -158,6 +305,11 @@ def main() -> int:
     ap.add_argument("--block-size", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--lm", action="store_true",
+                    help="the LM's sharded train steps instead of the engine")
+    ap.add_argument("--n-model", type=int, default=2, help="--lm: the model axis")
+    ap.add_argument("--steps", type=int, default=2, help="--lm: train steps")
+    ap.add_argument("--smoke", action="store_true", help="--lm: the smoke config")
     args = ap.parse_args()
     if args.device == "cuda" and torch.cuda.device_count() < args.ranks:
         print(f"torch_shard_cards: {args.ranks} ranks need as many cards "
@@ -166,7 +318,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     out = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     try:
-        mp.start_processes(rank_main, args=(args.ranks, os.path.join(out, "pg"), args, out),
+        mp.start_processes(lm_rank_main if args.lm else rank_main,
+                           args=(args.ranks, os.path.join(out, "pg"), args, out),
                            nprocs=args.ranks, start_method="spawn")
     except Exception as e:
         print(f"torch_shard_cards: a rank failed: {e}", file=sys.stderr)
@@ -175,6 +328,12 @@ def main() -> int:
     for r in range(args.ranks):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    if args.lm:
+        checks = lm_checks(ranks)
+        print(json.dumps({"ranks": args.ranks, "device": args.device, "lm": True,
+                          "n_model": args.n_model, "smoke": args.smoke,
+                          "checks": checks, "ok": all(checks.values())}), flush=True)
+        return 0 if all(checks.values()) else 1
     Cs = [np.load(os.path.join(out, f"C{r}.npy")) for r in range(args.ranks)]
     checks = {
         "covar": all(r["covar_vs_local"] <= TOL and r["N"][0] == r["N"][1] for r in ranks),
