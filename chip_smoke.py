@@ -211,6 +211,7 @@ repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -3394,13 +3395,13 @@ def examples_phase():
 #: checks run 8 layers (18.2 GiB).  llama-3.2-vision-90b is 161 GiB in
 #: bf16: 20 layers (4 super-blocks, 33.8 GiB) for the walls, one
 #: super-block of 5 in float32.  whisper-small runs whole.  For the
-#: script's time (the same code paths, and room for lm.train and lm.shard)
-#: mamba2-2.7b's float32 checks run 16 of its 64 layers and zamba2-1.2b's
-#: 20 of 38 (three groups of six and the tail of two); their bf16 walls
-#: run every layer.
+#: script's time (the same code paths, and room for lm.train, lm.shard and
+#: the families' sharded checks) mamba2-2.7b's float32 checks run 8 of its
+#: 64 layers and zamba2-1.2b's 14 of 38 (two groups of six and the tail of
+#: two); their bf16 walls run every layer.
 LM_FAMILIES = (("lm.moe", "qwen3-moe-235b-a22b", 4, 8),
-               ("lm.ssm", "mamba2-2.7b", 16, None),
-               ("lm.hybrid", "zamba2-1.2b", 20, None),
+               ("lm.ssm", "mamba2-2.7b", 8, None),
+               ("lm.hybrid", "zamba2-1.2b", 14, None),
                ("lm.mla", "deepseek-v2-lite-16b", 8, None),
                ("lm.vlm", "llama-3.2-vision-90b", 5, 20),
                ("lm.audio", "whisper-small", None, None))
@@ -3490,13 +3491,15 @@ def route_agreement(a, b):
     return float(agree.float().mean()), held
 
 
-def family_f32_checks(cfg, seed: int):
+def family_f32_checks(cfg, seed: int, mesh=None):
     """Float32 at full width: the flash prefill against the dense one, then
     teacher-forced ``decode_step`` against the flash prefill over
     DECODE_CHECK_LEN tokens (for MoE with the capacity at E/k, so no
     assignment is dropped in either); logits held where routing agreed
     (``route_agreement``); VLM and audio decode read the context that
-    ``encode_context`` made once.  ``generate`` runs in the bf16 walls."""
+    ``encode_context`` made once.  ``generate`` runs in the bf16 walls.
+    With ``mesh``, the first SHARD_DECODE_CHECK of those steps again on it
+    against unsharded ones (``family_shard_decode_f32``)."""
     import numpy as np
     import torch
 
@@ -3559,7 +3562,10 @@ def family_f32_checks(cfg, seed: int):
         out["decode_held_tokens"] = int(held.sum())
     out.update(decode_len=n, decode_vs_prefill_max_abs=float(err[held].max()),
                decode_vs_prefill_over_tol=float(excess[held].max()))
-    del params, full, cache, context
+    del full, cache, context
+    if mesh is not None:
+        out["shard"] = family_shard_decode_f32(dcfg, params, seq, ctx, mesh)
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -3571,12 +3577,14 @@ def launches_since(before: dict) -> dict:
     return {k: n - before.get(k, 0) for k, n in ops.LAUNCHES.items()}
 
 
-def family_bf16_walls(cfg, seed: int):
+def family_bf16_walls(cfg, seed: int, mesh=None):
     """bf16: the main path (one flash prefill at B 4 × 4,096 tokens, 448
     for whisper, then a ``BatchedServer`` that encodes its raw context once,
     then ``generate``) with its launches and its tokens checked, warm
     prefill walls, tokens/s, peak memory, a device breakdown, and ms a
-    decode step (a second ``generate``)."""
+    decode step (a second ``generate`` of FAMILY_TIMED_GEN new tokens).
+    With ``mesh``, the same weights
+    and batch on it against the unsharded port (``family_shard_bf16``)."""
     import numpy as np
     import torch
 
@@ -3628,37 +3636,242 @@ def family_bf16_walls(cfg, seed: int):
     prof = device_breakdown(prefill, top=10, classify=lm_kernel_group)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out2 = server.generate(prompts, SERVE_GEN)
+    out2 = server.generate(prompts, FAMILY_TIMED_GEN)
     gen_wall = time.perf_counter() - t0
-    steps = SERVE_PROMPT + SERVE_GEN - 1
+    steps = SERVE_PROMPT + FAMILY_TIMED_GEN - 1
     tokens = LM_BF16_BATCH * seq_len
-    del server, params
+    del server
     torch.cuda.empty_cache()
-    return dict(prefill_batch=LM_BF16_BATCH, seq=seq_len, prefill_walls_s=walls,
+    shard = (family_shard_bf16(cfg, params, batch, raw, mesh, rng)
+             if mesh is not None else None)
+    del params
+    torch.cuda.empty_cache()
+    return dict(shard=shard, prefill_batch=LM_BF16_BATCH, seq=seq_len, prefill_walls_s=walls,
                 prefill_tokens_per_s=tokens / sorted(walls)[1], peak_mem_gb=peak,
                 context_shape=None if raw is None else list(raw.shape),
                 prefill_launches=prefill_launches, encode_launches=encode_launches,
                 generate_launches=generate_launches, launches=launches,
                 generate_wall_s=gen_wall, decode_steps=steps,
                 ms_per_decode_step=gen_wall / steps * 1e3,
-                generated_tokens_per_s=SERVE_BATCH * SERVE_GEN / gen_wall,
-                same_tokens_as_first_generate=bool((out2 == out).all()),
-                serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN),
+                generated_tokens_per_s=SERVE_BATCH * FAMILY_TIMED_GEN / gen_wall,
+                same_tokens_as_first_generate=bool((out2 == out[:, :out2.shape[1]]).all()),
+                serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+                           timed_gen=FAMILY_TIMED_GEN),
                 prefill_profile=prof)
 
 
-def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
+#: the families whose sharded steps are checked in their own phase on a
+#: (1, 1) NCCL mesh (lm.shard holds the dense one)
+SHARD_FAMILIES = ("mamba2-2.7b", "zamba2-1.2b", "deepseek-v2-lite-16b",
+                  "llama-3.2-vision-90b", "whisper-small")
+#: the sharded decode walls (the families' and lm.shard's): a prompt of 8
+#: teacher-forced tokens and 8 new ones at batch 8, against the
+#: unsharded steps of the same shape (DTensor's decode is host-bound: 127
+#: steps of mamba2's 64 layers take 41 s on an H100)
+SHARD_DECODE_PROMPT, SHARD_DECODE_GEN = 8, 8
+#: the families' timed second ``generate``: the 64-token prompt and 16 new
+#: tokens (79 steps, not 127, for the script's time)
+FAMILY_TIMED_GEN = 16
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A ("data", "model") mesh of (1, 1) over NCCL at world size 1 in this
+    process (a ``HashStore``), the group destroyed on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        yield make_host_mesh(device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_params(cfg, params, mesh):
+    """``params`` placed on ``mesh`` by the reference's specs: on a (1, 1)
+    mesh every shard is the whole leaf, its storage shared."""
+    from repro_torch.distributed.sharding import param_pspecs, rules_for, shard_tree
+    from repro_torch.models import model as M
+
+    return shard_tree(params, param_pspecs(M.model_specs(cfg), rules_for(mesh), mesh), mesh)
+
+
+def family_shard_decode_f32(cfg, params, seq, ctx, mesh):
+    """Float32: SHARD_DECODE_CHECK teacher-forced decode steps of ``seq``'s
+    columns on ``mesh`` against the unsharded steps, each from a zero cache
+    and the raw context ``ctx`` encoded once its own way
+    (``make_encode_step``); logits held where routing agreed (MoE)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (init_sharded_cache, make_encode_step,
+                                          make_serve_step)
+
+    n, b = SHARD_DECODE_CHECK, seq.shape[0]
+    raw = next(iter(ctx.values()), None)
+    runs = {}
+    for label, m, p in (("sharded", mesh, sharded_params(cfg, params, mesh)),
+                        ("unsharded", None, params)):
+        cache = (init_sharded_cache(cfg, b, n, m) if m is not None
+                 else M.init_cache(cfg, b, n, "cuda"))
+        context = make_encode_step(cfg, m)(p, raw)
+        step = make_serve_step(cfg, m)
+        lgs = []
+        with RouteLog() as rl:
+            for pos in range(n):
+                lg, cache = step(p, cache, seq[:, pos:pos + 1], pos, context)
+                lgs.append(lg.full_tensor() if m is not None else lg)
+        runs[label] = (torch.cat(lgs, dim=1),
+                       rl.decode(b, n) if cfg.family == "moe" else None)
+        del cache, context
+    (got, rg), (want, rw) = runs["sharded"], runs["unsharded"]
+    held = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    out = {}
+    if cfg.family == "moe":
+        out["decode_route_agreement"], held = route_agreement(rw, rg)
+        out["decode_held_tokens"] = int(held.sum())
+    excess = ((got - want).abs() / (DECODE_TOL + DECODE_TOL * want.abs())).amax(-1)
+    out.update(decode_steps=n, decode_batch=b,
+               decode_max_abs=float((got - want).abs().amax(-1)[held].max()),
+               decode_over_tol=float(excess[held].max()), decode_tol=DECODE_TOL)
+    return out
+
+
+def family_shard_bf16(cfg, params, batch, raw, mesh, rng):
+    """bf16 on ``mesh`` against the unsharded port, the same weights: the
+    prefill step (``make_prefill_step``, ``"flash"``) of ``batch``, its
+    ``flash_attention`` launches counted from 0 for each, the sharded
+    last-position logits against the unsharded, then three timed prefills
+    each way; and decode at batch SERVE_BATCH, SHARD_DECODE_PROMPT prompt
+    and SHARD_DECODE_GEN new tokens from zero caches, the raw context
+    ``raw`` encoded once each way, ms a step each way."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (init_sharded_cache, make_encode_step,
+                                          make_serve_step)
+    from repro_torch.train.step import TrainConfig, make_prefill_step
+
+    sparams = sharded_params(cfg, params, mesh)
+    tcfg = TrainConfig(attn_impl="flash")
+    steps = {"unsharded": (make_prefill_step(cfg, tcfg), params),
+             "sharded": (make_prefill_step(cfg, tcfg, mesh), sparams)}
+    launches, last = {}, {}
+    for label, (fn, p) in steps.items():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        lg = fn(p, batch)
+        torch.cuda.synchronize()
+        launches[label] = dict(ops.LAUNCHES)
+        last[label] = lg.full_tensor() if label == "sharded" else lg
+    got, want = last["sharded"].float(), last["unsharded"].float()
+    out = dict(prefill_batch=int(batch["tokens"].shape[0]), seq=int(batch["tokens"].shape[1]),
+               prefill_launches=launches["sharded"],
+               unsharded_prefill_launches=launches["unsharded"],
+               prefill_finite=bool(torch.isfinite(got).all()),
+               prefill_vs_unsharded_rel=float((got - want).abs().max())
+               / float(want.abs().max()),
+               prefill_bitwise=bool(torch.equal(last["sharded"], last["unsharded"])),
+               prefill_tol=SHARD_PREFILL_TOL)
+    del last, got, want
+    walls = {}
+    for label, (fn, p) in steps.items():
+        ws = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(p, batch)
+            torch.cuda.synchronize()
+            ws.append(time.perf_counter() - t0)
+        walls[label] = ws
+    tokens = batch["tokens"].numel()
+    out.update(prefill_walls_s=walls["sharded"], unsharded_prefill_walls_s=walls["unsharded"],
+               prefill_tokens_per_s=tokens / sorted(walls["sharded"])[1],
+               unsharded_prefill_tokens_per_s=tokens / sorted(walls["unsharded"])[1])
+
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, SHARD_DECODE_PROMPT))
+                               .astype(np.int32)).cuda()
+    max_len = SHARD_DECODE_PROMPT + SHARD_DECODE_GEN
+    dec = {}
+    for label, m, p in (("sharded", mesh, sparams), ("unsharded", None, params)):
+        def cache():
+            return (init_sharded_cache(cfg, SERVE_BATCH, max_len, m) if m is not None
+                    else M.init_cache(cfg, SERVE_BATCH, max_len, "cuda"))
+
+        step = make_serve_step(cfg, m)
+        context = make_encode_step(cfg, m)(p, raw)
+        decode_run(step, p, cache(), prompts[:, :2], 2, context)       # warm
+        c = cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = decode_run(step, p, c, prompts, SHARD_DECODE_GEN, context)
+        torch.cuda.synchronize()
+        dec[label] = (time.perf_counter() - t0, toks)
+        del c, context
+    dsteps = SHARD_DECODE_PROMPT + SHARD_DECODE_GEN - 1
+    out.update(decode_steps=dsteps, serve_batch=SERVE_BATCH,
+               ms_per_decode_step=dec["sharded"][0] / dsteps * 1e3,
+               unsharded_ms_per_decode_step=dec["unsharded"][0] / dsteps * 1e3,
+               decode_same_tokens=bool(torch.equal(dec["sharded"][1], dec["unsharded"][1])))
+    del sparams, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_checks(phase: str, cfg, shard: dict, n_attn: int) -> None:
+    """The limits of a family's sharded checks: the prefill's launches
+    equal to the unsharded prefill's (one an attention layer), its
+    last-position logits within SHARD_PREFILL_TOL of max|logits|; float32
+    decode logits within DECODE_TOL (allclose)."""
+    if "prefill_launches" in shard:
+        pl, ul = shard["prefill_launches"], shard["unsharded_prefill_launches"]
+        check(pl == ul and pl.get("flash_attention", 0) == n_attn
+              and sum(pl.values()) == n_attn,
+              f"{phase}.shard: the sharded prefill launched {pl}, the unsharded {ul}, "
+              f"expected {n_attn} flash_attention")
+        check(shard["prefill_finite"] and shard["prefill_vs_unsharded_rel"] <= SHARD_PREFILL_TOL,
+              f"{phase}.shard: sharded prefill vs unsharded "
+              f"{shard['prefill_vs_unsharded_rel']:.3e} of max|logits| > {SHARD_PREFILL_TOL} "
+              "(or not finite)")
+    if "decode_over_tol" in shard:
+        check(shard["decode_over_tol"] <= 1.0,
+              f"{phase}.shard: float32 sharded decode vs unsharded "
+              f"{shard['decode_max_abs']:.3e} beyond {DECODE_TOL} (allclose)")
+        if cfg.family == "moe":
+            check(shard["decode_route_agreement"] >= 0.99,
+                  f"{phase}.shard: routing agreed on fewer than 99% of (layer, token) sets")
+
+
+def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int,
+                    mesh=None, card_line: str = ""):
     """One decoder family at full width from ``configs/``, random weights
     from ``seed``: the float32 checks, then the bf16 walls; depth cut only
-    where memory forces it (listed under ``reduced``)."""
+    where memory forces it (listed under ``reduced``).  With ``mesh`` (the
+    SHARD_FAMILIES, a (1, 1) NCCL mesh) each also runs its sharded checks
+    on the same weights, emitted as ``{phase}.shard.{f32,bf16}`` and
+    returned by dtype (``lm.shard.family`` reads them)."""
     from repro_torch import configs
 
     full = configs.get(arch)
     t0 = time.perf_counter()
+    shards = {}
     for dtype, depth in (("float32", f32_layers), ("bfloat16", bf16_layers)):
         cfg = full.with_(dtype=dtype, n_layers=depth or full.n_layers)
         n_attn = flash_launches_a_forward(cfg)
-        res = (family_f32_checks if dtype == "float32" else family_bf16_walls)(cfg, seed)
+        res = (family_f32_checks if dtype == "float32" else family_bf16_walls)(
+            cfg, seed, mesh)
+        shard = res.pop("shard", None)
+        if shard is not None:
+            shard.update(layers=cfg.n_layers, dtype=dtype)
+            shards["f32" if dtype == "float32" else "bf16"] = shard
+            emit(f"{phase}.shard.{'f32' if dtype == 'float32' else 'bf16'}", card=card_line,
+                 arch=arch, family=cfg.family, mesh={"data": 1, "model": 1},
+                 backend="nccl", **shard)
+            shard_checks(phase, cfg, shard, n_attn)
         gib = full.param_count() * (4 if dtype == "float32" else 2) / 2**30
         why = ("the weights of the full depth and the phase's activations do not "
                "fit in 80 GB" if gib > 40 else
@@ -3699,6 +3912,7 @@ def lm_family_phase(phase: str, arch: str, f32_layers, bf16_layers, seed: int):
                   f"{res['generate_launches']}, expected {n_attn}, {n_enc} and 0 "
                   "flash_attention")
     emit(f"{phase}.done", phase_s=time.perf_counter() - t0)
+    return shards
 
 
 # ---------------------------------------------------------------- lm.train
@@ -4104,76 +4318,125 @@ def lm_train_grad_checks(seed: int):
     return out
 
 
-def lm_train_families(seed: int):
+def lm_train_families(seed: int, card_line: str = "", shard_results=None):
     """(c) two bf16 steps of each other family at full width (depth cut
     where the state passes 40 GB), then the float64 directional derivative
-    on its smoke config."""
+    on its smoke config.  For the SHARD_FAMILIES, the first step again on a
+    (1, 1) NCCL mesh from the same initial state (drawn again from the
+    seed), held against the unsharded first step, and the family's
+    ``lm.shard.family`` line with its phase's sharded results
+    (``shard_results``, by arch)."""
+    with one_rank_mesh() as mesh:
+        return [lm_train_family(arch, depth, seed, mesh, card_line,
+                                (shard_results or {}).get(arch, {}))
+                for arch, depth in TRAIN_FAMILIES]
+
+
+def lm_train_family(arch: str, depth, seed: int, mesh, card_line: str, shard: dict):
+    """One family of ``lm_train_families``; ``shard`` its phase's sharded
+    results."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.distributed.sharding import shard_tree
     from repro_torch.kernels import ops
-    from repro_torch.train.step import TrainConfig, init_state, make_train_step
+    from repro_torch.train.step import (TrainConfig, init_state, make_train_step,
+                                        state_pspecs)
 
-    rows = []
-    for arch, depth in TRAIN_FAMILIES:
-        full = configs.get(arch)
-        cfg = full.with_(n_layers=depth or full.n_layers)
-        seq = AUDIO_TEXT_CTX if cfg.family == "audio" else FAMILY_TRAIN_SEQ
-        tcfg = TrainConfig(attn_impl="chunked", ce_chunk=512, peak_lr=3e-4, warmup=2,
-                           total_steps=8)
-        gen = torch.Generator(device="cuda")
+    full = configs.get(arch)
+    cfg = full.with_(n_layers=depth or full.n_layers)
+    seq = AUDIO_TEXT_CTX if cfg.family == "audio" else FAMILY_TRAIN_SEQ
+    tcfg = TrainConfig(attn_impl="chunked", ce_chunk=512, peak_lr=3e-4, warmup=2,
+                       total_steps=8)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = init_state(cfg, tcfg, gen, "cuda")
+    pipe = TokenPipeline(PipelineConfig(FAMILY_TRAIN_BATCH, seq, cfg.vocab, seed=seed),
+                         cfg, device="cuda")
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    walls, mets = [], []
+    for i in range(2):
+        batch = pipe.batch_at(i)
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mets.append(met)
+    sb = train_state_bytes(state["params"], 1)
+    row = dict(arch=arch, family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=FAMILY_TRAIN_BATCH, seq=seq, step_walls_s=walls,
+               losses=[float(m["loss"]) for m in mets],
+               grad_norms=[float(m["grad_norm"]) for m in mets],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               state_gb=sb["total"] / 1e9, launches=dict(ops.LAUNCHES),
+               reduced=({"n_layers": [full.n_layers, cfg.n_layers],
+                         "why": "the training state (12 bytes a parameter) of the "
+                                "whole depth passes 40 GB"} if depth else {}))
+    if cfg.family == "audio":
+        row["frames"] = cfg.encoder_frames
+    if cfg.family == "vlm":
+        row["vision_tokens"] = cfg.vision_tokens
+    del state
+    torch.cuda.empty_cache()
+    if arch in SHARD_FAMILIES:
         gen.manual_seed(seed)
-        state = init_state(cfg, tcfg, gen, "cuda")
-        pipe = TokenPipeline(PipelineConfig(FAMILY_TRAIN_BATCH, seq, cfg.vocab, seed=seed),
-                             cfg, device="cuda")
-        step = make_train_step(cfg, tcfg)
+        state = shard_tree(init_state(cfg, tcfg, gen, "cuda"),
+                           state_pspecs(cfg, tcfg, mesh), mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        walls, mets = [], []
-        for i in range(2):
-            batch = pipe.batch_at(i)
-            t0 = time.perf_counter()
-            state, met = step(state, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            mets.append(met)
-        sb = train_state_bytes(state["params"], 1)
-        row = dict(arch=arch, family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
-                   batch=FAMILY_TRAIN_BATCH, seq=seq, step_walls_s=walls,
-                   losses=[float(m["loss"]) for m in mets],
-                   grad_norms=[float(m["grad_norm"]) for m in mets],
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   state_gb=sb["total"] / 1e9, launches=dict(ops.LAUNCHES),
-                   reduced=({"n_layers": [full.n_layers, cfg.n_layers],
-                             "why": "the training state (12 bytes a parameter) of the "
-                                    "whole depth passes 40 GB"} if depth else {}))
-        if cfg.family == "audio":
-            row["frames"] = cfg.encoder_frames
-        if cfg.family == "vlm":
-            row["vision_tokens"] = cfg.vision_tokens
-        del state, pipe
+        t0 = time.perf_counter()
+        state, met = make_train_step(cfg, tcfg, mesh)(state, pipe.batch_at(0))
+        torch.cuda.synchronize()
+        row["shard"] = dict(
+            first_step_loss=float(met["loss"]), unsharded_first_step_loss=row["losses"][0],
+            first_step_grad_norm=float(met["grad_norm"]),
+            unsharded_first_step_grad_norm=row["grad_norms"][0],
+            first_step_s=time.perf_counter() - t0, unsharded_first_step_s=walls[0],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            unsharded_peak_mem_gib=row["peak_mem_gib"], launches=dict(ops.LAUNCHES),
+            tol=dict(loss=SHARD_LOSS_TOL, grad_norm_rel=SHARD_GNORM_TOL))
+        del state
         torch.cuda.empty_cache()
-        smoke = configs.get_smoke(arch).with_(dtype="float64", remat=True)
-        p64 = lm_params(smoke, seed)
-        rng = np.random.default_rng(seed)
-        sb = {"tokens": torch.from_numpy(rng.integers(0, smoke.vocab, (2, 16))
-                                         .astype(np.int32)).cuda(),
-              **{k: v.double() for k, v in family_context(smoke, 2, rng).items()}}
-        row["smoke_directional"], _ = directional_check(
-            p64, sb, smoke, TrainConfig(attn_impl="chunked", ce_chunk=5), seed + 13)
-        rows.append(row)
-        emit("lm.train.family", **row)
-        check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]),
-              f"lm.train.family: {arch}: losses {row['losses']} or grad norms not finite")
-        check(sum(row["launches"].values()) == 0,
-              f"lm.train.family: {arch}: the steps launched {row['launches']}")
-        check(row["smoke_directional"]["rel"] <= DIRECTIONAL_TOL,
-              f"lm.train.family: {arch}: smoke directional derivative "
-              f"{row['smoke_directional']['rel']:.3e} beyond {DIRECTIONAL_TOL}")
-    return rows
+    del pipe
+    smoke = configs.get_smoke(arch).with_(dtype="float64", remat=True)
+    p64 = lm_params(smoke, seed)
+    rng = np.random.default_rng(seed)
+    sb = {"tokens": torch.from_numpy(rng.integers(0, smoke.vocab, (2, 16))
+                                     .astype(np.int32)).cuda(),
+          **{k: v.double() for k, v in family_context(smoke, 2, rng).items()}}
+    row["smoke_directional"], _ = directional_check(
+        p64, sb, smoke, TrainConfig(attn_impl="chunked", ce_chunk=5), seed + 13)
+    emit("lm.train.family", **{k: v for k, v in row.items() if k != "shard"})
+    check(all(math.isfinite(x) for x in row["losses"] + row["grad_norms"]),
+          f"lm.train.family: {arch}: losses {row['losses']} or grad norms not finite")
+    check(sum(row["launches"].values()) == 0,
+          f"lm.train.family: {arch}: the steps launched {row['launches']}")
+    check(row["smoke_directional"]["rel"] <= DIRECTIONAL_TOL,
+          f"lm.train.family: {arch}: smoke directional derivative "
+          f"{row['smoke_directional']['rel']:.3e} beyond {DIRECTIONAL_TOL}")
+    if "shard" in row:
+        sh = row["shard"]
+        emit("lm.shard.family", card=card_line, arch=arch, family=cfg.family,
+             mesh={"data": 1, "model": 1}, backend="nccl",
+             train=dict(sh, layers=cfg.n_layers, batch=FAMILY_TRAIN_BATCH, seq=seq),
+             **shard)
+        check(sum(sh["launches"].values()) == 0,
+              f"lm.shard.family: {arch}: the sharded train step launched {sh['launches']}")
+        check(abs(sh["first_step_loss"] - sh["unsharded_first_step_loss"]) <= SHARD_LOSS_TOL
+              and abs(sh["first_step_grad_norm"] - sh["unsharded_first_step_grad_norm"])
+              <= SHARD_GNORM_TOL * sh["unsharded_first_step_grad_norm"],
+              f"lm.shard.family: {arch}: first step loss {sh['first_step_loss']} / "
+              f"{sh['unsharded_first_step_loss']}, grad norm {sh['first_step_grad_norm']} / "
+              f"{sh['unsharded_first_step_grad_norm']} (sharded / unsharded)")
+        check(set(shard) == {"f32", "bf16"},
+              f"lm.shard.family: {arch}: its phase ran no sharded prefill or decode")
+    return row
 
 
 def lm_train_examples():
@@ -4260,8 +4523,9 @@ def lm_train_examples():
     return out
 
 
-def lm_train_phase(seed: int):
-    """(a)-(d) of training on the card; every line carries the card.
+def lm_train_phase(seed: int, shard_results=None):
+    """(a)-(d) of training on the card; every line carries the card;
+    ``shard_results`` the families' sharded results by arch, for (c).
     Returns (a)'s tokens/s and peak memory (``lm.shard`` stands beside
     them)."""
     import torch
@@ -4275,7 +4539,7 @@ def lm_train_phase(seed: int):
     emit("lm.train", card=smi, **full)
     emit("lm.train.profile", card=smi, **prof)
     emit("lm.train.grads", card=smi, **lm_train_grad_checks(seed))
-    lm_train_families(seed)
+    lm_train_families(seed, smi, shard_results)
     torch.cuda.empty_cache()
     emit("lm.train.examples", card=smi, **lm_train_examples())
     emit("lm.train.done", card=smi, phase_s=time.perf_counter() - t0)
@@ -4300,10 +4564,11 @@ SHARD_DECODE_CHECK = 16
 SHARD_LOSS_TOL, SHARD_PARAM_TOL, SHARD_GNORM_TOL, SHARD_PREFILL_TOL = 1e-3, 5e-3, 1e-2, 1e-2
 
 
-def decode_run(step, params, cache, prompts, n_new: int):
+def decode_run(step, params, cache, prompts, n_new: int, context=None):
     """``BatchedServer.generate``'s loop over a serve step: each prompt
     teacher-forced, then ``n_new`` greedy tokens; (B, P + n_new) on the
-    card.  Sharded logits are read whole."""
+    card; ``context`` the encoded context of a VLM or audio batch.  Sharded
+    logits are read whole."""
     import torch
     from torch.distributed.tensor import DTensor
 
@@ -4313,7 +4578,7 @@ def decode_run(step, params, cache, prompts, n_new: int):
     toks = prompts[:, :1]
     out = [toks]
     for pos in range(plen + n_new - 1):
-        lg, cache = step(params, cache, toks, pos)
+        lg, cache = step(params, cache, toks, pos, context)
         if isinstance(lg, DTensor):
             lg = lg.full_tensor()
         toks = prompts[:, pos + 1:pos + 2] if pos + 1 < plen else greedy(lg)
@@ -4339,8 +4604,8 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
     and collective of the sharded path, on the card), against the
     unsharded port in the same run: (a) the bf16 prefill at B 4 × 4,096
     with ``"flash"`` (24 kernel launches on the local heads), its
-    last-position logits and tokens/s; (b) bf16 decode, batch 8, 64 new
-    tokens, ms a step; (c) training at lm.train's B 8 × 4,096 in two
+    last-position logits and tokens/s; (b) bf16 decode, batch 8,
+    SHARD_DECODE_PROMPT prompt and SHARD_DECODE_GEN new tokens, ms a step; (c) training at lm.train's B 8 × 4,096 in two
     microbatches: the first step's loss and grad norm from the unsharded
     step's state, then SHARD_WARM_STEPS warm steps under sync-debug
     "error", tokens/s and peak memory beside lm.train's (``train_ref``);
@@ -4348,13 +4613,11 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
     one step, and SHARD_DECODE_CHECK decode steps' logits."""
     import numpy as np
     import torch
-    import torch.distributed as dist
 
     from repro_torch import configs
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
-    from repro_torch.distributed.sharding import param_pspecs, rules_for, shard_tree
+    from repro_torch.distributed.sharding import shard_tree
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as M
     from repro_torch.serve.engine import init_sharded_cache, make_serve_step
     from repro_torch.train.adamw import tree_leaves
@@ -4363,15 +4626,12 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
                                         make_train_step, state_pspecs)
 
     t_phase = time.perf_counter()
-    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0)
-    try:
-        mesh = make_host_mesh(device_type="cuda")
-        rules = rules_for(mesh)
+    with one_rank_mesh() as mesh:
         cfg = configs.get(LM_ARCH)
 
         # (a) the sharded prefill, counters zeroed just before it
         params = lm_params(cfg, seed)
-        sparams = shard_tree(params, param_pspecs(M.model_specs(cfg), rules, mesh), mesh)
+        sparams = sharded_params(cfg, params, mesh)
         rng = np.random.default_rng(seed + 5)
         batch = {"tokens": torch.from_numpy(
             rng.integers(0, cfg.vocab, (LM_BF16_BATCH, LM_SEQ))).cuda()}
@@ -4406,20 +4666,21 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
 
         # (b) bf16 decode: batch 8, 64 new tokens after a 64-token prompt
         prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
-        max_len = SERVE_PROMPT + SERVE_GEN
+        max_len = SHARD_DECODE_PROMPT + SHARD_DECODE_GEN
         dec = {}
         for label, step, p, cache in (
                 ("sharded", make_serve_step(cfg, mesh), sparams,
                  init_sharded_cache(cfg, SERVE_BATCH, max_len, mesh)),
                 ("unsharded", make_serve_step(cfg), params,
                  M.init_cache(cfg, SERVE_BATCH, max_len, "cuda"))):
-            decode_run(step, p, cache, prompts[:, :8], 8)   # warm
+            decode_run(step, p, cache, prompts[:, :2], 2)   # warm
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            toks = decode_run(step, p, cache, prompts, SERVE_GEN)
+            toks = decode_run(step, p, cache, prompts[:, :SHARD_DECODE_PROMPT],
+                              SHARD_DECODE_GEN)
             torch.cuda.synchronize()
             dec[label] = (time.perf_counter() - t0, toks)
-        dsteps = SERVE_PROMPT + SERVE_GEN - 1
+        dsteps = SHARD_DECODE_PROMPT + SHARD_DECODE_GEN - 1
         dec_ms = {label: w / dsteps * 1e3 for label, (w, _) in dec.items()}
         same_tokens = bool(torch.equal(dec["sharded"][1], dec["unsharded"][1]))
         del params, sparams, steps, dec
@@ -4507,8 +4768,6 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
             decode_excess = max(decode_excess, allclose_excess(ls, lu, DECODE_TOL))
             decode_err = max(decode_err, float((ls - lu).abs().max()))
         del st, sst, cache_u, cache_s
-    finally:
-        dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     ref = train_ref or {}
@@ -4526,7 +4785,7 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
          decode_steps=dsteps, ms_per_decode_step=dec_ms["sharded"],
          unsharded_ms_per_decode_step=dec_ms["unsharded"],
          decode_same_tokens=same_tokens,
-         serve=dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN),
+         serve=dict(batch=SERVE_BATCH, prompt=SHARD_DECODE_PROMPT, gen=SHARD_DECODE_GEN),
          train=TRAIN_CFG, train_batch=TRAIN_BATCH, train_seq=TRAIN_SEQ,
          first_step_loss=met_s["loss"], unsharded_first_step_loss=met_u["loss"],
          first_step_grad_norm=met_s["grad_norm"],
@@ -4730,14 +4989,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["flash_attention"] = lm_bf16_phase(args.seed)["flash_attention"]
 
-        # 17.-22. the MoE, SSM, hybrid, MLA, VLM and audio families
-        for phase, arch, f32_layers, bf16_layers in LM_FAMILIES:
-            torch.cuda.empty_cache()
-            lm_family_phase(phase, arch, f32_layers, bf16_layers, args.seed)
+        # 17.-22. the MoE, SSM, hybrid, MLA, VLM and audio families, the
+        # last five also on a (1, 1) NCCL mesh
+        shard_results = {}
+        with one_rank_mesh() as mesh:
+            for phase, arch, f32_layers, bf16_layers in LM_FAMILIES:
+                torch.cuda.empty_cache()
+                shard_results[arch] = lm_family_phase(
+                    phase, arch, f32_layers, bf16_layers, args.seed,
+                    mesh if arch in SHARD_FAMILIES else None, card_line)
 
         # 23. training: no kernel runs under grad
         torch.cuda.empty_cache()
-        train_ref = lm_train_phase(args.seed)
+        train_ref = lm_train_phase(args.seed, shard_results)
 
         # 24. the LM on a mesh: NCCL at world size 1, the sharded prefill
         # through flash_attention on each rank's local heads

@@ -32,7 +32,10 @@ What GSPMD inserts on its own, the port does explicitly:
     autograd runs on another thread on the card.
   * :func:`local_shard_offsets` gives a rank's offsets into a sharded
     dimension, for the code that runs on local shards (attention's heads,
-    the decode cache's length).
+    the SSD's heads and ``din`` columns, the decode cache's length);
+    :func:`local_operand` hands such code a tensor whose gradient comes
+    back as the partial sum it is, and :func:`write_position` writes one
+    position of a decode cache on the rank that holds it.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
 
@@ -344,3 +347,35 @@ def mesh_dims_sharding(x: DTensor, dim: int) -> List[int]:
     dim %= x.dim()
     return [i for i, p in enumerate(x.placements)
             if isinstance(p, Shard) and p.dim % x.dim() == dim]
+
+
+def local_operand(t, out_placements):
+    """``t``'s local tensor for code that runs on each rank's shard and
+    whose result is placed by ``out_placements``: over a mesh dimension
+    that splits the result but not ``t`` (a replicated weight used by each
+    rank's own batch rows or heads), ``t``'s gradient comes back as a
+    partial sum over that dimension's ranks.  A plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    grad = tuple(Partial() if isinstance(o, Shard) and not isinstance(p, Shard)
+                 else p for p, o in zip(t.placements, out_placements))
+    return t.to_local(grad_placements=grad)
+
+
+def write_position(cache, value, idx: int, dim: int = 1) -> None:
+    """``cache``'s entry ``idx`` along ``dim`` set to ``value`` (of size 1
+    there) in place.  Under a mesh ``value`` is placed like the cache in
+    its other dimensions and only the rank whose shard holds ``idx``
+    writes, into its local tensor (a DTensor's index assignment on the
+    sharded dimension is not a write of one shard)."""
+    if not isinstance(cache, DTensor):
+        cache.narrow(dim, idx, 1).copy_(value)
+        return
+    mesh = cache.device_mesh
+    dim %= cache.dim()
+    others = tuple(Replicate() if isinstance(p, Shard) and p.dim % cache.dim() == dim
+                   else p for p in cache.placements)
+    local = place(value, mesh, others).to_local()
+    (shape, off) = local_shard_offsets(cache.shape, cache.placements, mesh)
+    if off[dim] <= idx < off[dim] + shape[dim]:
+        cache.to_local().narrow(dim, idx - off[dim], 1).copy_(local)

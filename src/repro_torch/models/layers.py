@@ -47,7 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (carry_mesh, constrain, fsdp,
                                               local_shard_offsets,
                                               mesh_dims_sharding, place,
-                                              replicated_like)
+                                              replicated_like, write_position)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 
@@ -281,6 +281,24 @@ def _all_reduce(t: torch.Tensor, mesh, dims, op) -> torch.Tensor:
     return t
 
 
+def split_softmax(scores: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The softmax over the last dimension of ``scores`` whose columns are
+    split over the mesh dimensions ``dims`` (a decode cache's length): the
+    max and the sum all-reduced over those ranks (decode, no autograd)."""
+    m = _all_reduce(scores.amax(dim=-1, keepdim=True), mesh, dims, dist.ReduceOp.MAX)
+    p = torch.exp(scores - m)
+    return p / _all_reduce(p.sum(dim=-1, keepdim=True), mesh, dims, dist.ReduceOp.SUM)
+
+
+def split_weighted_sum(eq: str, p: torch.Tensor, values: torch.Tensor, mesh,
+                       dims) -> torch.Tensor:
+    """``einsum(eq, p, values)`` over a length split like ``split_softmax``'s
+    columns, summed in float32 across the length's ranks, in ``values``'
+    dtype."""
+    o = torch.einsum(eq, p.to(values.dtype), values).float()
+    return _all_reduce(o, mesh, dims, dist.ReduceOp.SUM).to(values.dtype)
+
+
 def _decode_attention_sharded(q, k, v, cache, widx: int, valid: int, *,
                               window: int = 0):
     """Decode against a cache (B, T, Kv, hd) whose length is sharded over
@@ -296,12 +314,11 @@ def _decode_attention_sharded(q, k, v, cache, widx: int, valid: int, *,
     mesh = ck.device_mesh
     heads = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
                   for p in ck.placements)
-    ql, kn, vn = (place(x, mesh, heads).to_local() for x in (q, k, v))
+    write_position(ck, k, widx)
+    write_position(cv, v, widx)
+    ql = place(q, mesh, heads).to_local()
     ckl, cvl = ck.to_local(), cv.to_local()
     (_, tl, _, _), (_, t0, _, _) = local_shard_offsets(ck.shape, ck.placements, mesh)
-    if t0 <= widx < t0 + tl:
-        ckl[:, widx - t0] = kn[:, 0].to(ckl.dtype)
-        cvl[:, widx - t0] = vn[:, 0].to(cvl.dtype)
     b, _, h, hd = ql.shape
     kv = ckl.shape[2]
     scores = torch.einsum("bkgd,btkd->bkgt", ql.reshape(b, kv, h // kv, hd),
@@ -310,15 +327,9 @@ def _decode_attention_sharded(q, k, v, cache, widx: int, valid: int, *,
     mask = cols < valid
     if window > 0:
         mask &= cols > valid - 1 - window
-    scores = scores.masked_fill(~mask, -1e30)
     length = mesh_dims_sharding(ck, 1)
-    m = _all_reduce(scores.amax(dim=-1, keepdim=True), mesh, length,
-                    dist.ReduceOp.MAX)
-    p = torch.exp(scores - m)
-    p = p / _all_reduce(p.sum(dim=-1, keepdim=True), mesh, length,
-                        dist.ReduceOp.SUM)
-    o = torch.einsum("bkgt,btkd->bkgd", p.to(ql.dtype), cvl).float()
-    o = _all_reduce(o, mesh, length, dist.ReduceOp.SUM).to(ql.dtype)
+    p = split_softmax(scores.masked_fill(~mask, -1e30), mesh, length)
+    o = split_weighted_sum("bkgt,btkd->bkgd", p, cvl, mesh, length)
     return DTensor.from_local(o.reshape(b, 1, h, hd), mesh, heads,
                               run_check=False)
 

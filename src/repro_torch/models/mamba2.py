@@ -8,6 +8,9 @@ across chunks a small state carries ``(heads, state, head_dim)`` in float32
 O(1) state per layer: ``h ← a·h + dt·B⊗x``, ``y = C·h``; no KV cache.
 
 All of it is plain torch, as in the reference (no Pallas kernel there).
+Under a mesh the conv, the SSD and the recurrence run on each rank's local
+heads (``_ssm_local_heads``), the projections and the gated norm on
+DTensors.
 """
 
 from __future__ import annotations
@@ -16,8 +19,12 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain, fsdp, local_operand,
+                                              local_shard_offsets,
+                                              mesh_dims_sharding, place)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec, p_, rms_norm, wide
 
@@ -110,27 +117,17 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, compute_dtype=torch.float32):
     return (y_intra + y_inter).reshape(b, s, h, p)
 
 
-def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-                state: Optional[dict] = None):
-    """Returns (out, new_state).  state = {"h": (B,H,N,P), "conv": (B,3,C)};
-    with a state, ``x`` is one token (B, 1, d) and the recurrence runs."""
-    b, s, d = x.shape
-    nh, n, hp = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    din = cfg.expand * d
-
-    xz = x @ p["wx"]
-    z = x @ p["wz"]
-    Bc = x @ p["wB"]
-    Cc = x @ p["wC"]
-    dt = F.softplus(x @ p["wdt"] + p["dt_bias"])
-    A = -torch.exp(wide(p["A_log"]))
-
-    u = torch.cat([xz, Bc, Cc], dim=-1)
-    u, new_conv = _causal_conv(u, p["conv_w"], None if state is None else state["conv"])
-    xz, Bc, Cc = u[..., :din], u[..., din:din + n], u[..., din + n:]
-
-    xh = xz.reshape(b, s, nh, hp)
-    if state is None:
+def _ssm(u, dt, A, D, cfg: ModelConfig, h: Optional[torch.Tensor] = None):
+    """The SSD (prefill) or the one-token recurrence (``h`` given) over the
+    conv output ``u`` (B, S, dl + 2n): its first ``dl`` columns are the
+    heads' inputs, then B and C.  Returns y (B, S, dl) in the accumulation
+    dtype, the D skip added, and the new state (None in prefill)."""
+    b, s, c = u.shape
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    dl = c - 2 * n
+    xz, Bc, Cc = u[..., :dl], u[..., dl:dl + n], u[..., dl + n:]
+    xh = xz.reshape(b, s, dl // hp, hp)
+    if h is None:
         xw = wide(xh)
         y = ssd_chunked(xw, wide(dt), A, wide(Bc), wide(Cc), cfg.ssm_chunk,
                         compute_dtype=torch.bfloat16 if cfg.ssd_bf16 else xw.dtype)
@@ -138,19 +135,81 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         # single-token recurrence: h <- a·h + dt·B⊗x ; y = C·h
         a = torch.exp(dt[:, 0] * A)                               # (b,h)
-        hprev = state["h"].float()                                # (b,h,n,p)
+        hprev = h.float()                                         # (b,h,n,p)
         upd = dt[:, 0][:, :, None, None] * \
             Bc[:, 0].float()[:, None, :, None] * \
             xh[:, 0].float()[:, :, None, :]
         new_h32 = hprev * a[:, :, None, None] + upd
         y = torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), new_h32)[:, None]
-        new_h = new_h32.to(state["h"].dtype)
+        new_h = new_h32.to(h.dtype)
+    y = y + wide(xh) * wide(D)[:, None]
+    return y.reshape(b, s, dl), new_h
 
-    y = y + wide(xh) * wide(p["D"])[:, None]
-    y = y.reshape(b, s, din).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    out = (y.reshape(b * s, din) @ p["wo"]).reshape(b, s, d)
-    new_state = None if state is None else {"h": new_h, "conv": new_conv}
+
+def _ssm_local_heads(xz, Bc, Cc, dt, A, p, cfg: ModelConfig, state):
+    """``_causal_conv`` and ``_ssm`` on each rank's local shard under a
+    mesh: batch over the batch axes, ``din`` and the heads over ``model``
+    (the same split: ``din`` is the heads times ``ssm_head_dim``), the
+    sequence whole, B and C replicated.  The conv reads the rank's columns
+    of ``conv_w`` and the whole B/C part; in decode the new token's whole
+    ``din`` is gathered, so the conv state, replicated over ``model``,
+    stays alike on its ranks.  Returns y as a DTensor placed like ``xz``
+    and the new state as local tensors."""
+    mesh = xz.device_mesh
+    out = tuple(xz.placements)
+    if mesh_dims_sharding(dt, 2) != mesh_dims_sharding(xz, 2):
+        raise ValueError(f"{cfg.name}: din {xz.shape[2]} and {dt.shape[2]} heads "
+                         f"are split differently over the mesh {mesh.shape}")
+    din = xz.shape[2]
+    (_, _, dl), (_, _, d0) = local_shard_offsets(xz.shape, out, mesh)
+    Bl, Cl = local_operand(Bc, out), local_operand(Cc, out)
+    w = local_operand(p["conv_w"], out)
+    if state is None:
+        u, _ = _causal_conv(torch.cat([xz.to_local(), Bl, Cl], dim=-1),
+                            torch.cat([w[:, d0:d0 + dl], w[:, din:]], dim=1))
+        new_conv = None
+    else:
+        rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                     for pl in out)
+        whole = place(xz, mesh, rows).to_local()
+        u, new_conv = _causal_conv(torch.cat([whole, Bl, Cl], dim=-1), w,
+                                   state["conv"].to_local())
+        u = torch.cat([u[..., d0:d0 + dl], u[..., din:]], dim=-1)
+    y, new_h = _ssm(u, dt.to_local(), local_operand(A, out),
+                    local_operand(p["D"], out), cfg,
+                    None if state is None else state["h"].to_local())
+    y = DTensor.from_local(y, mesh, out, run_check=False)
+    return y, None if state is None else {"h": new_h, "conv": new_conv}
+
+
+def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+                state: Optional[dict] = None):
+    """Returns (out, new_state).  state = {"h": (B,H,N,P), "conv": (B,3,C)};
+    with a state, ``x`` is one token (B, 1, d) and the recurrence runs.
+    Under a mesh the input's sequence is gathered first (as attention's
+    is), the conv and the SSD run on each rank's local heads
+    (``_ssm_local_heads``) and the new state comes back as local tensors;
+    the gated norm's sum of squares over ``din``, split over ``model``, is
+    DTensor's reduction over the shards."""
+    b, s, d = x.shape
+    din = cfg.expand * d
+    x = constrain(x, "batch", None, None)
+    xz = x @ fsdp(p["wx"])
+    z = x @ fsdp(p["wz"])
+    Bc = x @ fsdp(p["wB"])
+    Cc = x @ fsdp(p["wC"])
+    dt = F.softplus(x @ fsdp(p["wdt"]) + p["dt_bias"])
+    A = -torch.exp(wide(p["A_log"]))
+
+    if isinstance(xz, DTensor):
+        y, new_state = _ssm_local_heads(xz, Bc, Cc, dt, A, p, cfg, state)
+    else:
+        u, new_conv = _causal_conv(torch.cat([xz, Bc, Cc], dim=-1), p["conv_w"],
+                                   None if state is None else state["conv"])
+        y, new_h = _ssm(u, dt, A, p["D"], cfg, None if state is None else state["h"])
+        new_state = None if state is None else {"h": new_h, "conv": new_conv}
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p["norm"])
+    out = (y.reshape(b * s, din) @ fsdp(p["wo"])).reshape(b, s, d)
     return out, new_state
 
 

@@ -18,8 +18,11 @@ each layer, taken only under grad (``_maybe_remat``); its ``scan_unroll``
 sharding constraints (``distributed/sharding.py`` ``constrain``) stand
 where it has them: no-ops without a mesh.  Under a mesh (the train, prefill
 and serve steps' ``mesh_context``) parameters, activations and the decode
-cache are DTensors; the dense and MoE families with GQA attention run
-there (``MESH_FAMILIES``), the others raise.
+cache are DTensors, for every family: attention (GQA, MLA's expanded
+heads, cross-attention over a context) runs on each rank's local heads,
+the SSD on each rank's local SSM heads, and decode writes each new cache
+entry or state on the ranks that hold it.  The context a VLM or audio
+model reads is placed like a batch (``encode_context``).
 """
 
 from __future__ import annotations
@@ -27,9 +30,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import carry_mesh, constrain, current_mesh
+from repro_torch.distributed.sharding import carry_mesh, constrain, fsdp
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -40,19 +44,11 @@ from repro_torch.models.layers import (ParamSpec, attn_apply, attn_specs,
                                        mlp_specs, p_, proj_heads, rms_norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-#: the families a mesh runs (with GQA attention: not MLA's latent)
-MESH_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if current_mesh() is not None and (cfg.family not in MESH_FAMILIES
-                                       or cfg.kv_lora):
-        raise NotImplementedError(
-            f"{cfg.name}: the port shards the {MESH_FAMILIES} families with "
-            f"GQA attention over a mesh, not {cfg.family!r}"
-            + (" with MLA" if cfg.kv_lora else ""))
 
 
 # --------------------------------------------------------------------------
@@ -164,13 +160,24 @@ def _apply_attn(p, x, cfg, *, positions, impl, cache=None, decode_pos=None,
                       cache=cache, decode_pos=decode_pos)
 
 
+def _residual(x, h):
+    """``x + h``, the sublayer output ``h`` first placed like the residual
+    stream (sequence over ``model``; a no-op without a mesh).  Left to
+    DTensor, the add reduces ``h``'s partial sums to the stream's layout
+    without autograd seeing it, so ``h``'s gradient comes back sharded over
+    the sequence, which a matrix product's backward then flattens with the
+    batch: torch 2.11 refuses that view (a sharded dimension flattened
+    after another).  Placed here, the gradient comes back as ``h`` was."""
+    return x + constrain(h, "batch", "seq", None)
+
+
 def dense_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None,
                 causal=True):
     h, nc = _apply_attn(p["attn"], rms_norm(x, p["ln1"]), cfg,
                         positions=positions, impl=impl, cache=cache,
                         decode_pos=decode_pos, causal=causal)
-    x = x + h
-    x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+    x = _residual(x, h)
+    x = _residual(x, mlp_apply(p["mlp"], rms_norm(x, p["ln2"])))
     return constrain(x, "batch", "seq", None), nc
 
 
@@ -178,23 +185,28 @@ def moe_block(p, x, cfg, *, positions, impl, cache=None, decode_pos=None):
     h, nc = _apply_attn(p["attn"], rms_norm(x, p["ln1"]), cfg,
                         positions=positions, impl=impl, cache=cache,
                         decode_pos=decode_pos)
-    x = x + h
+    x = _residual(x, h)
     h, aux = moe_mod.moe_apply(p["moe"], rms_norm(x, p["ln2"]), cfg)
-    return constrain(x + h, "batch", "seq", None), nc, aux
+    return constrain(_residual(x, h), "batch", "seq", None), nc, aux
 
 
 def ssm_block(p, x, cfg, *, state=None):
     """With a ``state`` (views into the decode cache), the new state is
-    written into it in place."""
+    written into it in place: under a mesh into each rank's local shards,
+    which is what ``mamba_apply`` returns there."""
     h, ns = m2.mamba_apply(p["mamba"], rms_norm(x, p["ln1"]), cfg, state=state)
     if state is not None:
-        state["h"].copy_(ns["h"])
-        state["conv"].copy_(ns["conv"])
-    return constrain(x + h, "batch", "seq", None)
+        for k in ("h", "conv"):
+            dst = state[k]
+            (dst.to_local() if isinstance(dst, DTensor) else dst).copy_(ns[k])
+    return constrain(_residual(x, h), "batch", "seq", None)
 
 
 def _cross_kv(p, context):
-    """K and V of a cross-attention block, projected from the context."""
+    """K and V of a cross-attention block, projected from the context
+    (under a mesh its whole length on each rank, batch over the batch
+    axes: the heads split in the projection)."""
+    context = constrain(context, "batch", None, None)
     return proj_heads(context, p["wk"]), proj_heads(context, p["wv"])
 
 
@@ -202,8 +214,8 @@ def cross_block(p, x, cfg, *, context, impl):
     """The VLM's cross-attention layer over the vision embeddings."""
     h, _ = attn_apply(p["attn"], rms_norm(x, p["ln1"]), cfg, positions=None,
                       impl=impl, causal=False, cross_kv=_cross_kv(p["attn"], context))
-    x = x + h
-    return constrain(x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"])),
+    x = _residual(x, h)
+    return constrain(_residual(x, mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))),
                      "batch", "seq", None)
 
 
@@ -214,11 +226,11 @@ def decoder_block(p, x, cfg, *, enc, positions, impl, cache=None,
     h, _ = attn_apply(p["self"], rms_norm(x, p["ln1"]), cfg,
                       positions=positions, impl=impl, cache=cache,
                       decode_pos=decode_pos)
-    x = x + h
+    x = _residual(x, h)
     h, _ = attn_apply(p["cross"], rms_norm(x, p["ln2"]), cfg, positions=None,
                       impl=impl, causal=False, cross_kv=_cross_kv(p["cross"], enc))
-    x = x + h
-    return constrain(x + mlp_apply(p["mlp"], rms_norm(x, p["ln3"])),
+    x = _residual(x, h)
+    return constrain(_residual(x, mlp_apply(p["mlp"], rms_norm(x, p["ln3"]))),
                      "batch", "seq", None)
 
 
@@ -311,15 +323,17 @@ def forward_hidden(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _encode_audio(params, frames, cfg: ModelConfig, impl: str):
     """The encoder over precomputed frame embeddings: non-causal dense
-    blocks after the learned positions."""
-    x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
+    blocks after the learned positions (their ``embed`` dimension
+    gathered under a mesh, as a weight's).  Under a mesh the output is
+    placed like a batch: its whole length on each rank."""
+    x = frames + fsdp(params["enc_pos"])[None, :frames.shape[1]].to(frames.dtype)
     positions = torch.arange(frames.shape[1], dtype=torch.int32,
                              device=frames.device)
     dense = _maybe_remat(dense_block, cfg)
     for i in range(cfg.encoder_layers):
         x, _ = dense(layer(params["encoder"], i), x, cfg,
                      positions=positions, impl=impl, causal=False)
-    return rms_norm(x, params["enc_norm"])
+    return constrain(rms_norm(x, params["enc_norm"]), "batch", None, None)
 
 
 # --------------------------------------------------------------------------
@@ -387,11 +401,14 @@ def encode_context(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """The static per-request context ``decode_step`` reads: the audio
     encoder's output (run once a request, not a token), or the vision
     embeddings as they are, in the model dtype; None for the other
-    families."""
+    families.  Under a mesh the context comes back placed like a batch
+    (batch over the batch axes, the rest whole), a plain input cut to the
+    rank's rows."""
     if cfg.family == "audio":
-        return _encode_audio(params, batch["frames"].to(cfg.torch_dtype), cfg, impl)
+        frames = constrain(batch["frames"], "batch", None, None)
+        return _encode_audio(params, frames.to(cfg.torch_dtype), cfg, impl)
     if cfg.family == "vlm":
-        return batch["vision"].to(cfg.torch_dtype)
+        return constrain(batch["vision"].to(cfg.torch_dtype), "batch", None, None)
     return None
 
 

@@ -15,7 +15,9 @@ placed by ``param_pspecs(M.model_specs(cfg))`` and the cache by
 ``param_pspecs(M.cache_specs(...))`` (``init_sharded_cache``), its length
 over ``model`` (context-parallel decode: each rank attends over its part
 of the length, and the new entry is written by the rank that holds its
-position).
+position).  ``make_encode_step(cfg, mesh)`` encodes a VLM or audio
+request's raw context once, placed like a batch on the mesh, for the serve
+step to read.
 """
 
 from __future__ import annotations
@@ -43,6 +45,26 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
             return M.decode_step(params, cache, tokens, pos, cfg, context=context)
 
     return serve_step
+
+
+def make_encode_step(cfg: ModelConfig, mesh=None):
+    """encode(params, raw) -> the context ``decode_step`` reads: ``raw``
+    (B, vision tokens or frames, d_model), an array or a tensor, moved to
+    the parameters' device and encoded once (``encode_context``: whisper's
+    encoder, or the vision embeddings cast); with ``mesh`` on its ranks,
+    the raw and the encoded context placed like a batch (batch over the
+    batch axes).  None for the families without a context."""
+    key = "frames" if cfg.family == "audio" else "vision"
+
+    @torch.no_grad()
+    def encode(params, raw):
+        if raw is None:
+            return None
+        with mesh_context(mesh):
+            raw = torch.as_tensor(raw, device=params["embedding"].device)
+            return M.encode_context(params, {key: raw}, cfg)
+
+    return encode
 
 
 def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh):
@@ -92,9 +114,7 @@ class BatchedServer:
         self.cache = M.init_cache(self.cfg, self.batch, self.max_len,
                                   self.device)
         if self.context is not None:
-            key = "frames" if self.cfg.family == "audio" else "vision"
-            raw = torch.as_tensor(self.context, device=self.device)
-            self.context = M.encode_context(self.params, {key: raw}, self.cfg)
+            self.context = make_encode_step(self.cfg)(self.params, self.context)
         self._step = make_serve_step(self.cfg)
 
     def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:

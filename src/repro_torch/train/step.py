@@ -71,7 +71,11 @@ class TrainConfig:
 
 def _ce_sum(params, xi, li, mi):
     """Σ (log-sum-exp − gold logit) · mask over one chunk: the head's
-    logits in float32 (float64 for a float64 model)."""
+    logits in float32 (float64 for a float64 model).  Under a mesh the
+    chunk's sequence is gathered first: a chunk that spans the whole
+    sequence keeps the stream's sequence sharding, and the head's product
+    would flatten it with the batch (torch 2.11 refuses that view)."""
+    xi = constrain(xi, "batch", None, None)
     logits = wide(logits_apply(params, xi))
     logits = constrain(logits, "batch", None, "vocab")
     if isinstance(logits, DTensor):

@@ -19,6 +19,7 @@ reference's single-device results.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -436,26 +437,73 @@ def _local_shapes(tree):
     return [(tuple(t.shape), tuple(t.to_local().shape)) for t in tree_leaves(tree)]
 
 
-def lm_case(rank, world, runs, tmp_dir=None):
+@contextlib.contextmanager
+def strict_flatten_views():
+    """Within, DTensor refuses a view that flattens a dimension sharded
+    after the first of the dimensions it flattens, as torch 2.11 does
+    ("Attempted to flatten multiple dimensions, with dimension 1 being
+    sharded"); later releases give it a strided placement instead.  The
+    card's torch is 2.11: this holds the CPU's newer torch to its rule."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._ops import _view_ops as V
+
+    plain = V.propagate_shape_and_sharding
+
+    def flattens(cmd):
+        if isinstance(cmd, V.Flatten):
+            yield cmd
+            for d in cmd.input_dims:
+                yield from flattens(d)
+        elif isinstance(cmd, V.Split):
+            yield from flattens(cmd.input_dim)
+
+    def strict(placements, shape, rule, mesh_sizes, strict_view=False):
+        if strict_view:
+            for fl in (f for cmd in rule for f in flattens(cmd)):
+                for d in fl.input_dims[1:]:
+                    if any(isinstance(p, Shard) and isinstance(d, V.InputDim)
+                           and p.dim == d.input_dim and mesh_sizes[m] > 1
+                           for m, p in enumerate(placements)):
+                        raise RuntimeError(
+                            f"Attempted to flatten multiple dimensions, with "
+                            f"dimension {d.input_dim} being sharded (torch 2.11)")
+        return plain(placements, shape, rule, mesh_sizes, strict_view)
+
+    V.propagate_shape_and_sharding = strict
+    try:
+        yield
+    finally:
+        V.propagate_shape_and_sharding = plain
+
+
+def lm_case(rank, world, runs, tmp_dir=None, strict_views=False):
     """The LM's sharded steps: for each ``(shape, cases)`` of ``runs`` a
     ``("data", "model")`` mesh of ``shape`` over the whole group (several
     meshes share one group), one dict a case (smoke configs, numpy inputs
     made by the parent); a list of results a run:
 
       * ``train``: ``state`` placed by ``state_pspecs``, a step a batch of
-        ``batches`` (the smoke config with ``cfg``'s overrides); the metrics, the gathered params and every leaf's
+        ``batches`` (token arrays, or dicts of arrays with a VLM's
+        ``vision`` or audio's ``frames``; the smoke config with ``cfg``'s
+        overrides); the metrics, the gathered params and every leaf's
         (global, local) shape after the steps;
       * ``prefill``: ``params`` placed by ``param_pspecs``, one prefill of
-        ``tokens`` with ``impl``; the gathered logits;
-      * ``decode``: a zero cache placed by the cache specs, one step a
-        column of ``tokens``; the gathered logits of each and the cache's
-        shapes;
+        ``tokens`` (and ``context``'s arrays, if any) with ``impl``; the
+        gathered logits;
+      * ``decode``: a zero cache placed by the cache specs, the raw
+        ``context`` (if any) encoded once on the mesh
+        (``make_encode_step``), one step a column of ``tokens``; the
+        gathered logits of each, the cache's shapes and the encoded
+        context's placements;
       * ``loop``: ``TrainLoop`` runs of ``steps`` steps, straight and
         stopped at ``stop`` then resumed from its checkpoint (under
         ``tmp_dir``); both runs' losses and params.
+
+    With ``strict_views`` every case runs under ``strict_flatten_views``.
     """
-    return [_lm_cases(shape, cases, os.path.join(tmp_dir, "x".join(map(str, shape))))
-            for shape, cases in runs]
+    with strict_flatten_views() if strict_views else contextlib.nullcontext():
+        return [_lm_cases(shape, cases, os.path.join(tmp_dir, "x".join(map(str, shape))))
+                for shape, cases in runs]
 
 
 def _lm_cases(shape, cases, tmp_dir):
@@ -464,7 +512,8 @@ def _lm_cases(shape, cases, tmp_dir):
     from repro_torch.distributed.sharding import param_pspecs, rules_for
     from repro_torch.models import model as M
     from repro_torch.models.weights import params_from_numpy, state_to_numpy
-    from repro_torch.serve.engine import init_sharded_cache, make_serve_step
+    from repro_torch.serve.engine import (init_sharded_cache, make_encode_step,
+                                          make_serve_step)
     from repro_torch.train.loop import LoopConfig, TrainLoop
     from repro_torch.train.step import (TrainConfig, make_prefill_step,
                                         make_train_step, state_pspecs)
@@ -485,7 +534,9 @@ def _lm_cases(shape, cases, tmp_dir):
             step = make_train_step(cfg, tcfg, mesh)
             metrics = []
             for b in case["batches"]:
-                state, met = step(state, {"tokens": torch.from_numpy(b)})
+                b = b if isinstance(b, dict) else {"tokens": b}
+                state, met = step(state, {k: torch.from_numpy(np.asarray(a))
+                                          for k, a in b.items()})
                 metrics.append({k: float(v) for k, v in met.items()})
             out.append(dict(metrics=metrics, params=state_to_numpy(state["params"]),
                             shapes=_local_shapes(state),
@@ -493,22 +544,26 @@ def _lm_cases(shape, cases, tmp_dir):
                                               for v in met.values())))
         elif kind == "prefill":
             params = params_from_numpy(case["params"], "cpu", mesh, specs)
+            batch = {k: torch.from_numpy(np.asarray(a)) for k, a in
+                     dict(case.get("context", {}), tokens=case["tokens"]).items()}
             logits = make_prefill_step(cfg, TrainConfig(attn_impl=case["impl"]),
-                                       mesh)(params, {"tokens": torch.from_numpy(
-                                           case["tokens"])})
+                                       mesh)(params, batch)
             out.append(dict(logits=logits.full_tensor().numpy(),
                             placements=[repr(p) for p in logits.placements]))
         elif kind == "decode":
             params = params_from_numpy(case["params"], "cpu", mesh, specs)
             toks = torch.from_numpy(case["tokens"])
             cache = init_sharded_cache(cfg, toks.shape[0], case["max_len"], mesh)
+            context = make_encode_step(cfg, mesh)(params, case.get("context"))
             step = make_serve_step(cfg, mesh)
             logits = []
             for pos in range(case["steps"]):
-                lg, cache = step(params, cache, toks[:, pos:pos + 1], pos)
+                lg, cache = step(params, cache, toks[:, pos:pos + 1], pos, context)
                 logits.append(lg.full_tensor().numpy())
             out.append(dict(logits=logits, shapes=_local_shapes(cache),
-                            cache=state_to_numpy(cache)))
+                            cache=state_to_numpy(cache),
+                            context_placements=None if context is None else
+                            [repr(p) for p in context.placements]))
         else:                                               # loop
             pipe = TokenPipeline(PipelineConfig(*case["pipe"], cfg.vocab, seed=0),
                                  cfg, device="cpu")

@@ -19,22 +19,30 @@ within 1e-4 of the largest statistic, one runner built, the restore
 bitwise, the gathered fact equal to the unsharded copy's, the ranks'
 covars bitwise alike.  Exits 1 if a check fails, and when a rank fails.
 
-    python3 tools/torch_shard_cards.py --lm [--ranks 4] [--n-model 2] [--smoke]
+    python3 tools/torch_shard_cards.py --lm [--arch A] [--layers L] [--seq S]
+        [--dtype D] [--ranks 4] [--n-model 2] [--smoke]
 
 runs the LM's sharding instead (``distributed/sharding.py``): each rank
-builds internlm2-1.8b's train state from ``--seed`` (whole, bf16; the
-smoke config with ``--smoke``) on a ``(ranks / n_model, n_model)`` mesh,
-keeps its shard (``state_pspecs``), and takes ``--steps`` sharded train
-steps of B 8 × 4,096 in two microbatches (chunked attention, remat), then
-a sharded prefill of B 4 × 4,096 with ``"flash"`` (the kernel on each
-rank's local heads) and 8 sharded decode steps on the trained shards;
-rank 0 then does the same unsharded from the same state.  The last line
-holds the checks: each step's loss within 1e-3 and grad norm within 1e-2
-(relative) of the unsharded step's, the params after the steps within
-5e-3, the prefill's last-position and the decode logits within 5e-2 of
-their max (bf16: the products' partial sums cross ranks), one
-``flash_attention`` launch a layer on every rank, every rank's state a
-shard (its bytes at most half the whole's).
+builds ``--arch``'s train state from ``--seed`` (internlm2-1.8b unless
+given; whole, in the config's dtype, bf16, unless ``--layers`` cuts its
+depth or ``--dtype`` sets one; the smoke config with ``--smoke``) on a
+``(ranks / n_model, n_model)`` mesh, keeps its shard (``state_pspecs``),
+and takes ``--steps`` sharded train steps of B 8 × ``--seq`` (4,096) in
+two microbatches (chunked attention, remat; the VLM's and whisper's
+batches carry their context), then a sharded prefill of B 4 × ``--seq``
+with ``"flash"`` (the kernel on each rank's local heads) and 8 sharded
+decode steps on the trained shards, a VLM's or whisper's context encoded
+once on the mesh; rank 0 then does the same unsharded from the same
+state, drawn again from the seed.  The last line holds the checks: each step's loss within 1e-3 and
+grad norm within 1e-2 (relative) of the unsharded step's, the params
+after the steps within 5e-3, the prefill's last-position and the decode
+logits within 5e-2 of their max (bf16: the products' partial sums cross
+ranks; rank 0 also reports, as a yardstick, how far its unsharded bf16
+prefill and decode are from float32 on the same weights), every rank's ``flash_attention`` launches a prefill equal to the
+unsharded prefill's (on the card, one an attention layer; none for the
+SSM), every rank's state a shard (its bytes at most half the whole's).
+A MoE arch's routing can flip a near-tie when partial sums cross ranks:
+run it with ``--dtype float32``, where none is expected.
 """
 
 import argparse
@@ -174,30 +182,35 @@ LM_LOSS_TOL, LM_GNORM_TOL, LM_PARAM_TOL = 1e-3, 1e-2, 5e-3
 LM_LOGITS_TOL = 5e-2
 
 
-def lm_serve(cfg, params, tokens, mesh):
-    """The last-position logits of a ``"flash"`` prefill of ``tokens`` and
-    the logits of 8 decode steps over its first columns (a fresh cache),
-    on ``mesh`` (None: unsharded), whole on every rank; and the prefill's
-    ``flash_attention`` launches."""
+def lm_serve(cfg, params, batch, mesh):
+    """The last-position logits of a ``"flash"`` prefill of ``batch``
+    (tokens, and a VLM's or whisper's context) and the logits of 8 decode
+    steps over its first columns (a fresh cache, the context encoded
+    once), on ``mesh`` (None: unsharded), whole on every rank; and the
+    prefill's ``flash_attention`` launches."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import init_sharded_cache, make_serve_step
+    from repro_torch.serve.engine import (init_sharded_cache, make_encode_step,
+                                          make_serve_step)
     from repro_torch.train.step import TrainConfig, make_prefill_step
 
     def whole(t):
         return t.full_tensor() if mesh is not None else t
 
+    tokens = batch["tokens"]
     ops.reset_launches()
     pre = whole(make_prefill_step(cfg, TrainConfig(attn_impl="flash"), mesh)(
-        params, {"tokens": tokens}))
+        params, batch))
     launches = ops.LAUNCHES["flash_attention"]
     b = tokens.shape[0]
     cache = (init_sharded_cache(cfg, b, 16, mesh) if mesh is not None
              else M.init_cache(cfg, b, 16, tokens.device))
+    raw = next((a for k, a in batch.items() if k != "tokens"), None)
+    context = make_encode_step(cfg, mesh)(params, raw)
     step = make_serve_step(cfg, mesh)
     dec = []
     for pos in range(8):
-        lg, cache = step(params, cache, tokens[:, pos:pos + 1], pos)
+        lg, cache = step(params, cache, tokens[:, pos:pos + 1], pos, context)
         dec.append(whole(lg).float())
     return pre.float(), torch.stack(dec), launches
 
@@ -219,24 +232,32 @@ def lm_rank_main(rank, world, init_file, args, out):
         from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
         from repro_torch.distributed.sharding import full_tree, shard_tree
         from repro_torch.launch.mesh import make_host_mesh
-        from repro_torch.train.adamw import tree_leaves
+        from repro_torch.train.adamw import tree_leaves, tree_map
         from repro_torch.train.step import (TrainConfig, init_state, make_train_step,
                                             state_pspecs)
 
         dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
-        cfg = (configs.get_smoke if args.smoke else configs.get)("internlm2-1.8b")
-        seq = 64 if args.smoke else 4096
+        cfg = (configs.get_smoke if args.smoke else configs.get)(args.arch)
+        cfg = cfg.with_(n_layers=args.layers or cfg.n_layers,
+                        dtype=args.dtype or cfg.dtype)
+        seq = 64 if args.smoke else args.seq
         tcfg = TrainConfig(attn_impl="chunked", ce_chunk=min(512, seq), grad_accum=2,
                            peak_lr=3e-4, warmup=0, total_steps=8)
         mesh = make_host_mesh(n_data=world // args.n_model, n_model=args.n_model,
                               device_type=args.device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(args.seed)
-        state = init_state(cfg, tcfg, gen, dev)
+        def fresh_state():
+            # the same values on every rank and at every call: a replicated
+            # leaf's shard shares its storage with the whole leaf, which the
+            # sharded steps update in place, so the unsharded run (rank 0)
+            # draws its own copy after the sharded one is freed
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed)
+            return init_state(cfg, tcfg, gen, dev)
+
+        state = fresh_state()
         whole = sum(t.numel() * t.element_size() for t in tree_leaves(state))
         sstate = shard_tree(state, state_pspecs(cfg, tcfg, mesh), mesh)
-        if rank:
-            del state
+        del state
         local = sum(t.to_local().numel() * t.element_size() for t in tree_leaves(sstate))
         pipe = TokenPipeline(PipelineConfig(8, seq, cfg.vocab, seed=args.seed), cfg,
                              device=dev)
@@ -255,13 +276,16 @@ def lm_rank_main(rank, world, init_file, args, out):
         res["tokens_per_s"] = 8 * seq / min(res["walls_s"][1:] or res["walls_s"])
         if on_card:
             res["peak_mem_gib"] = torch.cuda.max_memory_allocated(rank) / 2**30
-        tokens = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
-            0, cfg.vocab, (4, seq))).to(dev)
-        pre, dec, res["prefill_launches"] = lm_serve(cfg, sstate["params"], tokens, mesh)
-        res["layers"] = cfg.n_layers
+        rng = np.random.default_rng(args.seed + 1)
+        batch = {k: a[:4] for k, a in pipe.batch_at(args.steps).items()}
+        batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (4, seq))).to(dev)
+        pre, dec, res["prefill_launches"] = lm_serve(cfg, sstate["params"], batch, mesh)
+        res.update(arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+                   dtype=cfg.dtype, seq=seq)
         params = full_tree(sstate["params"])
         del sstate
         if rank == 0:
+            state = fresh_state()
             ustep = make_train_step(cfg, tcfg)
             res["unsharded_losses"], res["unsharded_grad_norms"] = [], []
             for i in range(args.steps):
@@ -271,8 +295,19 @@ def lm_rank_main(rank, world, init_file, args, out):
             res["param_err"] = max(float((a.float() - b.float()).abs().max()) for a, b in
                                    zip(tree_leaves(params), tree_leaves(state["params"])))
             del state
-            upre, udec, _ = lm_serve(cfg, params, tokens, None)
+            upre, udec, res["unsharded_prefill_launches"] = lm_serve(cfg, params, batch, None)
             res["prefill_rel"], res["decode_rel"] = rel_max(pre, upre), rel_max(dec, udec)
+            if cfg.torch_dtype != torch.float32:
+                # bf16's own distance: the unsharded run against float32
+                # on the same weights (a yardstick, not a check)
+                f32 = {k: a.float() if a.is_floating_point() else a
+                       for k, a in batch.items()}
+                wide = cfg.with_(dtype="float32")
+                p32 = tree_map(lambda t: t.float(), params)
+                del params
+                fpre, fdec, _ = lm_serve(wide, p32, f32, None)
+                res["unsharded_vs_f32_prefill_rel"] = rel_max(upre, fpre)
+                res["unsharded_vs_f32_decode_rel"] = rel_max(udec, fdec)
         print(json.dumps(res, default=str), flush=True)
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(res, f, default=str)
@@ -280,8 +315,19 @@ def lm_rank_main(rank, world, init_file, args, out):
         dist.destroy_process_group()
 
 
-def lm_checks(ranks) -> dict:
+def flash_launches_a_forward(cfg) -> int:
+    """``flash_attention`` launches of one forward on the card: one an
+    attention layer (whisper's encoder layers and its decoder's self and
+    cross attention; the hybrid's shared block once a group), none for the
+    SSM."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+            "ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "audio": cfg.encoder_layers + 2 * cfg.n_layers}[cfg.family]
+
+
+def lm_checks(ranks, cfg) -> dict:
     r0 = ranks[0]
+    want = r0["unsharded_prefill_launches"]
     return {
         "losses": all(abs(a - b) <= LM_LOSS_TOL for a, b in
                       zip(r0["losses"], r0["unsharded_losses"])),
@@ -290,8 +336,9 @@ def lm_checks(ranks) -> dict:
         "params": r0["param_err"] <= LM_PARAM_TOL,
         "prefill_decode": max(r0["prefill_rel"], r0["decode_rel"]) <= LM_LOGITS_TOL,
         # the kernel on the card; its plain version (no launch) on the CPU
-        "prefill_launches": all(r["prefill_launches"] == (
-            r["layers"] if r["device"].startswith("cuda") else 0) for r in ranks),
+        "prefill_launches": want == (flash_launches_a_forward(cfg) if
+                                     r0["device"].startswith("cuda") else 0)
+        and all(r["prefill_launches"] == want for r in ranks),
         "ranks_alike": all(r["losses"] == r0["losses"] for r in ranks),
         "sharded": all(2 * r["local_state_bytes"] <= r["state_bytes"] for r in ranks),
     }
@@ -310,6 +357,11 @@ def main() -> int:
     ap.add_argument("--n-model", type=int, default=2, help="--lm: the model axis")
     ap.add_argument("--steps", type=int, default=2, help="--lm: train steps")
     ap.add_argument("--smoke", action="store_true", help="--lm: the smoke config")
+    ap.add_argument("--arch", default="internlm2-1.8b", help="--lm: the config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--lm: cut the depth to this many layers")
+    ap.add_argument("--seq", type=int, default=4096, help="--lm: sequence length")
+    ap.add_argument("--dtype", default=None, help="--lm: the model dtype")
     args = ap.parse_args()
     if args.device == "cuda" and torch.cuda.device_count() < args.ranks:
         print(f"torch_shard_cards: {args.ranks} ranks need as many cards "
@@ -329,8 +381,14 @@ def main() -> int:
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     if args.lm:
-        checks = lm_checks(ranks)
+        from repro_torch import configs
+
+        cfg = (configs.get_smoke if args.smoke else configs.get)(args.arch)
+        cfg = cfg.with_(n_layers=args.layers or cfg.n_layers)
+        checks = lm_checks(ranks, cfg)
         print(json.dumps({"ranks": args.ranks, "device": args.device, "lm": True,
+                          "arch": args.arch, "layers": cfg.n_layers,
+                          "dtype": ranks[0]["dtype"], "seq": ranks[0]["seq"],
                           "n_model": args.n_model, "smoke": args.smoke,
                           "checks": checks, "ok": all(checks.values())}), flush=True)
         return 0 if all(checks.values()) else 1
