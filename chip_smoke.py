@@ -108,8 +108,9 @@ Phases, one JSON line each (``{"phase": ...}``):
                (the arrays written once under ``build/`` and mapped by each
                rank): the covar (rank 0 against the float64 oracle, N
                exact, both ranks bitwise alike), three ticks against
-               ``shard.w1``'s, each rank's launches and walls (two ranks
-               share one card: no scaling figure).
+               ``shard.w1``'s, each rank's launches, walls and peak memory
+               (two ranks share one card, this process having freed its
+               Retailer first: no scaling figure).
  14. examples — the five engine examples of the port
                (``examples/torch_*.py``) in-process on the card at
                ``EXAMPLES_SCALE`` 10 (600,000 Favorita and Retailer fact
@@ -185,6 +186,14 @@ Phases, one JSON line each (``{"phase": ...}``):
                sync-debug "error", tokens/s and peak memory beside
                lm.train's), and in float32 at 4 layers of full width the
                params after one step and 16 decode steps' logits.
+ 25. dryrun  — the multi-pod dry run (``launch/dryrun.py``) on fake CUDA
+               tensors over a fake process group, in processes of its own:
+               ``--arch whisper-small --shape decode_32k --mesh both`` (256
+               and 512 ranks, two ``traced`` records), and lm.train's cell
+               (internlm2-1.8b whole, B 8 × 4,096, two microbatches) traced
+               at world size 1, its argument bytes equal to the state and
+               batch bytes lm.train measured, its traced peak beside
+               lm.train's measured peak; no kernel launched.
 
 The ``kernels`` phase also holds ``flash_attention`` against its plain
 version at the attention shapes of internlm2-1.8b's prefill (the summary's
@@ -212,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -2784,18 +2794,22 @@ def shard_w2_rank(rank, world, root, init_file, seed):
                  tick_C=np.stack(res["C"]), tick_N=np.asarray(res["N"]),
                  walls=np.asarray([load_s, covar_cold, covar_warm, res["init_s"]]),
                  tick_walls=np.asarray(res["walls"]), builds=np.asarray(res["builds"]),
-                 tick_launches=np.asarray(res["launches"]))
+                 tick_launches=np.asarray(res["launches"]),
+                 peak_gib=np.asarray([torch.cuda.max_memory_allocated(),
+                                      torch.cuda.max_memory_reserved()]) / 2**30)
     finally:
         dist.destroy_process_group()
 
 
-def shard_w2_phase(ds, db, ref, w1, seed: int, card_line: str):
+def shard_w2_phase(ds, block_size: int, ref, w1, seed: int, card_line: str):
     """Two ranks as processes on this card over gloo (``torch.multiprocessing``,
     a ``file://`` store under ``build/``): the Retailer arrays written once
     under ``build/`` and mapped by each rank; each runs the fused covar and
     ``SHARD_TICKS`` ticks.  Rank 0's covar against the main float64 oracle
     (N exact), every rank's ticks against ``shard.w1``'s to 1e-4 of
-    Σ|terms|.  A rank's failure fails the phase."""
+    Σ|terms|.  A rank's failure fails the phase.  This process holds no
+    Retailer on the card meanwhile; what it and each rank reserve is in the
+    phase's line."""
     import pickle
     import shutil
 
@@ -2816,8 +2830,9 @@ def shard_w2_phase(ds, db, ref, w1, seed: int, card_line: str):
                 label=ds.label, fact=ds.fact,
                 attrs={rel: list(cols) for rel, cols in ds.tables.items()})
     with open(os.path.join(root, "dataset.pkl"), "wb") as f:
-        pickle.dump((meta, db.config.block_size), f)
+        pickle.dump((meta, block_size), f)
     write_s = time.perf_counter() - t0
+    main_reserved_gib = torch.cuda.memory_reserved() / 2**30
     t0 = time.perf_counter()
     try:
         mp.start_processes(shard_w2_rank, args=(2, root, os.path.join(root, "pg_store"), seed),
@@ -2837,7 +2852,10 @@ def shard_w2_phase(ds, db, ref, w1, seed: int, card_line: str):
                               tick_walls_s=x["tick_walls"].tolist())
              for r, x in enumerate(res)}
     emit("shard.w2", card=card_line, world_size=2, backend="gloo", note=SHARD_W2_NOTE,
-         write_s=write_s, ranks_s=ranks_s, walls=walls,
+         write_s=write_s, ranks_s=ranks_s, walls=walls, main_reserved_gib=main_reserved_gib,
+         rank_peak_allocated_gib=[float(x["peak_gib"][0]) for x in res],
+         rank_peak_reserved_gib=[float(x["peak_gib"][1]) for x in res],
+         card_gib=torch.cuda.get_device_properties(0).total_memory / 2**30,
          fused_scan_block_per_rank=[int(x["launches"]) for x in res],
          main_fused_launches=ref["launches"],
          tick_launches_per_rank=[x["tick_launches"].tolist() for x in res],
@@ -4097,6 +4115,7 @@ def lm_train_full(seed: int):
     from repro_torch import configs
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.kernels import ops
+    from repro_torch.train.adamw import tree_leaves
     from repro_torch.train.loop import LoopConfig, TrainLoop
     from repro_torch.train.step import TrainConfig, init_state, make_train_step
 
@@ -4109,6 +4128,12 @@ def lm_train_full(seed: int):
                          device="cuda")
     train_step = make_train_step(cfg, tcfg)
     metrics = []
+    # what a step takes: the state's tensors and one batch (the dry run's
+    # argument bytes for this cell)
+    arg_bytes = dict(state_arg_bytes=sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(state)),
+                     batch_bytes=sum(t.numel() * t.element_size()
+                                     for t in pipe.batch_at(0).values()))
 
     def step(s, b):
         s, met = train_step(s, b)
@@ -4143,7 +4168,7 @@ def lm_train_full(seed: int):
                median_warm_step_s=warm, tokens_per_step=tokens,
                train_tokens_per_s=tokens / warm, state_bytes=train_state_bytes(
                    state["params"], tcfg.grad_accum),
-               peak_mem_gib=peak / 2**30, launches=launches,
+               peak_mem_gib=peak / 2**30, launches=launches, **arg_bytes,
                sync_debug="error after the first step; lifted only for the loss read",
                profile=prof)
     check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
@@ -4543,7 +4568,8 @@ def lm_train_phase(seed: int, shard_results=None):
     torch.cuda.empty_cache()
     emit("lm.train.examples", card=smi, **lm_train_examples())
     emit("lm.train.done", card=smi, phase_s=time.perf_counter() - t0)
-    return {k: full[k] for k in ("train_tokens_per_s", "peak_mem_gib")}
+    return {k: full[k] for k in ("train_tokens_per_s", "peak_mem_gib",
+                                 "state_arg_bytes", "batch_bytes")}
 
 
 # ------------------------------------------------------------- lm.shard
@@ -4829,6 +4855,94 @@ def lm_shard_phase(seed: int, card_line: str, train_ref=None):
     return launches
 
 
+
+# ------------------------------------------------------------- dryrun
+
+#: the dry run's command line on the card: whisper-small's decode_32k on the
+#: (16, 16) and (2, 16, 16) meshes (256 and 512 fake ranks, fake CUDA
+#: tensors), which must give two traced records
+DRYRUN_CLI = ("--arch", "whisper-small", "--shape", "decode_32k", "--mesh", "both")
+#: lm.train's cell traced at world size 1 on a (1, 1) mesh: internlm2-1.8b
+#: whole, bf16, B 8 × 4,096 in two microbatches, chunked attention (TRAIN_CFG)
+DRYRUN_TRAIN = """
+import json, sys
+from repro_torch import configs
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun as D
+from repro_torch.train.step import TrainConfig
+import dataclasses
+batch, seq, train = json.loads(sys.argv[1])
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq, global_batch=batch)
+before = dict(ops.LAUNCHES)
+rec = D.trace_cell(configs.get(sys.argv[2]), shape, {"data": 1, "model": 1},
+                   tcfg=TrainConfig(**train), device="cuda")
+rec["launches_unchanged"] = dict(ops.LAUNCHES) == before
+print(json.dumps(rec))
+"""
+
+
+def dryrun_phase(card_line: str, train_ref=None):
+    """The multi-pod dry run (``launch/dryrun.py``) on the card's torch, each
+    part a process of its own (a dry run starts its own fake process group)
+    and both at once: (a) the command line on DRYRUN_CLI, two ``traced``
+    records; (b) lm.train's cell traced at world size 1, whose argument
+    bytes must equal the state and batch bytes lm.train measured in this
+    run (``train_ref``), its traced peak printed beside lm.train's measured
+    peak as a ratio.  Nothing here allocates on the card or launches a
+    kernel."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "dryrun_smoke")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            *DRYRUN_CLI, "--out", out_dir], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    train = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_TRAIN,
+         json.dumps([TRAIN_BATCH, TRAIN_SEQ, TRAIN_CFG]), LM_ARCH], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cli_out, cli_err = cli.communicate(timeout=600)
+        train_out, train_err = train.communicate(timeout=600)
+    finally:
+        for p in (cli, train):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(cli.returncode == 0, f"dryrun: the command line exited {cli.returncode}:\n"
+          f"{cli_out[-2000:]}\n{cli_err[-4000:]}")
+    check(train.returncode == 0, f"dryrun: lm.train's cell exited {train.returncode}:\n"
+          f"{train_err[-4000:]}")
+    records = {}
+    for tag in ("single", "multi"):
+        with open(os.path.join(out_dir, f"whisper-small__decode_32k__{tag}.json")) as f:
+            records[tag] = json.load(f)
+    cell = json.loads(train_out.strip().splitlines()[-1])
+    ref = train_ref or {}
+    want = ref.get("state_arg_bytes", 0) + ref.get("batch_bytes", 0)
+    peak_gib = cell["memory"]["peak_bytes"] / 2**30
+    keep = ("status", "n_devices", "trace_s", "memory", "cost", "collectives",
+            "n_collectives")
+    emit("dryrun", card=card_line, cli=" ".join(DRYRUN_CLI),
+         cli_lines=cli_out.strip().splitlines(),
+         whisper_decode_32k={t: {k: r.get(k) for k in keep} for t, r in records.items()},
+         train_cell=dict(arch=LM_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, train=TRAIN_CFG,
+                         mesh={"data": 1, "model": 1},
+                         **{k: cell[k] for k in keep if k in cell}),
+         train_measured_arg_bytes=want or None,
+         traced_peak_gib=peak_gib, measured_peak_gib=ref.get("peak_mem_gib"),
+         traced_over_measured_peak=(peak_gib / ref["peak_mem_gib"]
+                                    if ref.get("peak_mem_gib") else None),
+         phase_s=time.perf_counter() - t0)
+    check(all(r["status"] == "traced" for r in records.values()),
+          f"dryrun: whisper-small decode_32k gave {[r['status'] for r in records.values()]}")
+    check(cell["status"] == "traced" and cell["launches_unchanged"],
+          f"dryrun: lm.train's cell {cell['status']}, launches unchanged "
+          f"{cell['launches_unchanged']}")
+    check(not train_ref or cell["memory"]["argument_bytes"] == want,
+          f"dryrun: lm.train's cell traced {cell['memory']['argument_bytes']} argument "
+          f"bytes, lm.train measured {want} (state + batch)")
+
 def plan_specs_for(scale: float, block_size: int):
     """The fused specs of the covar plan's fact step and of its Items step
     with the histogram view, and of the tree plan's fact step for
@@ -4975,12 +5089,16 @@ def main() -> int:
         # 13b. domain parallelism: world size 1 over NCCL here, then two
         # ranks over gloo as processes on the same card
         w1 = shard_w1_phase(ds, db, shard_ref, args.seed, card_line)
-        shard_w2_phase(ds, db, shard_ref, w1, args.seed, card_line)
+        # the two ranks share the card with this process: free its Retailer
+        block_size = db.config.block_size
+        del db, join
+        gc.collect()
+        torch.cuda.empty_cache()
+        shard_w2_phase(ds, block_size, shard_ref, w1, args.seed, card_line)
         del w1, shard_ref
 
-        # 14. the engine examples, after freeing Retailer
-        del ds, db, join
-        torch.cuda.empty_cache()
+        # 14. the engine examples
+        del ds
         examples_phase()
         torch.cuda.empty_cache()
 
@@ -5007,6 +5125,9 @@ def main() -> int:
         # through flash_attention on each rank's local heads
         torch.cuda.empty_cache()
         lm_shard_phase(args.seed, card_line, train_ref)
+
+        # 25. the multi-pod dry run: fake tensors over a fake process group
+        dryrun_phase(card_line, train_ref)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

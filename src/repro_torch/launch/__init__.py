@@ -1,4 +1,5 @@
 """launch substrate; counterpart of ``repro/launch`` (``serve.py``,
-``train.py`` and ``mesh.py``, whose meshes serve the engine and the LM's
-sharded steps alike; no ``dryrun.py`` yet: ``train/step.py``'s
-``abstract_state`` and the spec functions are what it would lower)."""
+``train.py``, ``mesh.py``, whose meshes serve the engine and the LM's
+sharded steps alike, and ``dryrun.py``, which traces the LM's steps on fake
+tensors over a fake process group at the production meshes' 256 and 512
+ranks in place of the reference's XLA compiles)."""
