@@ -199,11 +199,16 @@ The ``kernels`` phase also holds ``flash_attention`` against its plain
 version at the attention shapes of internlm2-1.8b's prefill (the summary's
 case), llama3-8b, minicpm-2b, h2o-danube-3-4b (window 4,096), a ragged
 non-causal float32 case, a ragged causal bf16 one, ``prefill_32k``,
-qwen3-moe-235b-a22b's prefill (GQA 16:1) and zamba2-1.2b's (D 64), the
-plain version on sampled rows where its float32 scores would pass 16 GB
-(``prefill_32k``, qwen3-moe), with
-``scaled_dot_product_attention`` as the library time, on (B, H, S, D)
-views of (B, S, H, D) tensors as the model passes them.  Besides allclose
+qwen3-moe-235b-a22b's prefill (GQA 16:1) and zamba2-1.2b's (D 64), MLA's
+(D_q 192, D_v 128), the VLM's cross-attention and whisper's encoder, and in
+float32 at internlm2's, MLA's, zamba2's and the VLM's cross-attention
+shapes and a small ``<192, 192>`` case, the plain version on sampled rows
+where its float32 scores would pass 16 GB (``prefill_32k``, qwen3-moe),
+with ``scaled_dot_product_attention`` as the library time (at GQA shapes
+the faster of ``enable_gqa=True`` and K and V expanded beforehand, each
+call's backend recorded), on (B, H, S, D) views of (B, S, H, D) tensors
+as the model passes them; float32's bound is three TF32 products a term
+on the tensor cores (the CUDA cores' bound beside it).  Besides allclose
 at the reference's tolerances, each case is held per query row to a
 limit on the scale of that row's output, and must read above that limit
 against a plain version with a planted fault.
@@ -2897,7 +2902,15 @@ ATTN_CASES = (
     ("deepseek-v2-lite-16b.mla.f32", 4, 16, 16, 4096, 4096, 192, 128, True, 0, "float32"),
     ("llama-3.2-vision-90b.cross", 4, 64, 8, 4096, 1024, 128, 128, False, 0, "bfloat16"),
     ("whisper-small.encoder", 4, 12, 12, 1500, 1500, 64, 64, False, 0, "bfloat16"),
+    ("zamba2-1.2b.f32", 4, 32, 32, 4096, 4096, 64, 64, True, 0, "float32"),
+    ("llama-3.2-vision-90b.cross.f32", 4, 64, 8, 4096, 1024, 128, 128, False, 0, "float32"),
+    ("wide.192x192.f32", 2, 8, 4, 1000, 1000, 192, 192, True, 0, "float32"),
 )
+#: scaled_dot_product_attention's backends by the aten op each dispatches to
+SDPA_BACKENDS = (("flash", "_scaled_dot_product_flash_attention"),
+                 ("efficient", "_scaled_dot_product_efficient_attention"),
+                 ("cudnn", "_scaled_dot_product_cudnn_attention"),
+                 ("math", "_scaled_dot_product_attention_math"))
 #: query rows held against the plain version where its float32 scores
 #: would pass PLAIN_SCORE_BYTES (prefill_32k: 68 GB; qwen3-moe: 17 GB, and
 #: the plain version holds four such tensors at once)
@@ -2964,17 +2977,38 @@ def planted_fault_rel(q, k, v, got, causal: bool, window: int) -> float:
     return row_rel(got[:, :, rows], bad)
 
 
+def sdpa_backend(fn) -> str:
+    """The backend ``scaled_dot_product_attention`` runs in ``fn``, read off
+    the aten op it dispatches to (the profiler's host events)."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for backend, op in SDPA_BACKENDS:
+        if any(op in n for n in names):
+            return backend
+    return "unknown"
+
+
 def attention_kernel_cases(args, rates):
     """``flash_attention`` against its plain version at the models'
     attention shapes, on (B, H, S, D) views of (B, S, H, D) tensors as the
     model passes them: error, kernel, plain and SDPA times (SDPA takes
-    E_v ≠ E), bound (unmasked pairs × 2 (D_q + D_v) operations)."""
+    E_v ≠ E; at GQA shapes it is timed twice, with ``enable_gqa=True`` and
+    on K and V expanded by ``repeat_interleave`` outside the timed call,
+    each call's backend recorded, and the faster is the library time),
+    bound (unmasked pairs × 2 (D_q + D_v) operations; float32 at 3xTF32,
+    three TF32 products a term on the tensor cores, with the CUDA cores'
+    bound beside it)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
     bw, f32_flops, bf16_flops = rates
+    tf32_flops = bf16_flops / 2
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     cases = []
@@ -3013,16 +3047,30 @@ def attention_kernel_cases(args, rates):
         if window > 0:
             rr = torch.arange(s, device="cuda")
             allowed = (rr[None, :] <= rr[:, None]) & (rr[None, :] > rr[:, None] - window)
-            library = lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=allowed, enable_gqa=True)
+            sdpa = lambda k, v, gqa: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed, enable_gqa=gqa)
         else:
-            library = lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True)
-        library_ms = cuda_ms(library, reps)
+            sdpa = lambda k, v, gqa: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=gqa)
+        library_gqa_ms = cuda_ms(lambda: sdpa(k, v, True), reps)
+        backend_gqa = sdpa_backend(lambda: sdpa(k, v, True))
+        library_expanded_ms = backend_expanded = None
+        if h != hkv:
+            ke, ve = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+            library_expanded_ms = cuda_ms(lambda: sdpa(ke, ve, False), reps)
+            backend_expanded = sdpa_backend(lambda: sdpa(ke, ve, False))
+            del ke, ve
+        library_ms = min(t for t in (library_gqa_ms, library_expanded_ms) if t is not None)
         nbytes = q.element_size() * b * (d + dv) * (h * s + hkv * sk)
         pairs = b * h * unmasked_pairs(s, sk, causal, window)
         n_ops = 2 * (d + dv) * pairs
-        peak = bf16_flops if dt == "bfloat16" else f32_flops
+        if dt == "bfloat16":
+            peak, rate = bf16_flops, "bf16 tensor cores"
+            f32_bounds = dict(bound_cuda_cores_ms=None, bound_3xtf32_ms=None)
+        else:
+            peak, rate = tf32_flops / 3, "3xTF32: three TF32 products a term on the tensor cores"
+            f32_bounds = dict(bound_cuda_cores_ms=bound(nbytes, n_ops, bw, f32_flops)["bound_ms"],
+                              bound_3xtf32_ms=bound(nbytes, n_ops, bw, peak)["bound_ms"])
         case = dict(case=label, B=b, H=h, H_kv=hkv, S=s, S_k=sk, D=d, D_v=dv,
                     causal=causal,
                     window=window, dtype=dt, max_abs_err=max_abs,
@@ -3035,8 +3083,11 @@ def attention_kernel_cases(args, rates):
                     library_ms=library_ms,
                     library_call="scaled_dot_product_attention"
                     + (" with an explicit band mask" if window > 0 else ""),
+                    library_enable_gqa_ms=library_gqa_ms, library_enable_gqa_backend=backend_gqa,
+                    library_expanded_ms=library_expanded_ms,
+                    library_expanded_backend=backend_expanded,
                     unmasked_pairs=pairs, achieved_tflops=n_ops / ms / 1e9,
-                    **bound(nbytes, n_ops, bw, peak))
+                    bound_rate=rate, **f32_bounds, **bound(nbytes, n_ops, bw, peak))
         emit("kernel", name="flash_attention", **case)
         check(worst <= 1.0, f"flash_attention[{label}]: |kernel - plain| exceeds "
               f"{tol} + {tol}·|plain| (max abs {max_abs:.3e})")

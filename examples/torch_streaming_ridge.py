@@ -16,7 +16,6 @@ import time
 
 import numpy as np
 
-from repro_torch.data import DeltaBatchUpdate
 from repro_torch.data import datasets as D
 from repro_torch.ml.online import OnlineRidge
 
@@ -45,16 +44,13 @@ def main(argv=None):
     n = len(fact[ds.label])
     k = max(n // 100, 1)          # 1% churn per tick
 
-    def update_fact():
-        pick = rng.integers(0, n, k)
-        olr.update(DeltaBatchUpdate()
-                   .insert(ds.fact, {a: np.asarray(c)[pick] for a, c in fact.items()})
-                   .delete(ds.fact, rng.choice(n, k, replace=False)))
-
     out = {"N_fit": float(olr.N), "p": olr.layout.p, "tick_ms": [], "steps": []}
     for tick in range(5):
         t0 = time.time()
-        update_fact()
+        pick = rng.integers(0, n, k)
+        olr.update_fact(
+            inserts={a: np.asarray(c)[pick] for a, c in fact.items()},
+            delete_idx=rng.choice(n, k, replace=False))
         t_up = time.time() - t0
         drift = float(np.linalg.norm(olr.theta))
         out["tick_ms"].append(t_up * 1e3)
@@ -79,7 +75,10 @@ def main(argv=None):
     # show the snapshot stays frozen while fresh reads see the new epoch
     with mb.pinned() as epoch:
         pinned = mb.results(epoch=epoch)["cm_scalar"].cpu().numpy().copy()
-        update_fact()
+        pick = rng.integers(0, n, k)
+        olr.update_fact(
+            inserts={a: np.asarray(c)[pick] for a, c in fact.items()},
+            delete_idx=rng.choice(n, k, replace=False))
         drift = float(np.max(np.abs(
             mb.results()["cm_scalar"].cpu().numpy() - pinned)))
         frozen = bool(np.array_equal(

@@ -419,6 +419,13 @@ class MaintainedBatch:
         return es.step if es is not None else 0
 
     @property
+    def state(self) -> Optional[Dict[int, torch.Tensor]]:
+        """The current epoch's view tensors keyed by vid (None before
+        init/restore)."""
+        es = self._current
+        return dict(es.views) if es is not None else None
+
+    @property
     def db(self) -> Database:
         """Current database snapshot (base relations after applied updates;
         columns are views of the resident buffers)."""

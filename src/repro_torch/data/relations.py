@@ -109,6 +109,9 @@ class Relation:
     def n_rows(self) -> int:
         return int(next(iter(self.columns.values())).shape[0])
 
+    def column(self, attr: str) -> torch.Tensor:
+        return self.columns[attr]
+
     def validate(self, dbs: sch.DatabaseSchema) -> None:
         rs = dbs.relation(self.name)
         if set(self.columns) != set(rs.attrs):
@@ -191,6 +194,9 @@ class Database:
 
     def sizes(self) -> Dict[str, int]:
         return {n: r.n_rows for n, r in self.relations.items()}
+
+    def total_tuples(self) -> int:
+        return sum(self.sizes().values())
 
     @property
     def device(self) -> torch.device:

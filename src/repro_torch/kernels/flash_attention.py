@@ -10,12 +10,16 @@ accumulators in both dtypes, and only the key tiles inside the causal /
 window band visited.  bf16 runs one block per (128-row query tile, head,
 batch): a producer thread feeds 128-key K/V tiles by TMA into a ring in
 shared memory, and two warpgroups of 64 rows multiply them with ``wgmma``.
-The tensor maps are built in the C entry point from the strides passed
-here.  float32 runs 64-row tiles on the CUDA cores.  Each dtype has one
-instance per width class, ``<D_q, D_v>`` rounded up to boxes of 64:
-``<64, 64>``, ``<128, 128>`` and ``<192, 128>``, and in float32
-``<192, 192>`` too; bf16's ``<192, 192>`` would need 240 KB of shared
-memory, over the 227 KB a block may use, so it raises.  The TPU kernel's
+float32 runs one block per 64-row query tile on the tensor cores in
+3xTF32 (each operand split into TF32 high and low parts, hi·lo + lo·hi +
+hi·hi a product, float32-class: within 1e-5 of float64 at D 128 and 192):
+TMA loads each K and V tile, a producer warpgroup splits it, K-major,
+V transposed, and one consumer warpgroup multiplies with ``wgmma``.  The
+tensor maps are built in the C entry point from the strides passed here.
+Each dtype has one instance per width class, ``<D_q, D_v>`` rounded up
+to boxes of 64: ``<64, 64>``, ``<128, 128>`` and ``<192, 128>``, and in
+float32 ``<192, 192>`` too; bf16's ``<192, 192>`` would need 240 KB of
+shared memory, over the 227 KB a block may use, so it raises.  The TPU kernel's
 ``block_q``, ``block_k``, ``interpret`` and ``kv_len`` have no counterpart:
 any ``S`` goes in as it is (the kernel masks the ragged tile itself), and
 the inputs may be strided views, such as the

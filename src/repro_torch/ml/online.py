@@ -15,7 +15,7 @@ scans just the delta tuples.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -66,6 +66,17 @@ class OnlineRidge:
         """Fold an update batch into the maintained views and re-solve."""
         self.view.apply(update)
         return self.refresh()
+
+    def update_fact(self, inserts: Optional[Mapping[str, np.ndarray]] = None,
+                    delete_idx: Optional[np.ndarray] = None) -> np.ndarray:
+        """An update touching only the fact table: ``inserts`` (attribute →
+        column) and the fact rows ``delete_idx``; folds and re-solves."""
+        upd = DeltaBatchUpdate()
+        if inserts is not None:
+            upd.insert(self.ds.fact, inserts)
+        if delete_idx is not None:
+            upd.delete(self.ds.fact, delete_idx)
+        return self.update(upd)
 
     def refresh(self, outputs: Optional[Dict[str, np.ndarray]] = None) -> np.ndarray:
         """Re-solve from the current epoch's results, copied to the host,

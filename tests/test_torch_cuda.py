@@ -1053,6 +1053,123 @@ def test_flash_attention_bf16_rows_without_keys_are_zero(cuda_device):
     assert tuple(none.shape) == tuple(q.shape) and not bool(none.any())
 
 
+#: the float32 kernel (3xTF32) against float64 attention: float32-class,
+#: which one TF32 product a term (2^-11 a product) cannot meet
+F32_CLASS = 1e-5
+
+
+def _check_f32(q, k, v, causal, window):
+    """The float32 kernel against the plain version in float32 (allclose at
+    2e-3, per query row ≤ 1e-3 of the row's rms, chip_smoke.py's limit)
+    and against float64 attention within F32_CLASS; a row without keys
+    must come back exactly 0."""
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == tuple(q.shape[:3]) + (v.shape[3],)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (got - want).abs().amax(-1, keepdim=True)
+    assert bool((err <= 1e-3 * rms).all()), float((err / rms.clamp_min(1e-30)).max())
+    exact = ref.attention_ref(q.double(), k.double(), v.double(), causal=causal,
+                              window=window)
+    worst = float((got.double() - exact).abs().max())
+    assert worst <= F32_CLASS, worst
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 4096])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_tile_edges(cuda_device, s, causal):
+    """64-row query tiles and 64-key tiles (D_q ≤ 128) that end on and
+    inside a tile's edge."""
+    q, k, v = _qkv(2, 4, 2, s, 128, torch.float32, cuda_device, seed=s)
+    _check_f32(q, k, v, causal, 0)
+
+
+@pytest.mark.parametrize("s", [31, 32, 33, 100])
+def test_flash_attention_f32_tile_edges_at_d_192(cuda_device, s):
+    """The 32-key tiles of D_q = 192."""
+    _check_f32(*_qkv_widths(2, 4, 2, s, s, 192, 128, torch.float32, cuda_device,
+                            seed=s), True, 0)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 300), (300, 100), (129, 1000),
+                                   (1000, 129), (256, 255)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 100)])
+def test_flash_attention_f32_sq_ne_sk(cuda_device, sq, sk, causal, window):
+    """More keys than queries and fewer, with every mask."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, n, s, 64)).astype(np.float32))
+               .to(cuda_device) for n, s in ((8, sq), (4, sk), (4, sk)))
+    _check_f32(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("window", [100, 129, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_windows(cuda_device, window, causal):
+    """Windows whose edge falls inside a key tile, on a tile's edge + 1,
+    and one key past a 4,096-key span."""
+    q, k, v = _qkv(1, 4, 2, 5000, 128, torch.float32, cuda_device, seed=window)
+    _check_f32(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_attention_f32_gqa_groups(cuda_device, group):
+    q, k, v = _qkv(2, 8, 8 // group, 700, 128, torch.float32, cuda_device,
+                   seed=group)
+    _check_f32(q, k, v, True, 0)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 120, 128, 136, 192])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 200)])
+def test_flash_attention_f32_head_dims(cuda_device, d, causal, window):
+    """Head dims each instance covers only in part (8 ... 136) or whole."""
+    q, k, v = _qkv(2, 4, 2, 600, d, torch.float32, cuda_device, seed=d)
+    _check_f32(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("dq,dv", [(192, 128), (192, 192)])
+@pytest.mark.parametrize("sq,sk,causal,window", [(333, 333, True, 0), (100, 300, True, 0),
+                                                 (300, 100, False, 0),
+                                                 (777, 777, True, 100)])
+def test_flash_attention_f32_wide_instances(cuda_device, dq, dv, sq, sk, causal, window):
+    """<192, 128> (MLA) and <192, 192>: ragged tiles, S_q ≠ S_k, a window,
+    on the model's strided views."""
+    _check_f32(*_qkv_widths(2, 4, 2, sq, sk, dq, dv, torch.float32, cuda_device,
+                            seed=sq + sk + dv), causal, window)
+
+
+def test_flash_attention_f32_rows_without_keys_are_zero(cuda_device):
+    """The float32 kernel under a window of 1 with more query rows than
+    keys: a query tile wholly past S_k splits no key tile; S_k = 0."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 300, 64)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(1, 2, 70, 64)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True, window=1)
+    assert not bool(got[0, :, 70:].any())
+    torch.testing.assert_close(got[0, :, :70], v[0], rtol=0, atol=1e-6)
+    _check_f32(q, k, v, True, 1)
+    none = ops.flash_attention(q, k[:, :, :0], v[:, :, :0], causal=False)
+    assert tuple(none.shape) == tuple(q.shape) and not bool(none.any())
+
+
+@pytest.mark.parametrize("dq,dv", [(128, 128), (192, 128), (192, 192)])
+def test_flash_attention_f32_is_float32_class(cuda_device, dq, dv):
+    """At D 128 and 192 over 2,048 keys the float32 kernel reads within
+    1e-5 of float64 attention: 3xTF32, not one TF32 product a term."""
+    q, k, v = _qkv_widths(2, 8, 4, 2048, 2048, dq, dv, torch.float32, cuda_device,
+                          seed=dq + dv)
+    got = ops.flash_attention(q, k, v, causal=True)
+    exact = ref.attention_ref(q.double(), k.double(), v.double(), causal=True)
+    worst = float((got.double() - exact).abs().max())
+    assert worst <= F32_CLASS, worst
+
+
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _qkv(1, 4, 2, 64, 64, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
