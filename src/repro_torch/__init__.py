@@ -11,8 +11,16 @@ package imports nothing of it.
 The session facade loads lazily, so ``import repro_torch`` stays cheap.
 """
 
+import torch as _torch
+
 from repro_torch.core.aggregates import (COUNT, agg, query, sum_of,
                                          sum_prod)
+from repro_torch.obs import trace as _trace
+
+# every span is a torch.profiler annotation while a profiler records
+# (obs/ itself imports no torch)
+_trace.annotate_with(_torch._C._autograd._profiler_enabled,
+                     _torch.autograd.profiler.record_function)
 
 _API = ("connect", "Database", "ExecutionConfig", "ViewHandle", "ViewReport")
 

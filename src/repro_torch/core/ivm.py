@@ -85,7 +85,7 @@ from repro_torch.data.relations import (Database, DeltaBatchUpdate, Relation,
                                         _resident_advance, check_delete_idx,
                                         check_update_columns, next_pow2)
 from repro_torch.obs.metrics import Registry
-from repro_torch.obs.trace import span
+from repro_torch.obs.trace import lazy_span, span
 
 
 # ----------------------------------------------------------- delta derivation
@@ -389,8 +389,9 @@ class MaintainedBatch:
         self._evicted: "collections.OrderedDict[int, None]" = \
             collections.OrderedDict()
         self._evicted_floor = -1      # every evicted epoch <= this is trimmed
-        #: per-batch telemetry: ``ivm.tick_us`` is the host dispatch wall of
-        #: each ``apply`` — no sync, so it reads what the host spends
+        #: per-batch telemetry: ``ivm.tick_us`` is the host wall of each
+        #: ``apply`` — it forces no sync, but holds any time the host is
+        #: blocked inside it (a launch waiting on a full launch queue)
         self.metrics = Registry()
         self._tick_hist = self.metrics.histogram("ivm.tick_us")
 
@@ -672,8 +673,9 @@ class MaintainedBatch:
                                            step=cur.step + 1,
                                            views=views, relations=rels)
                 self.n_delta_scan_steps += n_scans
-        # host dispatch wall of the whole tick (validate + fold + publish);
-        # no synchronize — the no-sync instrumentation rule
+        # host wall of the whole tick (validate + fold + publish): no
+        # synchronize (the no-sync instrumentation rule), but it holds any
+        # blocking the tick meets, such as launches waiting on a full queue
         self._tick_hist.observe((time.perf_counter() - t_tick) * 1e6)
         return self.results()
 
@@ -687,14 +689,15 @@ class MaintainedBatch:
         n_del = 0 if del_idx is None else len(del_idx)
         ins_pad = next_pow2(n_ins) if n_ins else 0
         del_pad = next_pow2(n_del) if n_del else 0
-        ins_dev = {a: _to_device(np.pad(c, (0, ins_pad - n_ins)), self.device)
-                   for a, c in (ins or {}).items()}
-        # delete pads point at the capacity, as the reference's do: the
-        # compaction reads only the first n_del, the gather clamps them
-        del_dev = (_to_device(np.pad(del_idx.astype(np.int64),
-                                     (0, del_pad - n_del),
-                                     constant_values=rr.capacity),
-                              self.device) if n_del else None)
+        with span("ivm.stage", n_ins=n_ins, n_del=n_del):
+            ins_dev = {a: _to_device(np.pad(c, (0, ins_pad - n_ins)), self.device)
+                       for a, c in (ins or {}).items()}
+            # delete pads point at the capacity, as the reference's do: the
+            # compaction reads only the first n_del, the gather clamps them
+            del_dev = (_to_device(np.pad(del_idx.astype(np.int64),
+                                         (0, del_pad - n_del),
+                                         constant_values=rr.capacity),
+                                  self.device) if n_del else None)
         dp = self.delta_program(rel)
         if not dp.steps:
             rels[rel] = rr.advance(ins_dev, del_dev, n_ins, n_del)
@@ -755,8 +758,9 @@ class MaintainedBatch:
             weights = torch.cat(w) if len(w) > 1 else w[0]
             new_views = self._scan_steps(tp, step_cfgs, state, delta_cols,
                                          n_delta, weights, rels, p)
-            bufs = _resident_advance(rr.buffers, rr.n_valid, ins, del_idx,
-                                     n_ins, n_del, cap)
+            with span("ivm.compact", n_valid=rr.n_valid, cap=cap):
+                bufs = _resident_advance(rr.buffers, rr.n_valid, ins, del_idx,
+                                         n_ins, n_del, cap)
             return new_views, ResidentRelation(
                 dp.rel, bufs, rr.n_valid - n_del + n_ins)
 
@@ -770,23 +774,26 @@ class MaintainedBatch:
         relation (a sharded one: this rank's prefix against its device
         count), and a partitioned step's view deltas are all-reduced
         before anything downstream reads them (psum-before-fold)."""
-        backend = self.plan.backend
+        backend, plan = self.plan.backend, self.plan
         # arrays doubles as state reads (unaffected children) and delta
         # writes: a step's finalize overwrites its vid, so a later gather
         # of an affected child reads its *delta*
         arrays = dict(state)
-        for ts, cfg in zip(tp.steps, step_cfgs):
-            if ts.scans_delta:
-                backend.run_step(ts.prog, delta_cols, arrays, p,
-                                 n_valid=n_delta, config=cfg,
-                                 weights=weights if ts.weighted else None)
-            else:
-                base = rels[ts.rel]
-                backend.run_step(ts.prog, base.columns(), arrays, p,
-                                 n_valid=base.scan_valid, config=cfg)
-            if ts.psum_vids:
-                all_reduce_views(arrays, ts.psum_vids, self._axis().group)
-        return {vid: state[vid] + arrays[vid] for vid in tp.fold_vids}
+        with span("ivm.scan", n_steps=len(tp.steps)):
+            for ts, cfg in zip(tp.steps, step_cfgs):
+                cols = delta_cols if ts.scans_delta else rels[ts.rel].columns()
+                with lazy_span("scan.step", plan.step_args, ts.prog, cols, cfg):
+                    if ts.scans_delta:
+                        backend.run_step(ts.prog, cols, arrays, p,
+                                         n_valid=n_delta, config=cfg,
+                                         weights=weights if ts.weighted else None)
+                    else:
+                        backend.run_step(ts.prog, cols, arrays, p,
+                                         n_valid=rels[ts.rel].scan_valid,
+                                         config=cfg)
+                    if ts.psum_vids:
+                        all_reduce_views(arrays, ts.psum_vids, self._axis().group)
+            return {vid: state[vid] + arrays[vid] for vid in tp.fold_vids}
 
     # -- sharded delta path ---------------------------------------------------
 
@@ -807,12 +814,13 @@ class MaintainedBatch:
         blk = next_pow2(-(-n_ins // ndev)) if n_ins else 0
         ins_pad = blk * ndev
         del_pad = next_pow2(n_del) if n_del else 0
-        ins_dev = {a: shd.put_strided(c, blk, ax, self.device)
-                   for a, c in (ins or {}).items()}
-        del_dev = (shd.put_replicated(
-            np.pad(np.sort(del_idx).astype(np.int64), (0, del_pad - n_del),
-                   constant_values=shd.GID_SENTINEL), self.device)
-            if n_del else None)
+        with span("ivm.stage", n_ins=n_ins, n_del=n_del):
+            ins_dev = {a: shd.put_strided(c, blk, ax, self.device)
+                       for a, c in (ins or {}).items()}
+            del_dev = (shd.put_replicated(
+                np.pad(np.sort(del_idx).astype(np.int64), (0, del_pad - n_del),
+                       constant_values=shd.GID_SENTINEL), self.device)
+                if n_del else None)
         # every shard's insert block lands behind its survivors, inside its
         # capacity: check the host bounds, and read the exact counts (a
         # sync) only when a bound would overflow
@@ -888,9 +896,10 @@ class MaintainedBatch:
                                              n_delta, weights, rels, p)
             else:
                 new_views = {}
-            bufs, gids, nv = shd.local_advance(
-                rr.buffers, rr.gids, rr.n_valid_dev, n_scan, hit, dels, ins,
-                rr.n_valid - n_del, shard, ndev, blk, k_ins)
+            with span("ivm.compact", n_valid=rr.n_valid, cap=cap):
+                bufs, gids, nv = shd.local_advance(
+                    rr.buffers, rr.gids, rr.n_valid_dev, n_scan, hit, dels, ins,
+                    rr.n_valid - n_del, shard, ndev, blk, k_ins)
             return new_views, dataclasses.replace(
                 rr, buffers=bufs, gids=gids,
                 n_valid=rr.n_valid - n_del + n_ins,

@@ -40,7 +40,7 @@ from repro_torch.core.lowering import get_backend
 from repro_torch.core.pushdown import PushdownResult
 from repro_torch.core.schedule import Schedule, build_schedule
 from repro_torch.core.schema import DatabaseSchema
-from repro_torch.obs.trace import span
+from repro_torch.obs.trace import lazy_span, span
 
 Columns = Mapping[str, Mapping[str, torch.Tensor]]  # rel -> attr -> (n,)
 
@@ -291,13 +291,28 @@ class ExecutablePlan:
         arrays: Dict[int, torch.Tensor] = {}
         for step, prog, cfg in zip(self.schedule.steps, self.step_programs,
                                    step_configs):
-            self.backend.run_step(prog, columns[step.rel], arrays, params,
-                                  n_valid=n_rows[step.rel],
-                                  offset=offsets.get(step.rel, 0),
-                                  config=cfg, n_nodes=n_nodes)
-            if step.rel in psum_groups:
-                all_reduce_views(arrays, step.vids, psum_groups[step.rel])
+            cols = columns[step.rel]
+            with lazy_span("scan.step", self.step_args, prog, cols, cfg, n_nodes):
+                self.backend.run_step(prog, cols, arrays, params,
+                                      n_valid=n_rows[step.rel],
+                                      offset=offsets.get(step.rel, 0),
+                                      config=cfg, n_nodes=n_nodes)
+                if step.rel in psum_groups:
+                    all_reduce_views(arrays, step.vids, psum_groups[step.rel])
         return arrays
+
+    def step_args(self, prog: StepProgram, cols: Mapping[str, torch.Tensor],
+                  cfg: PlanConfig, n_nodes: Optional[int] = None) -> Dict[str, object]:
+        """A ``scan.step`` span's arguments: the step's relation, the rows
+        it scans (its columns' length, pads included: host metadata, no
+        sync) and their row blocks, its views, and its widest segment
+        layout and total payload width."""
+        n = int(next(iter(cols.values())).shape[0])
+        n_seg, width = self._prog_tune_dims(prog, n_nodes)
+        return {"rel": prog.rel, "n_rows": n,
+                "n_blocks": max(-(-n // cfg.block_size), 1),
+                "vids": [vp.vid for vp in prog.views],
+                "n_segments": n_seg, "width": width}
 
     def extract_outputs(self, arrays: Mapping[int, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Read query results out of view tensors (column select + transpose

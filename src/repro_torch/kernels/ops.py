@@ -8,6 +8,15 @@ hand-written kernel (or raises).  A DTensor raises on either device: its
 local shard (``models/layers.py`` ``_local_heads``).  ``LAUNCHES`` counts kernel launches per
 wrapper and nothing else, so a run can show that it went through the
 kernels.
+
+Each reduction wrapper runs inside a ``kernel.<wrapper>`` span
+(``obs/trace.py``), on either device.  With tracing on, the span carries
+the launch's rows, its reductions as ``[mode, n_segments, width,
+n_parts]`` (mode "seg" or "hist", ".range" where the card cuts the
+accumulator into segment ranges), and the least work the launch does:
+``bytes``, each distinct input tensor read once at its element size and
+the float32 output written once, and ``ops``, one add per row and output
+column it adds into.  Off, none of it is computed.
 """
 
 from __future__ import annotations
@@ -20,12 +29,14 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels import ref
 from repro_torch.kernels.covar_xtx import covar_xtx_cuda
 from repro_torch.kernels.flash_attention import check_shapes, flash_attention_cuda
-from repro_torch.kernels.fused_scan import (Part, Parts, ReduceSpec,
+from repro_torch.kernels.fused_scan import (Part, Parts, ReduceSpec, _cols,
                                             fused_scan_block_cuda,
                                             fused_scan_parts_cuda)
-from repro_torch.kernels.seg_aggregate import seg_aggregate_cuda
+from repro_torch.kernels.seg_aggregate import (fits_hist_block, fits_one_block,
+                                               seg_aggregate_cuda)
 from repro_torch.kernels.tree_hist import (tree_hist_batched_cuda,
                                            tree_hist_cuda)
+from repro_torch.obs.trace import lazy_span
 
 __all__ = ["LAUNCHES", "Part", "Parts", "ReduceSpec", "covar_xtx",
            "flash_attention", "fused_scan_block", "fused_scan_parts",
@@ -72,6 +83,73 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def _read_bytes(tensors) -> int:
+    """Bytes of each distinct tensor of ``tensors``, every element it
+    addresses read once (an axis of stride 0 adds none).  One pass of a
+    few attribute reads a tensor: a launch may hand hundreds of parts."""
+    seen, total = set(), 0
+    for t in tensors:
+        shape, st = t.shape, t.stride()
+        key = (t.data_ptr(), shape, st)
+        if key in seen:
+            continue
+        seen.add(key)
+        n = t.element_size()
+        for size, step in zip(shape, st):
+            if step:
+                n *= size
+        total += n
+    return total
+
+
+def _launch_args(n: int, tensors, reds) -> dict:
+    """A reduction launch's span arguments over ``n`` rows: ``reds`` holds
+    (kind, n_segments, width, columns a row adds into, n_parts) each."""
+    modes, out, adds = [], 0, 0
+    for kind, n_seg, width, cols, n_parts in reds:
+        one = (fits_one_block(n_seg, cols) if kind == "seg"
+               else fits_hist_block(n_seg, width // 3))
+        modes.append([kind if one else f"{kind}.range", n_seg, width, n_parts])
+        out += n_seg * width
+        adds += cols
+    return {"rows": n, "reductions": modes,
+            "bytes": _read_bytes(tensors) + 4 * out, "ops": n * adds}
+
+
+def _packed_args(codes, fpay, specs) -> dict:
+    return _launch_args(codes.shape[0], (codes, fpay), [
+        (sp.kind, sp.n_segments, sp.width, sp.width, 1 if sp.kind == "seg" else 2)
+        for sp in specs])
+
+
+def _parts_args(reds) -> dict:
+    tensors, shapes = [], []
+    for r in reds:
+        tensors.append(r.codes)
+        if r.kind == "hist":
+            tensors += r.parts
+            shapes.append(("hist", r.n_segments, r.out_width, r.out_width, 2))
+            continue
+        cols = 0
+        for p in r.parts:
+            t = p.values
+            tensors.append(t)
+            cols += _cols(t)
+        shapes.append(("seg", r.n_segments, r.out_width, cols, len(r.parts)))
+    return _launch_args(reds[0].codes.shape[0], tensors, shapes)
+
+
+def _seg_args(seg, payload, n_segments) -> dict:
+    w = _cols(payload)
+    return _launch_args(seg.shape[0], (seg, payload), [("seg", n_segments, w, w, 1)])
+
+
+def _hist_args(codes, y, cond, n_buckets) -> dict:
+    w = 3 * _cols(cond)
+    return _launch_args(codes.shape[0], (codes, y, cond),
+                        [("hist", n_buckets, w, w, 2)])
+
+
 def covar_xtx(x: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``C = Xᵀ·diag(w)·X``: the (F, F) float32 ``C[f, g] = Σ_n w[n]·x[n, f]·
     x[n, g]`` for ``x`` (n, F) of any float dtype (cast to float32) and ``w``
@@ -96,9 +174,10 @@ def fused_scan_block(codes: torch.Tensor, fpay: torch.Tensor,
     tensor per spec."""
     specs = tuple(specs)
     _check_no_grad("fused_scan_block", codes, fpay)
-    if not _on_cuda(codes):
-        return ref.fused_scan_block_ref(codes, fpay, specs)
-    out = fused_scan_block_cuda(codes, fpay, specs)
+    with lazy_span("kernel.fused_scan_block", _packed_args, codes, fpay, specs):
+        if not _on_cuda(codes):
+            return ref.fused_scan_block_ref(codes, fpay, specs)
+        out = fused_scan_block_cuda(codes, fpay, specs)
     LAUNCHES["fused_scan_block"] += 1
     return out
 
@@ -110,9 +189,10 @@ def fused_scan_parts(reds: Sequence[Parts]):
     reds = tuple(reds)
     _check_no_grad("fused_scan_block", *(t for r in reds for t in (
         r.codes, *(getattr(p, "values", p) for p in r.parts))))
-    if not _on_cuda(reds[0].codes):
-        return ref.fused_scan_parts_ref(reds)
-    out = fused_scan_parts_cuda(reds)
+    with lazy_span("kernel.fused_scan_block", _parts_args, reds):
+        if not _on_cuda(reds[0].codes):
+            return ref.fused_scan_parts_ref(reds)
+        out = fused_scan_parts_cuda(reds)
     LAUNCHES["fused_scan_block"] += 1
     return out
 
@@ -122,9 +202,10 @@ def seg_aggregate(seg: torch.Tensor, payload: torch.Tensor,
     """Segment-sum payload rows into ``n_segments`` (out-of-range ids
     contribute nowhere)."""
     _check_no_grad("seg_aggregate", seg, payload)
-    if not _on_cuda(seg):
-        return ref.seg_aggregate_ref(seg, payload, n_segments)
-    out = seg_aggregate_cuda(seg, payload, n_segments)
+    with lazy_span("kernel.seg_aggregate", _seg_args, seg, payload, n_segments):
+        if not _on_cuda(seg):
+            return ref.seg_aggregate_ref(seg, payload, n_segments)
+        out = seg_aggregate_cuda(seg, payload, n_segments)
     LAUNCHES["seg_aggregate"] += 1
     return out
 
@@ -133,9 +214,10 @@ def tree_hist(codes: torch.Tensor, y: torch.Tensor, cond: torch.Tensor,
               n_buckets: int) -> torch.Tensor:
     """Per-bucket ``[count, Σy, Σy²]`` under the mask ``cond``."""
     _check_no_grad("tree_hist", codes, y, cond)
-    if not _on_cuda(codes):
-        return ref.tree_hist_ref(codes, y, cond, n_buckets)
-    out = tree_hist_cuda(codes, y, cond, n_buckets)
+    with lazy_span("kernel.tree_hist", _hist_args, codes, y, cond, n_buckets):
+        if not _on_cuda(codes):
+            return ref.tree_hist_ref(codes, y, cond, n_buckets)
+        out = tree_hist_cuda(codes, y, cond, n_buckets)
     LAUNCHES["tree_hist"] += 1
     return out
 
@@ -145,9 +227,10 @@ def tree_hist_batched(codes: torch.Tensor, y: torch.Tensor,
     """Per-node, per-bucket ``[count, Σy, Σy²]``: ``cond`` is (n, N), one
     mask column per frontier node; returns (N, n_buckets, 3)."""
     _check_no_grad("tree_hist_batched", codes, y, cond)
-    if not _on_cuda(codes):
-        return ref.tree_hist_batched_ref(codes, y, cond, n_buckets)
-    out = tree_hist_batched_cuda(codes, y, cond, n_buckets)
+    with lazy_span("kernel.tree_hist_batched", _hist_args, codes, y, cond, n_buckets):
+        if not _on_cuda(codes):
+            return ref.tree_hist_batched_ref(codes, y, cond, n_buckets)
+        out = tree_hist_batched_cuda(codes, y, cond, n_buckets)
     LAUNCHES["tree_hist_batched"] += 1
     return out
 

@@ -11,7 +11,7 @@ sacrificial segment are needed, and the payload may start at any float.
 
 This module also holds the host side of every launch of that header, which
 ``fused_scan_block``, ``tree_hist`` and ``tree_hist_batched`` share: the
-geometry as pure functions (:func:`fits_one_block`,
+geometry as pure functions (:func:`fits_one_block`, :func:`fits_hist_block`,
 :func:`segment_ranges`, :func:`column_tiles`, :func:`seg_layout`,
 :func:`hist_layout`, :func:`seg_chunks`, :func:`item_chunks`,
 :func:`launch_layout`), so the CPU tests reach it;
@@ -93,6 +93,13 @@ def fits_one_block(n_segments: int, width: int) -> bool:
     """Whether the whole accumulator and the ring fit one block, with a
     thread for every column."""
     return width <= THREADS and smem_a(n_segments, width) <= SMEM_BYTES
+
+
+def fits_hist_block(n_segments: int, n_cond: int) -> bool:
+    """Whether a histogram of ``n_cond`` conds runs in one block: a thread
+    for every cond, the ``(n_segments, 3 n_cond)`` accumulator in shared
+    memory."""
+    return n_cond <= THREADS and _acc_bytes(n_segments, 3 * n_cond) <= SMEM_BYTES
 
 
 def _even(total: int, parts: int) -> List[Tuple[int, int]]:
@@ -189,7 +196,7 @@ def hist_layout(n_segments: int, n_cond: int) -> SegLayout:
     whole conds."""
     width = 3 * n_cond
     acc = _acc_bytes(n_segments, width)
-    if n_cond <= THREADS and acc <= SMEM_BYTES:
+    if fits_hist_block(n_segments, n_cond):
         k = acc_copies(acc, 0)
         size = n_segments * width
         return SegLayout(mode=0, items=((0, n_segments, 0, width, 0),),

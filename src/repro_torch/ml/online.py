@@ -23,6 +23,7 @@ from repro_torch.api import Database, ExecutionConfig, connect
 from repro_torch.data.relations import DeltaBatchUpdate
 from repro_torch.ml import ridge
 from repro_torch.ml.covar import assemble_covar, covar_queries
+from repro_torch.obs.trace import span
 
 
 class OnlineRidge:
@@ -82,10 +83,14 @@ class OnlineRidge:
         """Re-solve from the current epoch's results, copied to the host,
         or from ``outputs`` already there."""
         if outputs is None:
-            outputs = {k: v.cpu().numpy()
-                       for k, v in self.maintained.results().items()}
-        self.C, self.N = assemble_covar(outputs, self.layout)
-        self.theta = ridge.closed_form(self.C, self.N, self.layout, self.lam)
+            with span("ridge.results") as sp:
+                outputs = {k: v.cpu().numpy()
+                           for k, v in self.maintained.results().items()}
+                sp.set(n_outputs=len(outputs))
+        with span("ridge.solve") as sp:
+            self.C, self.N = assemble_covar(outputs, self.layout)
+            self.theta = ridge.closed_form(self.C, self.N, self.layout, self.lam)
+            sp.set(p=self.C.shape[0])
         return self.theta
 
     def predict(self, rows: dict) -> np.ndarray:

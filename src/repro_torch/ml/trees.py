@@ -39,6 +39,7 @@ from repro_torch.api import Database, ExecutionConfig, ViewHandle, connect
 from repro_torch.core.aggregates import (Delta, Lambda, Param, Pow, Query, Var,
                                         agg, query)
 from repro_torch.data.datasets import Dataset
+from repro_torch.obs.trace import span
 
 
 def _mask_term(attr: str, batched: bool = False) -> Lambda:
@@ -135,7 +136,9 @@ def split_stats(outputs: Mapping[str, torch.Tensor],
     """The ``split_<attr>`` outputs of one pass as float64 numpy arrays, in
     one device-to-host copy (the level's only synchronisation)."""
     parts = [outputs[f"split_{f.attr}"] for f in features]
-    flat = torch.cat([p.reshape(-1) for p in parts]).double().cpu().numpy()
+    with span("tree.stats") as sp:
+        flat = torch.cat([p.reshape(-1) for p in parts]).double().cpu().numpy()
+        sp.set(bytes=flat.nbytes)
     out, o = {}, 0
     for f, p in zip(features, parts):
         out[f.attr] = flat[o:o + p.numel()].reshape(tuple(p.shape))
@@ -291,29 +294,31 @@ class DecisionTree:
         splits: no backfill), expand the winners, and move the frontier down
         one level."""
         next_frontier: List[int] = []
-        for i, nid in enumerate(self._frontier):
-            node = self.nodes[nid]
-            node_stats = {f.attr: stats[f.attr][i] for f in self.features}
-            tot = node_stats[self.features[0].attr].sum(axis=0)
-            n, _, pred = self._cost(tot)
-            node.n, node.prediction = float(n), float(pred)
-            if node.depth >= self.max_depth:
-                continue
-            best = self._best_split(node_stats)
-            if best is None:
-                continue
-            feat, kind, thr, gain = best
-            if gain <= 1e-9:
-                continue
-            if len(self.nodes) + 2 > self.max_nodes:
-                continue
-            lm, rm = child_masks(node.masks, feat, kind, thr)
-            node.feature, node.kind, node.threshold = feat, kind, thr
-            node.left = len(self.nodes)
-            self.nodes.append(TreeNode(node.left, node.depth + 1, lm))
-            node.right = len(self.nodes)
-            self.nodes.append(TreeNode(node.right, node.depth + 1, rm))
-            next_frontier += [node.left, node.right]
+        with span("tree.split", n_frontier=len(self._frontier)) as sp:
+            for i, nid in enumerate(self._frontier):
+                node = self.nodes[nid]
+                node_stats = {f.attr: stats[f.attr][i] for f in self.features}
+                tot = node_stats[self.features[0].attr].sum(axis=0)
+                n, _, pred = self._cost(tot)
+                node.n, node.prediction = float(n), float(pred)
+                if node.depth >= self.max_depth:
+                    continue
+                best = self._best_split(node_stats)
+                if best is None:
+                    continue
+                feat, kind, thr, gain = best
+                if gain <= 1e-9:
+                    continue
+                if len(self.nodes) + 2 > self.max_nodes:
+                    continue
+                lm, rm = child_masks(node.masks, feat, kind, thr)
+                node.feature, node.kind, node.threshold = feat, kind, thr
+                node.left = len(self.nodes)
+                self.nodes.append(TreeNode(node.left, node.depth + 1, lm))
+                node.right = len(self.nodes)
+                self.nodes.append(TreeNode(node.right, node.depth + 1, rm))
+                next_frontier += [node.left, node.right]
+            sp.set(n_split=len(next_frontier) // 2)
         self._frontier = next_frontier
 
     def _eval_frontier(self) -> Dict[str, np.ndarray]:
@@ -322,7 +327,9 @@ class DecisionTree:
         comparison mode."""
         mask_list = self.frontier_masks()
         if self.node_batch:
-            params = stack_mask_params(self.features, mask_list)
+            with span("tree.stage", level=self.nodes[self._frontier[0]].depth,
+                      n_frontier=len(mask_list)):
+                params = stack_mask_params(self.features, mask_list)
             return split_stats(self.view.run_batched(params), self.features)
         per_node = [self.view.run(params=self._node_params(m))
                     for m in mask_list]

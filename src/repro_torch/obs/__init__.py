@@ -2,7 +2,8 @@
 workload recording; counterpart of ``repro/obs``.
 
 * ``obs.trace``    — nestable timed spans + chrome://tracing export
-  (off by default; ``obs.enable_tracing()`` or ``REPRO_TRACE=1``);
+  (off by default; ``obs.enable_tracing()`` or ``REPRO_TRACE=1``), each
+  also a ``torch.profiler`` annotation while a profiler records;
 * ``obs.metrics``  — process-local counters / gauges / fixed-bucket
   histograms (p50/p95/p99 without stored samples);
 * ``obs.workload`` — bounded recorder of every run/read call's query
@@ -13,7 +14,8 @@ Design rule shared by all four: **never sync the device**.  Telemetry
 reads host clocks around dispatch sites only (never a
 ``torch.cuda.synchronize()``), so a steady tick or a served read stays
 free of host syncs with everything enabled.  Each module is a copy of the
-reference's, identical apart from imports.
+reference's, identical apart from imports and ``trace``'s profiler
+annotations.
 """
 
 from repro_torch.obs.log import StructuredLogger, get_logger

@@ -667,6 +667,48 @@ def test_ivm_steady_tick_syncs_nothing(cuda_device):
     assert (np.abs(C - Cf) / d).max() <= 1e-4
 
 
+@pytest.mark.parametrize("profiler", [False, True], ids=["obs", "obs_and_profiler"])
+def test_traced_steady_tick_syncs_nothing(cuda_device, profiler):
+    """The port's spans keep the no-sync rule: four steady 1% ticks with
+    obs tracing on (and a profiler recording, which adds the annotations)
+    sync nothing, and leave the tick's spans with their launches' work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    ds = TD.make("retailer", scale=1.0)
+    db = connect(ds, config=ExecutionConfig(block_size=1 << 14), device=cuda_device)
+    olr = OnlineRidge(ds, database=db)
+    olr.fit()
+    updates = _fact_updates(ds, 6, seed=2)
+    for upd in updates[:2]:
+        olr.view.apply(upd)
+    torch.cuda.synchronize()
+    obs.clear_trace()
+    obs.enable_tracing()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profiler else None
+    try:
+        if prof is not None:
+            prof.__enter__()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for upd in updates[2:]:
+                olr.view.apply(upd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+    finally:
+        obs.disable_tracing()
+    evs = obs.get_tracer().events()
+    obs.clear_trace()
+    names = [e["name"] for e in evs]
+    for n in ("ivm.stage", "ivm.scan", "ivm.compact"):
+        assert names.count(n) == 4, n
+    launches = [e["args"] for e in evs if e["name"] == "kernel.fused_scan_block"]
+    assert len(launches) == 4 and all(a["bytes"] > 0 and a["ops"] > 0 for a in launches)
+
+
 def test_auto_delta_lane_steady_tick_syncs_nothing(cuda_device, tmp_path):
     """A maintained covar under block_size="auto": the delta lane tunes at
     the first tick's runner build; later ticks of the same shape probe

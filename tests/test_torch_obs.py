@@ -22,6 +22,7 @@ from repro_torch import obs
 from repro_torch.core import aggregates as T
 from repro_torch.core.schema import schema as tschema
 from repro_torch.data.relations import DeltaBatchUpdate
+from repro_torch.obs import trace
 from repro_torch.obs.metrics import Counter, Histogram, Registry
 from repro_torch.obs.workload import WorkloadRecorder, routable, signature_of
 from repro_torch.serve.views import ViewServer
@@ -363,3 +364,129 @@ def test_view_server_validates_its_knobs():
         ViewServer(mb, warn_epoch_lag=0)
     with pytest.raises(ValueError, match="max_pinned_epochs"):
         ViewServer(mb, max_pinned_epochs=0)
+
+
+# ------------------------------------- the port's spans on the profiler's clock
+
+#: the spans the port adds: a tree fit's and a tick's host, wait and
+#: dispatch phases, and each reduction launch
+PORT_SPAN_NAMES = {"tree.stage", "tree.stats", "tree.split", "ridge.results",
+                   "ridge.solve", "ivm.stage", "ivm.scan", "ivm.compact",
+                   "scan.step", "kernel.fused_scan_block"}
+
+
+def _annotations(prof):
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.is_user_annotation()]
+
+
+def test_span_is_the_shared_noop_without_tracing_or_profiler():
+    obs.disable_tracing()
+    assert trace.span("x", a=1) is trace._NULL
+    assert trace.lazy_span("x", lambda: 1 / 0) is trace._NULL
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["obs_off", "obs_on"])
+def test_span_is_a_profiler_annotation(on):
+    """Under a profiler a span is a user annotation of its name, whether
+    or not obs tracing records it too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    obs.clear_trace()
+    obs.enable_tracing(on)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with obs.span("port.phase", k=1):
+                torch.ones(4).add_(1)
+            with trace.lazy_span("port.lazy", lambda: {"k": 2}):
+                torch.ones(4).add_(1)
+    finally:
+        obs.disable_tracing()
+    assert {"port.phase", "port.lazy"} <= set(_annotations(prof))
+    names = {e["name"]: e.get("args") for e in obs.get_tracer().events()}
+    assert names == ({"port.phase": {"k": 1}, "port.lazy": {"k": 2}} if on else {})
+    obs.clear_trace()
+
+
+def test_port_spans_cover_fit_tick_and_launches(tracing):
+    """A covar run, a node-batched 2-level tree fit and an OnlineRidge
+    update leave every span the port adds, each with its arguments."""
+    from repro_torch.data import datasets as TD
+    from repro_torch.ml.covar import covar_queries
+    from repro_torch.ml.online import OnlineRidge
+    from repro_torch.ml.trees import DecisionTree
+
+    ds = TD.make("retailer", scale=0.005)
+    db = repro_torch.connect(ds, device="cpu")
+    db.views(covar_queries(ds)[0]).run()
+    olr = OnlineRidge(ds, database=db)
+    olr.fit()
+    fact = ds.tables[ds.fact]
+    olr.update(DeltaBatchUpdate().insert(ds.fact, {a: c[:6] for a, c in fact.items()})
+               .delete(ds.fact, np.arange(6)))
+    fav = TD.make("favorita", scale=0.005)
+    dt = DecisionTree(fav, max_depth=2, min_instances=10,
+                      database=repro_torch.connect(fav, device="cpu")).fit()
+    evs = tracing.events()
+    assert PORT_SPAN_NAMES <= {e["name"] for e in evs}
+    by = {}
+    for e in evs:
+        by.setdefault(e["name"], []).append(e.get("args", {}))
+    assert [a["level"] for a in by["tree.stage"]] == list(range(len(by["tree.stage"])))
+    assert sum(a["n_split"] for a in by["tree.split"]) == dt.n_split_nodes()
+    assert all(a["bytes"] > 0 for a in by["tree.stats"])
+    assert by["ivm.stage"] == [{"n_ins": 6, "n_del": 6}]
+    assert by["ridge.solve"][-1]["p"] == olr.C.shape[0]
+    steps = by["scan.step"]
+    assert all({"rel", "n_rows", "n_blocks", "vids", "n_segments", "width"} <= set(a)
+               for a in steps)
+    assert {a["rel"] for a in steps} >= {ds.fact}
+    launch = by["kernel.fused_scan_block"][0]
+    assert {"rows", "reductions", "bytes", "ops"} <= set(launch)
+
+
+def test_kernel_span_counts_a_launchs_bytes_and_ops(tracing):
+    """Each distinct input read once at its element size (an expanded axis
+    adds nothing), the float32 output written once, one add per row and
+    output column."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(0)
+    n = 10
+    codes = torch.randint(0, 5, (n,), dtype=torch.int32, generator=g)
+    v = torch.rand(n, 3, generator=g)
+    u = torch.rand(n, generator=g).unsqueeze(1).expand(n, 2)       # strides (1, 0)
+    cond = torch.rand(n, 2, generator=g)
+    y = torch.rand(n, generator=g)
+    reds = [ops.Parts("seg", codes, (ops.Part(v, 0), ops.Part(u, 3)), 5),
+            ops.Parts("hist", codes, (cond, y), 7)]
+    ops.fused_scan_parts(reds)
+    ops.fused_scan_block(codes.unsqueeze(1), torch.rand(n, 4, generator=g),
+                         [ops.ReduceSpec("seg", 0, 6, 4, 0)])
+    parts, packed = [e["args"] for e in tracing.events()
+                     if e["name"] == "kernel.fused_scan_block"]
+    reads = 4 * n + 4 * n * 3 + 4 * n + 4 * n * 2 + 4 * n   # codes once, v, u, cond, y
+    writes = 4 * (5 * 5 + 7 * 6)
+    assert parts == {"rows": n, "reductions": [["seg", 5, 5, 2], ["hist", 7, 6, 2]],
+                     "bytes": reads + writes, "ops": n * (5 + 6)}
+    assert packed == {"rows": n, "reductions": [["seg", 6, 4, 1]],
+                      "bytes": 4 * n + 4 * n * 4 + 4 * 6 * 4, "ops": n * 4}
+
+
+def test_kernel_work_is_never_counted_with_tracing_off(monkeypatch):
+    """Off, no launch's bytes are counted: not without a profiler, not
+    under one (the annotation needs only the name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    def boom(*a):
+        raise AssertionError("byte counter called with tracing off")
+
+    monkeypatch.setattr(ops, "_read_bytes", boom)
+    obs.disable_tracing()
+    db = session()
+    db.views(queries()).run()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        db.views(queries()).run()
+    assert "kernel.fused_scan_block" in _annotations(prof)
