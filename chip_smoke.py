@@ -14,7 +14,9 @@ Phases, one JSON line each (``{"phase": ...}``):
                same function, and the least time the card could take;
                ``fused_scan_block`` both in the reference's packed form
                and in the parts form the main path launches (its covar
-               fact case leads the summary).
+               fact case leads the summary), the parts form also on
+               segment ranges' sorted path at the covar fact bucket's
+               real shape and at a tree level's widest histograms.
   4. main    — ``make_retailer(scale)`` (84M fact rows at 1400),
                ``connect(..., device="cuda")`` and ``compute_covar`` fused,
                then unfused; launch counters of each run; the covar held
@@ -270,13 +272,24 @@ TREE_NODES = 16
 #: tensor a part: (kind, segments, part widths) or, for a histogram, (kind,
 #: buckets, (nodes,)); the covar fact bucket's 45 aggregate columns of one
 #: view and its five one-aggregate views of pulled widths, as Retailer's
-#: covar plan has them; the tree fact bucket's 48 columns at TREE_NODES
+#: covar plan has them; the tree fact bucket's 48 columns at TREE_NODES.
+#: Segment ranges on the sorted path (seg_aggregate.SORTED_MIN_RANGES or
+#: more): the (dateid, locn) reduction of the covar fact (Inventory) step
+#: at the scale-1400 plan's real shape, 1,158,960 segments × 489
+#: one-column parts in 13,170 ranges; and a tree level's (date, store_nbr)
+#: histograms over Favorita's 90,936 buckets, at 64 nodes (392 ranges,
+#: sorted) beside 16 (98 ranges, scan path) in the same launch
 PARTS_STEPS = {
     "fact_parts": [("seg", 4960, (1,) * 45 + (5, 6, 10, 25, 8)), ("seg", 40, (1,) * 4),
                    ("seg", 480, (1,) * 9 + (5, 6))],
     "tree_fact_parts": [("seg", 4960, (1,) * 48), ("hist", 40, (TREE_NODES,)),
                         ("hist", 480, (TREE_NODES,))],
+    "covar_fact_sorted": [("seg", 1_158_960, (1,) * 489)],
+    "tree_hist_sorted": [("hist", 90_936, (64,)), ("hist", 90_936, (16,))],
 }
+#: rows of a PARTS_STEPS case where not KERNEL_ROWS: the main path's row
+#: block, 2^20
+PARTS_ROWS = {"covar_fact_sorted": 1 << 20}
 #: |stat − oracle| ≤ STAT_TOL · Σ|terms| per tree statistic (Σcond, Σcond·|y|,
 #: Σcond·y²): the engine sums in float32, per row block, in a varying order
 STAT_TOL = 1e-4
@@ -451,7 +464,8 @@ def launch_geometry(plan):
     from repro_torch.kernels import seg_aggregate as kseg
 
     lay = plan.launch
-    names = ("one block SEG", "segment ranges SEG", "one block HIST", "segment ranges HIST")
+    names = ("one block SEG", "segment ranges SEG", "one block HIST", "segment ranges HIST",
+             "sorted ranges SEG", "sorted ranges HIST")
     return dict(grids=[dict(kernel=names[g.kernel], blocks=g.n_items, chunks=g.n_chunks,
                             chunk_rows=g.chunk_rows, smem_bytes=g.smem_bytes,
                             blocks_at_once=g.wave_blocks) for g in lay.grids],
@@ -540,6 +554,7 @@ def kernel_phase(args, plan_specs, rates):
     # of its own, a pulled block a row-major (n, w) tensor, a histogram's
     # node masks read transposed from (N, n), y formed on the card
     for label, steps in PARTS_STEPS.items():
+        n = PARTS_ROWS.get(label, KERNEL_ROWS)
         reds, absr, sids, pays, nbytes, ops_n = [], [], [], [], 0, 0
         for kind, S, widths in steps:
             spill = max(1, S // 25)
@@ -570,11 +585,17 @@ def kernel_phase(args, plan_specs, rates):
             nbytes += 4 * (n + n * sum(widths) + (n if kind == "hist" else 0) + S * width)
             sids.append(torch.where(ok, code, torch.zeros_like(code)).long())
             pays.append((pay * ok[:, None].float()).contiguous())
+        ops.reset_launches()
         got = ops.fused_scan_parts(reds)
+        paths = dict(ops.RANGE_REDUCTIONS)
         want = ref.fused_scan_parts_ref(reds)
         abs_want = ref.fused_scan_parts_ref(absr)
         torch.cuda.synchronize()
         max_abs, max_rel = compare(got, want, abs_want, f"fused_scan_parts[{label}]")
+        modes = [kseg.reduction_mode(kind, S, sum(ws) if kind == "seg" else 3 * ws[0])
+                 for kind, S, ws in steps]
+        check(paths == {"scan": modes.count(1), "sorted": modes.count(2)},
+              f"fused_scan_parts[{label}]: range reductions {paths}, modes {modes}")
         outs = [torch.zeros_like(g) for g in got]
 
         def library():
@@ -586,6 +607,7 @@ def kernel_phase(args, plan_specs, rates):
         case = dict(case=label, form="parts", n=n,
                     specs=[[kind, S, len(ws), sum(ws)] for kind, S, ws in steps],
                     geometry=launch_geometry(kseg.launch_plan(n, shapes, code.device)),
+                    range_reductions=paths,
                     max_abs_err=max_abs, max_rel_err=max_rel,
                     ms=cuda_ms(lambda: ops.fused_scan_parts(reds)),
                     plain_ms=cuda_ms(lambda: ref.fused_scan_parts_ref(reds)),
@@ -596,6 +618,9 @@ def kernel_phase(args, plan_specs, rates):
         emit("kernel", name="fused_scan_block", **case)
         fused_cases.append(case)
         del reds, absr, sids, pays, outs, got, want, abs_want
+        vals = pay = mask = yk = None
+        torch.cuda.empty_cache()
+    n = KERNEL_ROWS
     # -- fused_scan_block at the fact's delta step of a maintained covar
     # batch (every query rooted at the fact), as the lowering passes it:
     # one 1-segment reduction that every row enters, its parts the views'
@@ -677,10 +702,10 @@ def kernel_phase(args, plan_specs, rates):
     seg = codes[:, 0].contiguous()
     plan = kseg.seg_plan(n, sp.n_segments, sp.width, seg.device)
     lay, (grid,) = plan.launch.layouts[0], plan.launch.grids
-    geometry = dict(mode=("one block", "segment ranges")[lay.mode],
+    geometry = dict(mode=("one block", "segment ranges", "sorted ranges")[lay.mode],
                     blocks_at_once=grid.wave_blocks,
                     blocks=[(it[1], it[3]) for it in lay.items],
-                    ring_stages=(kseg.STAGES_A, 1)[lay.mode],
+                    ring_stages=(kseg.STAGES_A, 1, 1)[lay.mode],
                     stage_rows=lay.stage_rows if lay.mode == 0 else kseg.STAGE_ROWS_B,
                     chunks=grid.n_chunks, chunk_rows=grid.chunk_rows,
                     smem_bytes=lay.smem_bytes,
@@ -969,6 +994,7 @@ def main_phase(ds, db, join):
         C, N, layout, batch = compute_covar(ds, database=sess)
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        range_reductions = dict(ops.RANGE_REDUCTIONS)
         # a second, warm pass of the compiled batch: no compile in its wall
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -983,7 +1009,7 @@ def main_phase(ds, db, join):
                        for st in batch.schedule.steps)
         runs[label] = dict(C=C, N=N, layout=layout, launches=launches, warm=warm)
         emit(f"main.{label}", wall_s=wall, warm_wall_s=warm, launches=launches,
-             static_launches=stats.n_kernel_launches, scan_steps=stats.n_scan_steps,
+             range_reductions=range_reductions, static_launches=stats.n_kernel_launches, scan_steps=stats.n_scan_steps,
              row_blocks=n_blocks, summary=stats.summary(),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
         check(np.isfinite(C).all() and C.shape == (layout.p, layout.p),

@@ -131,7 +131,7 @@ def bind_seg_reduce(lib: ctypes.CDLL) -> None:
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for fn in (lib.seg_aggregate, lib.fused_scan_block, lib.tree_hist,
                lib.tree_hist_batched):
-        fn.argtypes = [P, P, I64, ctypes.POINTER(I), I, I64, P, P, P]
+        fn.argtypes = [P, P, I64, ctypes.POINTER(I64), I, I64, P, P, P]
         fn.restype = I
     lib.seg_reduce_blocks_per_sm.argtypes = [I, I]
     lib.seg_reduce_blocks_per_sm.restype = I

@@ -14,14 +14,15 @@
 // 500 bytes of codes and payload a row and does one add per payload float.
 // The design (seg_reduce.cuh): a reduction whose accumulator fits one block
 // is summed there from a ring of whole rows; a wider one is cut into
-// segment ranges that read every code but only their own rows, whole,
-// summed by segment in registers; the reductions' grids run one after the
-// other on one stream.
+// segment ranges that read only their own rows, whole, summed by segment in
+// registers (a few ranges find them in every code of their chunk, many in a
+// list counting-sorted by range once a launch); the reductions' grids run
+// one after the other on one stream.
 
 #include "seg_reduce.cuh"
 
 extern "C" int fused_scan_block(const int64_t* items, const int64_t* srcs, int64_t n,
-                                const int* grid, int n_grids, int64_t combine_blocks,
+                                const int64_t* grid, int n_grids, int64_t combine_blocks,
                                 float* scratch, float* out, void* stream) {
   return seg_reduce::run(items, srcs, n, grid, n_grids, combine_blocks, scratch, out, stream);
 }

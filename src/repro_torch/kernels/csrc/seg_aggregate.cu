@@ -9,7 +9,8 @@
 //
 // Bound on the H100: HBM bytes, 4 per id and per payload float, read once.
 // The design that comes near it (a block a segment range, each payload row
-// read once by the block whose range holds its code) is seg_reduce.cuh's:
+// read once by the block whose range holds its code, many ranges finding
+// their rows in a list counting-sorted by range) is seg_reduce.cuh's:
 // this is its launch of one reduction with one payload part.
 
 #include "seg_reduce.cuh"
@@ -24,10 +25,11 @@ extern "C" int seg_reduce_blocks_per_sm(int kernel, int smem_bytes) {
 }
 
 // items, srcs: the launch's work items and sources on the device (see
-// seg_reduce.cuh); grid: n_grids (kernel, items, chunks, shared memory);
+// seg_reduce.cuh); grid: n_grids (kernel, items, blocks along x and y,
+// shared memory, sort area);
 // scratch: the chunks' partials; out: (S, width).
 extern "C" int seg_aggregate(const int64_t* items, const int64_t* srcs, int64_t n,
-                             const int* grid, int n_grids, int64_t combine_blocks,
+                             const int64_t* grid, int n_grids, int64_t combine_blocks,
                              float* scratch, float* out, void* stream) {
   return seg_reduce::run(items, srcs, n, grid, n_grids, combine_blocks, scratch, out, stream);
 }

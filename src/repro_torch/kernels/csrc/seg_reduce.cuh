@@ -38,8 +38,8 @@
 //   * a histogram value cond * [1, y, y^2][k] was formed by three threads,
 //     each loading the same cond float and adding one of the three.
 //
-// Per reduction the host (seg_aggregate.py) picks one of four partial
-// kernels and cuts its items:
+// Per reduction the host (seg_aggregate.py) picks one of six partial
+// kernels, by the reduction's shape alone, and cuts its items:
 //
 //   * one block, SEG (rows_kernel), where the whole (S, width) accumulator
 //     fits a block beside its ring (every narrow reduction of the covar
@@ -74,9 +74,36 @@
 //     listed row then costs a 32-byte sector a column (the covar fact
 //     bucket 0.80 ms against 0.29 packed).  Column tiles of the one-block
 //     kernel, which read such columns coalesced, were slower still: their
-//     shared-memory atomics (tools/scan_ablation.py, column_tiles).
+//     shared-memory atomics (tools/scan_ablation.py, column_tiles).  This
+//     scan path runs below SORTED_MIN_RANGES ranges (seg_aggregate.py);
+//   * segment ranges on the sorted path (sorted_kernel, SEG or HIST), at
+//     SORTED_MIN_RANGES ranges or more.  On the scan path every range's
+//     blocks read every code of their chunk, so the code reads grow with
+//     ranges x rows, and ranges with segments x width: Retailer's covar
+//     fact bucket (1,158,960 segments x 489 columns, 13,170 ranges of 88)
+//     staged each code 13,170 times and found 0.31 of a range's rows a
+//     4,096-code stage, 725 ms a 2^20-row launch (H100,
+//     tools/scan_ablation.py --ranges).  Here a pre-pass counting-sorts the
+//     launch's rows by range once (sort_rows_kernel: a histogram a block in
+//     shared memory, then in global memory; sort_scan_kernel: the prefix
+//     sums; sort_rows_kernel again: each row placed at its range's cursor,
+//     (row, segment - seg0)), codes out of range dropped there; then a
+//     block a chunk of a range's listed rows reads only its slice of that
+//     list and walks it as the scan path does, 24 ms at that launch.  A
+//     chunk holds at most about twice a range's mean rows and never more
+//     than MAX_CHUNK_ROWS, so skewed keys spread over blocks and integer
+//     sums stay exact; the grid is a bound on the chunks that the host
+//     knows (a block past them exits), and the combine reads how many each
+//     range wrote from the device: nothing syncs.  A range of one chunk
+//     writes its output itself.  What bounds it there: each listed value is
+//     a 32-byte sector of a random row (the parts lie column by column),
+//     16.4 GB of sectors a launch, 4.9 ms at 3.35 TB/s; the scan path reads
+//     neighbouring rows and wins below the crossover (10-19 ms a launch up
+//     to 192 ranges, the sorted path 17-20 at 128-192 and slower below,
+//     where its chunks are few).
 //
-// A launch runs one grid for each partial kernel its reductions need, one
+// A launch runs one grid for each partial kernel its reductions need (a
+// sorted-path reduction a grid of its own, after its pre-pass), one
 // after another on one stream, then one combine grid.  The reductions of a
 // kernel share its grid, each with its share of the wave of blocks (the
 // host weighs a row's cost to each), so that their latencies hide each
@@ -142,6 +169,11 @@ enum Field {
   F_CHUNK_ROWS,   // rows a chunk
   F_PART_STRIDE,  // floats between two chunks' partials of the item
   F_COPIES,       // one-block mode: copies of the accumulator (warp w adds into w mod copies)
+  F_SORT,         // sorted path: the reduction's sort area in scratch (floats), else -1
+  F_RANGE,        // sorted path: the item's segment range
+  F_NRANGES,      // sorted path: segment ranges of the reduction
+  F_NTILES,       // sorted path: column tiles of the reduction
+  F_NSEGS,        // sorted path: segments of the reduction
   N_FIELDS
 };
 
@@ -156,6 +188,9 @@ constexpr int kBuckets = 2 * kThreads;  // of the counting sort: two a thread
 constexpr int kPassesB = 4;        // 32-column passes of a row a warp loads at once (SEG)
 constexpr int kPassesH = 1;        // 32-cond passes of a row a warp loads at once (HIST)
 constexpr int kBatch = 8;          // listed rows a warp loads at once
+constexpr int kSortRows = 8192;    // rows a block of the sorted path's pre-pass
+constexpr int kSortRowsPerThread = kSortRows / kThreads;
+constexpr int kSortBins = 4096;    // ranges a pre-pass block counts in shared memory at once
 constexpr int kCombineThreads = 256;
 constexpr int kCombineGroups = 8;     // groups of chunks a combine block sums apart ...
 constexpr int kCombineSplit = 64;     // ... for an item of this many chunks or more
@@ -164,6 +199,7 @@ struct Params {
   const int64_t* items;  // (n_items, N_FIELDS)
   const int64_t* srcs;   // (n_srcs, N_SRC_FIELDS)
   float* scratch;
+  float* out;
   int64_t n;             // rows
   int item0;             // the grid's first item
 };
@@ -199,8 +235,8 @@ struct Item {
   Src code;
 };
 
-__device__ __forceinline__ Item item_of(const Params& p) {
-  const int64_t* it = p.items + (int64_t)(p.item0 + blockIdx.x) * N_FIELDS;
+__device__ __forceinline__ Item item_at(const Params& p, int64_t i) {
+  const int64_t* it = p.items + i * N_FIELDS;
   return Item{(int)it[F_NSEG],        (int)it[F_TILE],        (int)it[F_SRC0],
               (int)it[F_NSRC],        (int)it[F_NCOND],       (int)it[F_STAGE_ROWS],
               (int)it[F_PART_STRIDE], (int)it[F_COPIES],      it[F_SEG0],
@@ -225,6 +261,21 @@ __device__ __forceinline__ int part_index(const int64_t* srcs, int src0, int nsr
   return lo;
 }
 
+// Where item d's accumulator column c of segment s lands in its reduction's
+// output: s * out_row(d) + out_col(d, c).  SEG: rows of the reduction's
+// width, column c where its part names; HIST: column 3j + k at j * ostride +
+// k of a row ocol wide, ocol and ostride the cond part's.
+__device__ __forceinline__ int64_t out_row(const int64_t* d, const int64_t* srcs) {
+  return d[F_KIND] == SEG ? d[F_WIDTH] : srcs[d[F_SRC0] * N_SRC_FIELDS + S_OCOL];
+}
+
+__device__ __forceinline__ int64_t out_col(const int64_t* d, const int64_t* srcs, int64_t c) {
+  const int src0 = (int)d[F_SRC0];
+  if (d[F_KIND] != SEG) return (c / 3) * srcs[(int64_t)src0 * N_SRC_FIELDS + S_OSTRIDE] + c % 3;
+  const int64_t* pt = srcs + (int64_t)part_index(srcs, src0, (int)d[F_NSRC], (int)c) * N_SRC_FIELDS;
+  return pt[S_OCOL] + (c - pt[S_COL0]) * pt[S_OSTRIDE];
+}
+
 __device__ __forceinline__ Col column(const Src& s, int c) {
   return Col{s.ptr + (c - s.col0) * s.cs, (int)s.rs};
 }
@@ -239,12 +290,12 @@ __device__ __forceinline__ void add_each(float* (&dst)[M], const float (&v)[M]) 
     if (dst[i]) atomicAdd(dst[i], v[i]);
 }
 
-// Writes the block's partial: the accumulator's copies (each `stride`
-// floats after the last) summed in a fixed order.
+// Writes the block's partial, the item's chunk-th: the accumulator's copies
+// (each `stride` floats after the last) summed in a fixed order.
 __device__ __forceinline__ void write_partial(const Params& p, const Item& m, const float* smem,
-                                              int size, int stride) {
+                                              int size, int stride, int64_t chunk) {
   __syncthreads();
-  float* dst = p.scratch + m.scratch_off + (int64_t)blockIdx.y * m.part_stride;
+  float* dst = p.scratch + m.scratch_off + chunk * m.part_stride;
   for (int i = threadIdx.x; i < size; i += blockDim.x) {
     float t = smem[i];
     for (int k = 1; k < m.copies; ++k) t += smem[k * stride + i];
@@ -263,7 +314,7 @@ __device__ __forceinline__ void write_partial(const Params& p, const Item& m, co
 // kBatchA rows at once.
 static __global__ void __launch_bounds__(kThreads, 3) rows_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const Item m = item_of(p);
+  const Item m = item_at(p, (int64_t)p.item0 + blockIdx.x);
   if ((int64_t)blockIdx.y >= m.n_chunks) return;  // the item has fewer chunks than the grid
   const int W = m.tile, size = m.S * W, R = m.stage_rows, stride = (size + 3) & ~3;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -344,7 +395,7 @@ static __global__ void __launch_bounds__(kThreads, 3) rows_kernel(const Params p
     __syncthreads();
   }
   cp_async_wait<0>();
-  write_partial(p, m, smem, size, stride);
+  write_partial(p, m, smem, size, stride, blockIdx.y);
 }
 
 // One-block mode, HIST: the (S, 3N) accumulator in shared memory, in
@@ -361,7 +412,7 @@ static __global__ void __launch_bounds__(kThreads, 3) rows_kernel(const Params p
 // again from L1.
 static __global__ void __launch_bounds__(kThreads, 2) hist_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const Item m = item_of(p);
+  const Item m = item_at(p, (int64_t)p.item0 + blockIdx.x);
   if ((int64_t)blockIdx.y >= m.n_chunks) return;  // the item has fewer chunks than the grid
   const int W = m.tile, size = m.S * W, stride = (size + 3) & ~3, N = m.ncond;
   for (int i = threadIdx.x; i < m.copies * stride; i += kThreads) smem[i] = 0.f;
@@ -406,7 +457,7 @@ static __global__ void __launch_bounds__(kThreads, 2) hist_kernel(const Params p
 #pragma unroll
       for (int b = 0; b < kBatchH; ++b) add3(c[b], cnd[b], yk[b], j);
     }
-  write_partial(p, m, smem, size, stride);
+  write_partial(p, m, smem, size, stride, blockIdx.y);
 }
 
 // The columns of a lane's P passes from accumulator column c0 of the tile
@@ -534,16 +585,65 @@ __device__ __forceinline__ void walk(const Params& p, const Item& m, const Walk<
   }
 }
 
-// Range mode: the accumulator is cut into segment ranges (and, past
-// MAX_TILE_B columns, column tiles); a block reads every code of its chunk
-// but the values only of its rows.  Shared memory: the accumulator,
+// Counting-sorts the rows of a stage that fall in the block's range by
+// bucket (segment mod kBuckets: by segment where the range holds at most
+// kBuckets), so that the rows of one segment lie together in the list.  A
+// thread holds rows j < kRowsPerThread: seg[j], the row's segment in the
+// range (-1: none), and row(j), what the list keeps of it.  Each row's rank
+// in its bucket (a shared integer atomic, native on sm_90; aggregating a
+// warp's equal buckets first with __match_any_sync cost 0.09 ms more at the
+// fact bucket) stays in a register.  Returns the rows listed; ends at a
+// barrier, after which the buckets hold their starts until the caller
+// clears them.
+template <typename RowOf>
+__device__ __forceinline__ int sort_stage(const int (&seg)[kRowsPerThread], RowOf row, int* hist,
+                                          int* counts, int2* lst) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int rank[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    rank[j] = seg[j] >= 0 ? atomicAdd(&hist[seg[j] % kBuckets], 1) : 0;
+  __syncthreads();
+  // exclusive prefix sum of the buckets, two a thread
+  int listed;
+  {
+    const int h0 = hist[2 * threadIdx.x], h1 = hist[2 * threadIdx.x + 1];
+    int incl = h0 + h1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += t;
+    }
+    if (lane == 31) counts[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    listed = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? counts[w] : 0;
+      listed += counts[w];
+    }
+    const int excl = before + incl - h0 - h1;
+    hist[2 * threadIdx.x] = excl;
+    hist[2 * threadIdx.x + 1] = excl + h0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    if (seg[j] >= 0) lst[hist[seg[j] % kBuckets] + rank[j]] = make_int2(row(j), seg[j]);
+  __syncthreads();
+  return listed;
+}
+
+// Range mode, scan path: the accumulator is cut into segment ranges (and,
+// past MAX_TILE_B columns, column tiles); a block reads every code of its
+// chunk but the values only of its rows.  Shared memory: the accumulator,
 // rounded up to 4 floats; one stage of kStageRowsB codes (the next stage's
 // codes load while this stage's rows are added); the list of the stage's
 // rows in range, (row, code - seg0) each; a count a warp; kBuckets counts.
 template <int KIND>
 static __global__ void __launch_bounds__(kThreads, 1) range_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const Item m = item_of(p);
+  const Item m = item_at(p, (int64_t)p.item0 + blockIdx.x);
   if ((int64_t)blockIdx.y >= m.n_chunks) return;  // the item has fewer chunks than the grid
   const int tile = m.tile, size = m.S * tile;
   float* acc = smem;
@@ -579,53 +679,17 @@ static __global__ void __launch_bounds__(kThreads, 1) range_kernel(const Params 
     const int rows = rows_of(k);
     cp_async_wait<0>();
     __syncthreads();  // the stage's codes; the last stage's list is added
-    // The stage's rows in range, counting-sorted by bucket (segment mod
-    // kBuckets: by segment where the range holds at most kBuckets), so the
-    // rows of one segment lie together in the list.  A thread takes rows
-    // tid + j kThreads, and each row's rank in its bucket (a shared integer
-    // atomic, native on sm_90; aggregating a warp's equal buckets first with
-    // __match_any_sync cost 0.09 ms more at the fact bucket) stays in a
-    // register.
-    int rank[kRowsPerThread], seg_of[kRowsPerThread];
+    // thread t takes rows t + j kThreads of the stage
+    int seg_of[kRowsPerThread];
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       const int r = threadIdx.x + j * kThreads;
       const int64_t c = r < rows ? (int64_t)codes[r] - m.seg0 : -1;
-      const bool mine = (uint64_t)c < (uint64_t)m.S;
-      seg_of[j] = mine ? (int)c : -1;
-      rank[j] = mine ? atomicAdd(&hist[c % kBuckets], 1) : 0;
+      seg_of[j] = (uint64_t)c < (uint64_t)m.S ? (int)c : -1;
     }
-    __syncthreads();
-    // exclusive prefix sum of the buckets, two a thread
-    int listed;
-    {
-      const int h0 = hist[2 * threadIdx.x], h1 = hist[2 * threadIdx.x + 1];
-      int incl = h0 + h1;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += t;
-      }
-      if (lane == 31) counts[warp] = incl;
-      __syncthreads();
-      int before = 0;
-      listed = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        before += w < warp ? counts[w] : 0;
-        listed += counts[w];
-      }
-      const int excl = before + incl - h0 - h1;
-      hist[2 * threadIdx.x] = excl;
-      hist[2 * threadIdx.x + 1] = excl + h0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j)
-      if (seg_of[j] >= 0)
-        lst[hist[seg_of[j] % kBuckets] + rank[j]] =
-            make_int2(threadIdx.x + j * kThreads, seg_of[j]);
-    __syncthreads();  // the list is complete; the codes and buckets are free
-    issue_codes(k + 1);
+    const int listed = sort_stage(
+        seg_of, [](int j) { return (int)threadIdx.x + j * kThreads; }, hist, counts, lst);
+    issue_codes(k + 1);  // the codes and buckets are free
     for (int i = threadIdx.x; i < kBuckets; i += kThreads) hist[i] = 0;
 
     // a warp takes a contiguous slice of the list
@@ -635,17 +699,212 @@ static __global__ void __launch_bounds__(kThreads, 1) range_kernel(const Params 
                                                                  lane);
   }
   cp_async_wait<0>();
-  write_partial(p, m, acc, size, size);
+  write_partial(p, m, acc, size, size, blockIdx.y);
+}
+
+// Range mode, sorted path: what one reduction's pre-pass and blocks share,
+// read from its first item (p.item0).  Its sort area in scratch holds, in
+// 4-byte words: cnt[R], the rows of each range (zeroed before the
+// pre-pass); start[R + 1], each range's first place in the list; cstart[R +
+// 1], its first chunk; cursor[R], its next free place while rows are
+// placed; (a word to align) the list, a launch's rows in range grouped by
+// range, (row, segment - the range's first segment) each; owner[], the
+// range of each chunk.  The R ranges hold base + 1 segments each up to the
+// extra-th, base after (seg_aggregate.py _even).
+struct Sorted {
+  int *cnt, *start, *cstart, *cursor, *owner;
+  int2* list;
+  int R, T, S, base, extra;
+  int chunk;  // most listed rows a chunk
+  Src code;
+
+  __device__ __forceinline__ int range_of(int c) const {
+    const int big = extra * (base + 1);
+    return c < big ? c / (base + 1) : extra + (c - big) / base;
+  }
+  __device__ __forceinline__ int seg0_of(int r) const {
+    return r < extra ? r * (base + 1) : extra + r * base;
+  }
+};
+
+__device__ __forceinline__ Sorted sorted_of(const Params& p) {
+  const int64_t* h = p.items + (int64_t)p.item0 * N_FIELDS;
+  Sorted s;
+  s.R = (int)h[F_NRANGES], s.T = (int)h[F_NTILES], s.S = (int)h[F_NSEGS];
+  s.base = s.S / s.R, s.extra = s.S % s.R, s.chunk = (int)h[F_CHUNK_ROWS];
+  s.cnt = reinterpret_cast<int*>(p.scratch + h[F_SORT]);
+  s.start = s.cnt + s.R;
+  s.cstart = s.start + s.R + 1;
+  s.cursor = s.cstart + s.R + 1;
+  s.list = reinterpret_cast<int2*>(s.cursor + s.R);  // 4R + 2 words in: 8-byte aligned
+  s.owner = reinterpret_cast<int*>(s.list + p.n);
+  s.code = src_of(p.srcs, (int)h[F_CODE]);
+  return s;
+}
+
+// The sorted path's pre-pass over a launch's rows, kSortRows a block: the
+// block counts its rows in range by range in shared memory, kSortBins ranges
+// at a time, then adds the counts to cnt (PLACE false), or reserves each
+// range's places at its cursor with one global atomic and writes each row at
+// the next place (PLACE true).  A range's rows so lie together in the list,
+// in no fixed order.
+template <bool PLACE>
+static __global__ void __launch_bounds__(kThreads) sort_rows_kernel(const Params p) {
+  __shared__ int bins[kSortBins];
+  const Sorted s = sorted_of(p);
+  const int* code = reinterpret_cast<const int*>(s.code.ptr);
+  const int64_t r0 = (int64_t)blockIdx.x * kSortRows;
+  int rng[kSortRowsPerThread], seg[kSortRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kSortRowsPerThread; ++j) {
+    const int64_t r = r0 + threadIdx.x + j * kThreads;
+    const int c = r < p.n ? __ldg(code + r * s.code.rs) : -1;
+    const bool in = (unsigned)c < (unsigned)s.S;
+    rng[j] = in ? s.range_of(c) : -1;
+    seg[j] = in ? c - s.seg0_of(rng[j]) : 0;
+  }
+  for (int w0 = 0; w0 < s.R; w0 += kSortBins) {
+    const int nb = min(kSortBins, s.R - w0);
+    for (int i = threadIdx.x; i < nb; i += kThreads) bins[i] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSortRowsPerThread; ++j)
+      if ((unsigned)(rng[j] - w0) < (unsigned)nb) atomicAdd(&bins[rng[j] - w0], 1);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nb; i += kThreads) {
+      const int v = bins[i];
+      if (v == 0) continue;
+      if constexpr (PLACE)
+        bins[i] = atomicAdd(s.cursor + w0 + i, v);
+      else
+        atomicAdd(s.cnt + w0 + i, v);
+    }
+    if constexpr (PLACE) {
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kSortRowsPerThread; ++j)
+        if ((unsigned)(rng[j] - w0) < (unsigned)nb)
+          s.list[atomicAdd(&bins[rng[j] - w0], 1)] =
+              make_int2((int)(r0 + threadIdx.x + j * kThreads), seg[j]);
+    }
+    __syncthreads();
+  }
+}
+
+// The sorted path's prefix sums, one block: each range's first place in the
+// list (start, and cursor for the placing pass) and its first chunk
+// (cstart), a chunk holding at most `chunk` listed rows; and the range of
+// each chunk (owner), so that a block finds its range in one read.
+static __global__ void __launch_bounds__(kThreads) sort_scan_kernel(const Params p) {
+  __shared__ int warp_rows[kWarps], warp_chunks[kWarps];
+  const Sorted s = sorted_of(p);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int per = (s.R + kThreads - 1) / kThreads;
+  const int i0 = min((int)threadIdx.x * per, s.R), i1 = min(i0 + per, s.R);
+  auto chunks_of = [&](int c) { return (int)(((int64_t)c + s.chunk - 1) / s.chunk); };
+  int rows = 0, chunks = 0;
+  for (int i = i0; i < i1; ++i) rows += s.cnt[i], chunks += chunks_of(s.cnt[i]);
+  int ir = rows, ic = chunks;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int tr = __shfl_up_sync(0xffffffffu, ir, off), tc = __shfl_up_sync(0xffffffffu, ic, off);
+    if (lane >= off) ir += tr, ic += tc;
+  }
+  if (lane == 31) warp_rows[warp] = ir, warp_chunks[warp] = ic;
+  __syncthreads();
+  int br = ir - rows, bc = ic - chunks;
+  for (int w = 0; w < warp; ++w) br += warp_rows[w], bc += warp_chunks[w];
+  for (int i = i0; i < i1; ++i) {
+    const int c = s.cnt[i], k = chunks_of(c);
+    s.start[i] = s.cursor[i] = br;
+    s.cstart[i] = bc;
+    for (int j = 0; j < k; ++j) s.owner[bc + j] = i;
+    br += c, bc += k;
+  }
+  if (threadIdx.x == kThreads - 1) s.start[s.R] = br, s.cstart[s.R] = bc;
+}
+
+// Writes a range's accumulator, its rows' only chunk, straight to the
+// output words the combine would write it to (a float summed alone in
+// double rounds to itself), each tile column's output offset looked up
+// once into `ocol` (MAX_TILE_B words of shared memory).
+__device__ __forceinline__ void write_output(const Params& p, const int64_t* d, const float* acc,
+                                             int64_t* ocol, int size, int tile) {
+  const int64_t row = out_row(d, p.srcs);
+  __syncthreads();  // the accumulator is whole
+  for (int c = threadIdx.x; c < tile; c += kThreads) ocol[c] = out_col(d, p.srcs, d[F_COL0] + c);
+  __syncthreads();
+  float* dst = p.out + d[F_OUT_OFF] + d[F_SEG0] * row;
+  for (int i = threadIdx.x; i < size; i += kThreads) {
+    const int sg = i / tile;
+    dst[sg * row + ocol[i - sg * tile]] = acc[i];
+  }
+}
+
+// Range mode, sorted path: a block a chunk of one range's listed rows
+// (blockIdx.x counts the chunks of every range in order, blockIdx.y the
+// column tile).  It reads only its slice of the pre-pass's list,
+// kStageRowsB rows at a time, counting-sorts each stage by segment and
+// walks it as the scan path does.  A range of one chunk (most, on keys
+// spread evenly) writes its output itself, and the combine passes it by.
+// A block past the chunks the pre-pass counted exits.  Shared memory: the
+// accumulator, rounded up to 4 floats; the stage's list (the output
+// offsets of the tile's columns, after); a count a warp; kBuckets counts.
+template <int KIND>
+static __global__ void __launch_bounds__(kThreads, 1) sorted_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const Sorted s = sorted_of(p);
+  const int slot = blockIdx.x;
+  if (slot >= s.cstart[s.R]) return;
+  const int r = s.owner[slot];
+  const int64_t item = (int64_t)p.item0 + (int64_t)r * s.T + blockIdx.y;
+  const Item m = item_at(p, item);
+  const int tile = m.tile, size = m.S * tile;
+  float* acc = smem;
+  int2* lst = reinterpret_cast<int2*>(smem + ((size + 3) & ~3));
+  int* counts = reinterpret_cast<int*>(lst + kStageRowsB);
+  int* hist = counts + kWarps;
+  for (int i = threadIdx.x; i < size; i += kThreads) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < kBuckets; i += kThreads) hist[i] = 0;
+
+  const int64_t first = s.start[r] + (int64_t)(slot - s.cstart[r]) * s.chunk;
+  const int64_t end = first + s.chunk < s.start[r + 1] ? first + s.chunk : s.start[r + 1];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const Walk<KIND == SEG ? 1 : 3> w(p, m, lane);
+  for (int64_t e0 = first; e0 < end; e0 += kStageRowsB) {
+    int seg_of[kRowsPerThread], row_of[kRowsPerThread];
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const int64_t e = e0 + threadIdx.x + j * kThreads;
+      const int2 v = e < end ? s.list[e] : make_int2(0, -1);
+      row_of[j] = v.x, seg_of[j] = v.y;
+    }
+    __syncthreads();  // acc and buckets cleared; the last stage's list is added
+    const int listed =
+        sort_stage(seg_of, [&](int j) { return row_of[j]; }, hist, counts, lst);
+    for (int i = threadIdx.x; i < kBuckets; i += kThreads) hist[i] = 0;
+    const int lo = (int)((int64_t)listed * warp / kWarps);
+    const int hi = (int)((int64_t)listed * (warp + 1) / kWarps);
+    walk<KIND == SEG ? 1 : 3, KIND == SEG ? kPassesB : kPassesH>(p, m, w, acc, lst, lo, hi, 0,
+                                                                 lane);
+  }
+  if (s.cstart[r + 1] - s.cstart[r] == 1)
+    write_output(p, p.items + item * N_FIELDS, acc, reinterpret_cast<int64_t*>(lst), size, tile);
+  else
+    write_partial(p, m, acc, size, size, slot);
 }
 
 // Sums an item's chunks in a fixed order, in double, and writes each sum
-// once to its output word: a SEG accumulator column to the column its part
-// names; HIST column 3j + k of segment s to s * ocol + j * ostride + k,
-// ocol and ostride the cond part's (3N and 3: (S, 3N) rows; 3 and 3S: (N,
-// S, 3)).  A block takes kCombineThreads / G neighbouring partial words,
+// once to its output word (out_row, out_col): a SEG accumulator column to
+// the column its part names; HIST column 3j + k of segment s to s * ocol +
+// j * ostride + k, ocol and ostride the cond part's (3N and 3: (S, 3N)
+// rows; 3 and 3S: (N, S, 3)).  A block takes kCombineThreads / G neighbouring partial words,
 // and its G rows of threads the chunks g, g + G, ... each, summed in that
 // order; the first row then adds the rows' sums in order.  G is
-// kCombineGroups for an item of kCombineSplit chunks or more, else 1.
+// kCombineGroups for an item of kCombineSplit chunks or more, else 1.  A
+// sorted-path item's chunks are those its pre-pass counted (cstart), each
+// after the last at the item's part stride; an item of one chunk wrote its
+// output itself.
 static __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const int64_t* __restrict__ items, const int64_t* __restrict__ srcs,
                const float* __restrict__ scratch, float* __restrict__ out) {
@@ -653,11 +912,17 @@ combine_kernel(const int64_t* __restrict__ items, const int64_t* __restrict__ sr
   const int64_t* d = items + (int64_t)blockIdx.x * N_FIELDS;
   const int tile = (int)d[F_TILE];
   const int64_t size = d[F_NSEG] * tile;
-  const int64_t col0 = d[F_COL0], seg0 = d[F_SEG0], width = d[F_WIDTH];
-  const int64_t n_chunks = d[F_NCHUNKS], part_stride = d[F_PART_STRIDE];
-  const bool seg = d[F_KIND] == SEG;
-  const int src0 = (int)d[F_SRC0], nsrc = (int)d[F_NSRC];
+  const int64_t col0 = d[F_COL0], seg0 = d[F_SEG0], row = out_row(d, srcs);
+  const int64_t part_stride = d[F_PART_STRIDE];
+  int64_t n_chunks = d[F_NCHUNKS];
   const float* src = scratch + d[F_SCRATCH_OFF];
+  if (d[F_SORT] >= 0) {
+    const int* cstart = reinterpret_cast<const int*>(scratch + d[F_SORT]) + 2 * d[F_NRANGES] + 1;
+    const int r = (int)d[F_RANGE];
+    src += cstart[r] * part_stride;
+    n_chunks = cstart[r + 1] - cstart[r];
+    if (n_chunks == 1) return;
+  }
   float* dst = out + d[F_OUT_OFF];
   const int G = n_chunks >= kCombineSplit ? kCombineGroups : 1, cols = kCombineThreads / G;
   const int x = threadIdx.x % cols, g = threadIdx.x / cols;
@@ -673,12 +938,8 @@ combine_kernel(const int64_t* __restrict__ items, const int64_t* __restrict__ sr
         for (int k = 1; k < G; ++k) s += part[k * cols + x];
     }
     if (g == 0 && i < size) {
-      const int64_t sg = i / tile, c = col0 + (i - sg * tile);
-      const int64_t* pt = srcs + (int64_t)(seg ? part_index(srcs, src0, nsrc, (int)c) : src0) *
-                                     N_SRC_FIELDS;
-      const int64_t at = seg ? (seg0 + sg) * width + pt[S_OCOL] + (c - pt[S_COL0]) * pt[S_OSTRIDE]
-                             : (seg0 + sg) * pt[S_OCOL] + (c / 3) * pt[S_OSTRIDE] + c % 3;
-      dst[at] = (float)s;
+      const int64_t sg = i / tile;
+      dst[(seg0 + sg) * row + out_col(d, srcs, col0 + (i - sg * tile))] = (float)s;
     }
     if (G > 1) __syncthreads();
   }
@@ -687,15 +948,18 @@ combine_kernel(const int64_t* __restrict__ items, const int64_t* __restrict__ sr
 typedef void (*PartialKernel)(const Params);
 
 // The partial kernels: 0 one-block SEG, 1 segment-range SEG, 2 one-block
-// HIST, 3 segment-range HIST.
-constexpr int kKernels = 4;
+// HIST, 3 segment-range HIST, 4 sorted-path SEG, 5 sorted-path HIST.
+constexpr int kKernels = 6;
+constexpr int kSortedKernels = 4;  // the first of the sorted path's
 
 static PartialKernel partial_kernel(int k) {
   switch (k) {
     case 0: return rows_kernel;
     case 1: return range_kernel<SEG>;
     case 2: return hist_kernel;
-    default: return range_kernel<HIST>;
+    case 3: return range_kernel<HIST>;
+    case 4: return sorted_kernel<SEG>;
+    default: return sorted_kernel<HIST>;
   }
 }
 
@@ -732,26 +996,40 @@ static int blocks_per_sm(int k, int smem_bytes) {
   return blocks;
 }
 
-// One launch on `stream`: the partial grids, one after another (grid[4 g ..
-// 4 g + 3]: kernel, items, chunks, shared memory; a grid's items follow the
-// previous grids'), then the combine grid over all items, combine_blocks
-// blocks an item.  items and srcs are device tables.  Returns the first
-// CUDA error, or 0.
-static int run(const int64_t* items, const int64_t* srcs, int64_t n, const int* grid,
+// One launch on `stream`: the partial grids, one after another (grid[6 g ..
+// 6 g + 5]: kernel, items, blocks along x and y, shared memory, sort area;
+// a grid's items follow the previous grids'), then the combine grid over
+// all items, combine_blocks blocks an item.  A grid of the sorted path
+// holds one reduction (x: a bound on its chunks, y: its column tiles) and
+// runs its pre-pass first, on the same stream: its counts zeroed (the sort
+// area's first items / y words), counted, summed, its rows placed.  items
+// and srcs are device tables.  Returns the first CUDA error, or 0.
+constexpr int kGridInts = 6;
+
+static int run(const int64_t* items, const int64_t* srcs, int64_t n, const int64_t* grid,
                int n_grids, int64_t combine_blocks, float* scratch, float* out, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  Params p{items, srcs, scratch, n, 0};
+  Params p{items, srcs, scratch, out, n, 0};
   int n_items = 0;
   for (int g = 0; g < n_grids; ++g) {
-    const int* gr = grid + 4 * g;
-    if (gr[0] < 0 || gr[0] >= kKernels) return (int)cudaErrorInvalidValue;
-    cudaError_t err = allow_smem(gr[0], gr[3]);
+    const int64_t* gr = grid + kGridInts * g;
+    const int k = (int)gr[0];
+    if (k < 0 || k >= kKernels) return (int)cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(k, (int)gr[4]);
     if (err != cudaSuccess) return (int)err;
     p.item0 = n_items;
-    partial_kernel(gr[0])<<<dim3((unsigned)gr[1], (unsigned)gr[2]), kThreads, gr[3], st>>>(p);
+    if (k >= kSortedKernels) {
+      err = cudaMemsetAsync(scratch + gr[5], 0, sizeof(int) * (gr[1] / gr[3]), st);
+      if (err != cudaSuccess) return (int)err;
+      const unsigned blocks = (unsigned)((n + kSortRows - 1) / kSortRows);
+      sort_rows_kernel<false><<<blocks, kThreads, 0, st>>>(p);
+      sort_scan_kernel<<<1, kThreads, 0, st>>>(p);
+      sort_rows_kernel<true><<<blocks, kThreads, 0, st>>>(p);
+    }
+    partial_kernel(k)<<<dim3((unsigned)gr[2], (unsigned)gr[3]), kThreads, (int)gr[4], st>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    n_items += gr[1];
+    n_items += (int)gr[1];
   }
   combine_kernel<<<dim3((unsigned)n_items, (unsigned)combine_blocks), kCombineThreads, 0, st>>>(
       items, srcs, scratch, out);

@@ -14,7 +14,7 @@
 #include "seg_reduce.cuh"
 
 extern "C" int tree_hist(const int64_t* items, const int64_t* srcs, int64_t n,
-                         const int* grid, int n_grids, int64_t combine_blocks,
+                         const int64_t* grid, int n_grids, int64_t combine_blocks,
                          float* scratch, float* out, void* stream) {
   return seg_reduce::run(items, srcs, n, grid, n_grids, combine_blocks, scratch, out, stream);
 }

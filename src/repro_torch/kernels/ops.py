@@ -7,13 +7,18 @@ hand-written kernel (or raises).  A DTensor raises on either device: its
 ``data_ptr`` is not its shard's, so the caller hands a kernel each rank's
 local shard (``models/layers.py`` ``_local_heads``).  ``LAUNCHES`` counts kernel launches per
 wrapper and nothing else, so a run can show that it went through the
-kernels.
+kernels.  ``RANGE_REDUCTIONS`` counts the reductions those launches ran in
+segment ranges, by path: ``scan`` (each range's blocks read every code of
+their row chunk) or ``sorted`` (the launch's rows counting-sorted by range
+first, each block reading only its range's), as ``seg_aggregate.py``'s
+shape rule picks it; ``reset_launches`` clears both counters.
 
 Each reduction wrapper runs inside a ``kernel.<wrapper>`` span
 (``obs/trace.py``), on either device.  With tracing on, the span carries
 the launch's rows, its reductions as ``[mode, n_segments, width,
-n_parts]`` (mode "seg" or "hist", ".range" where the card cuts the
-accumulator into segment ranges), and the least work the launch does:
+n_parts]`` (mode "seg" or "hist", then ".range" where the card cuts the
+accumulator into segment ranges on the scan path, ".sorted" on the sorted
+path: the same rule on either device), and the least work the launch does:
 ``bytes``, each distinct input tensor read once at its element size and
 the float32 output written once, and ``ops``, one add per row and output
 column it adds into.  Off, none of it is computed.
@@ -32,13 +37,13 @@ from repro_torch.kernels.flash_attention import check_shapes, flash_attention_cu
 from repro_torch.kernels.fused_scan import (Part, Parts, ReduceSpec, _cols,
                                             fused_scan_block_cuda,
                                             fused_scan_parts_cuda)
-from repro_torch.kernels.seg_aggregate import (fits_hist_block, fits_one_block,
+from repro_torch.kernels.seg_aggregate import (RANGE_REDUCTIONS, reduction_mode,
                                                seg_aggregate_cuda)
 from repro_torch.kernels.tree_hist import (tree_hist_batched_cuda,
                                            tree_hist_cuda)
 from repro_torch.obs.trace import lazy_span
 
-__all__ = ["LAUNCHES", "Part", "Parts", "ReduceSpec", "covar_xtx",
+__all__ = ["LAUNCHES", "Part", "Parts", "RANGE_REDUCTIONS", "ReduceSpec", "covar_xtx",
            "flash_attention", "fused_scan_block", "fused_scan_parts",
            "reset_launches", "seg_aggregate", "tree_hist", "tree_hist_batched"]
 
@@ -48,8 +53,9 @@ LAUNCHES: Dict[str, int] = {"covar_xtx": 0, "flash_attention": 0,
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in (LAUNCHES, RANGE_REDUCTIONS):
+        for k in counter:
+            counter[k] = 0
 
 
 def _check_local(name: str, *tensors) -> None:
@@ -107,9 +113,8 @@ def _launch_args(n: int, tensors, reds) -> dict:
     (kind, n_segments, width, columns a row adds into, n_parts) each."""
     modes, out, adds = [], 0, 0
     for kind, n_seg, width, cols, n_parts in reds:
-        one = (fits_one_block(n_seg, cols) if kind == "seg"
-               else fits_hist_block(n_seg, width // 3))
-        modes.append([kind if one else f"{kind}.range", n_seg, width, n_parts])
+        mode = reduction_mode(kind, n_seg, cols if kind == "seg" else width)
+        modes.append([kind + ("", ".range", ".sorted")[mode], n_seg, width, n_parts])
         out += n_seg * width
         adds += cols
     return {"rows": n, "reductions": modes,

@@ -4,21 +4,29 @@ the port of ``seg_aggregate_pallas`` (``repro/kernels/seg_aggregate.py:39``).
 The device code (``csrc/seg_reduce.cuh``, entry point
 ``csrc/seg_aggregate.cu``) keeps the ``(S, A)`` accumulator in shared
 memory: whole in one block where it fits, else cut into segment ranges, a
-block each, which read every code of their row chunk but the payload only of
-their own rows; a second kernel sums the chunks' partial tiles in double.
-Ids outside ``[0, n_segments)`` contribute nowhere, so no padding rows or
-sacrificial segment are needed, and the payload may start at any float.
+block each, which read the payload only of their own rows; a second kernel
+sums the chunks' partial tiles in double.  A range finds its rows in one of
+two ways, chosen by the reduction's shape alone (:func:`reduction_mode`):
+below ``SORTED_MIN_RANGES`` ranges (the scan path) each range's blocks read
+every code of their row chunk; at or above it (the sorted path) a pre-pass
+counting-sorts the launch's rows by range once, and each block reads only
+its range's slice of that list.  Ids outside ``[0, n_segments)`` contribute
+nowhere, so no padding rows or sacrificial segment are needed, and the
+payload may start at any float.
 
 This module also holds the host side of every launch of that header, which
 ``fused_scan_block``, ``tree_hist`` and ``tree_hist_batched`` share: the
 geometry as pure functions (:func:`fits_one_block`, :func:`fits_hist_block`,
 :func:`segment_ranges`, :func:`column_tiles`, :func:`seg_layout`,
-:func:`hist_layout`, :func:`seg_chunks`, :func:`item_chunks`,
-:func:`launch_layout`), so the CPU tests reach it;
+:func:`hist_layout`, :func:`reduction_mode`, :func:`seg_chunks`,
+:func:`item_chunks`, :func:`sorted_chunks`, :func:`launch_layout`), so the
+CPU tests reach it;
 :func:`launch_plan`, which puts a launch's work items on the card; and
 :func:`run`, which launches an entry point over a table of sources, each
 read where it lies.  ``seg_aggregate`` is the launch of one reduction of
-one payload part.
+one payload part.  :data:`RANGE_REDUCTIONS` counts the range-mode
+reductions the card runs, by path (``ops`` exports it and
+``ops.reset_launches`` clears it).
 """
 
 from __future__ import annotations
@@ -45,6 +53,18 @@ MIN_STAGE_ROWS, MAX_STAGE_ROWS = 32, 4096
 #: sort's buckets, two a thread
 STAGE_ROWS_B = 4096
 FIXED_B = 4 * STAGE_ROWS_B + 8 * STAGE_ROWS_B + 4 * THREADS // 32 + 8 * THREADS
+#: range mode: the fewest segment ranges of a reduction that takes the
+#: sorted path (its launch's rows counting-sorted by range once, each block
+#: reading only its range's rows) rather than the scan path (each range's
+#: blocks reading every code of their chunk, which costs ranges x rows).
+#: Set from both paths timed at 2^20 rows, 489 columns in parts, over 2 to
+#: 13,170 ranges on an H100 (``tools/scan_ablation.py --ranges``, PERF.md):
+#: the scan path the faster up to 192 ranges (19.1 ms against 20.4), the
+#: sorted path from 256 (17.8 against 22.7; at 13,170, 24 against 725).
+#: Histograms take it at the same count, though their crossover lies lower:
+#: at a tree level's 90,936 buckets the sorted path was the faster from 49
+#: ranges up (PERF.md)
+SORTED_MIN_RANGES = 256
 #: range mode: the widest column tile
 MAX_TILE_B = 1024
 #: most rows of a chunk: integer counts in a chunk's float32 partial stay
@@ -52,8 +72,9 @@ MAX_TILE_B = 1024
 MAX_CHUNK_ROWS = 1 << 18
 #: fewest rows of a chunk: a short scan spreads over the card down to this
 MIN_CHUNK_ROWS = 32
-#: int64 fields of a work item (``N_FIELDS`` in seg_reduce.cuh)
-N_FIELDS = 17
+#: int64 fields of a work item (``N_FIELDS`` in seg_reduce.cuh), and of a
+#: grid as ``run`` takes it (``kGridInts``)
+N_FIELDS, GRID_INTS = 22, 6
 KINDS = {"seg": 0, "hist": 1}
 #: the combine kernel (``kCombine*``): threads a block, groups of chunks a
 #: block sums apart for an item of COMBINE_SPLIT chunks or more, most
@@ -120,27 +141,39 @@ def column_tiles(width: int, unit: int = 1) -> List[Tuple[int, int]]:
     return [(u0 * unit, k * unit) for u0, k in _even(units, -(-units // per))]
 
 
-def segment_ranges(n_segments: int, tile: int) -> List[Tuple[int, int]]:
-    """Range mode: the fewest ``(first segment, segments)`` ranges of
-    about equal size, each small enough that its ``tile``-column
+def range_segments(tile: int) -> int:
+    """Range mode: the most segments of a range whose ``tile``-column
     accumulator fits a block beside the stage."""
     per = (SMEM_BYTES - FIXED_B) // (4 * tile) // 4 * 4
     if per < 1:
         raise ValueError(f"a {tile}-column tile does not fit one block")
-    return _even(n_segments, -(-n_segments // per))
+    return per
+
+
+def range_count(n_segments: int, tile: int) -> int:
+    """Range mode: the fewest ranges of ``n_segments`` of at most
+    :func:`range_segments` each."""
+    return -(-n_segments // range_segments(tile))
+
+
+def segment_ranges(n_segments: int, tile: int) -> List[Tuple[int, int]]:
+    """Range mode: :func:`range_count` ``(first segment, segments)`` ranges
+    of about equal size."""
+    return _even(n_segments, range_count(n_segments, tile))
 
 
 @dataclasses.dataclass(frozen=True)
 class SegLayout:
     """The work items of one reduction, before the rows are cut."""
 
-    mode: int                            # 0: one block, 1: segment ranges
+    mode: int                            # 0: one block, 1: ranges (scan path), 2: (sorted path)
     items: Tuple[Tuple[int, ...], ...]  # (seg0, n_seg, col0, tile, 0) a block
     smem_bytes: int
     stage_rows: int                      # one-block SEG: rows a stage
     part_stride: int                     # floats of one chunk's partial tile
     max_size: int                        # most n_seg * tile over the items
     copies: int = 1                      # one-block mode: accumulator copies
+    n_ranges: int = 1                    # range mode: segment ranges (items range-major)
 
 
 def range_layout(n_segments: int, width: int, unit: int = 1) -> SegLayout:
@@ -154,7 +187,8 @@ def range_layout(n_segments: int, width: int, unit: int = 1) -> SegLayout:
     acc = _acc_bytes(max(ns for _, ns in ranges), tile)
     return SegLayout(mode=1, items=items,
                      smem_bytes=acc + FIXED_B, stage_rows=0,
-                     part_stride=-(-max_size // 4) * 4, max_size=max_size)
+                     part_stride=-(-max_size // 4) * 4, max_size=max_size,
+                     n_ranges=len(ranges))
 
 
 def seg_layout(n_segments: int, width: int) -> SegLayout:
@@ -204,6 +238,46 @@ def hist_layout(n_segments: int, n_cond: int) -> SegLayout:
                          part_stride=-(-size // 4) * 4, max_size=size,
                          copies=k)
     return range_layout(n_segments, width, 3)
+
+
+def reduction_mode(kind: str, n_segments: int, acc_width: int) -> int:
+    """How the card runs a reduction of ``acc_width`` accumulator columns
+    (a histogram's ``3 N``), as :func:`launch_layout` lays it out: 0 in one
+    block, 1 in segment ranges on the scan path, 2 on the sorted path (at
+    ``SORTED_MIN_RANGES`` ranges or more).  The shape alone decides, not
+    the rows."""
+    if kind == "hist":
+        if fits_hist_block(n_segments, acc_width // 3):
+            return 0
+        tile = max(t for _, t in column_tiles(acc_width, 3))
+    else:
+        if fits_one_block(n_segments, acc_width):
+            return 0
+        tile = max(t for _, t in column_tiles(acc_width))
+    return 2 if range_count(n_segments, tile) >= SORTED_MIN_RANGES else 1
+
+
+def sorted_chunks(n: int, n_ranges: int, scan_chunks: int) -> Tuple[int, int]:
+    """The sorted path's ``(chunk_rows, slots)`` for a reduction of
+    ``n_ranges`` ranges over ``n`` rows, whose items the scan path cuts into
+    ``scan_chunks`` chunks each.  A chunk holds at most ``chunk_rows``
+    listed rows, about twice a range's mean, so that a range of many rows
+    (skewed keys, every row on one segment) spreads over blocks of at most
+    that; never past ``MAX_CHUNK_ROWS``.  ``slots`` bounds the chunks of all
+    ranges whatever their rows (Σ⌈c_r / chunk⌉ ≤ R + ⌊(n − R) / chunk⌋, and
+    ≤ n): the grid, and the partials, which stay within the scan path's
+    ``n_ranges × scan_chunks``."""
+    extra = n_ranges * (scan_chunks - 1)
+    least = (n - n_ranges) // (extra + 1) + 1 if n > n_ranges else 1
+    chunk = min(MAX_CHUNK_ROWS, max(least, -(-2 * n // n_ranges)))
+    return chunk, min(n, n_ranges + max(0, (n - n_ranges) // chunk))
+
+
+def sort_words(n: int, n_ranges: int, slots: int) -> int:
+    """Scratch words of a sorted-path reduction's sort area (``Sorted`` in
+    seg_reduce.cuh): four counts a range, the (row, segment) list and a
+    chunk's range for each of ``slots``, rounded up to 16 bytes."""
+    return -(-(4 * n_ranges + 2 + 2 * n + slots) // 4) * 4
 
 
 def seg_chunks(n: int, blocks_per_chunk: int,
@@ -267,7 +341,10 @@ def seg_shape(n_segments: int, width: int) -> Shape:
 class Grid:
     """One partial grid of a launch, on the partial kernel ``kernel``
     (:func:`kernel_of`): its items, each over its own row chunks
-    (:func:`item_chunks`), the most chunks and the longest chunk of any."""
+    (:func:`item_chunks`), the most chunks and the longest chunk of any.  A
+    sorted-path grid holds one reduction: its blocks are (a bound on the
+    chunks of all its ranges, its column tiles), its chunks' rows listed
+    rows, and its pre-pass keeps the sort area at ``sort_off``."""
 
     kernel: int
     n_items: int
@@ -275,6 +352,8 @@ class Grid:
     chunk_rows: int
     smem_bytes: int
     wave_blocks: int             # blocks the card holds at once
+    blocks: Tuple[int, int]      # the grid's blocks along x and y
+    sort_off: int = -1           # sorted path: the sort area in scratch (floats)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,11 +368,9 @@ class Layout:
     scratch_numel: int
     combine_blocks: int                      # blocks an item of the combine grid
     outputs: Tuple[Tuple[int, int, int], ...]   # (offset, S, width) a reduction
-
-    @property
-    def out_numel(self) -> int:
-        off, s, w = self.outputs[-1]
-        return off + s * w
+    out_numel: int
+    scratch_base: int                        # scratch's offset in the buffer: 16-byte aligned
+    range_paths: Tuple[int, int]             # range-mode reductions: (scan, sorted) path
 
 
 def shape_layout(sh: Shape) -> SegLayout:
@@ -306,8 +383,8 @@ def shape_layout(sh: Shape) -> SegLayout:
 def kernel_of(sh: Shape, lay: SegLayout) -> int:
     """The partial kernel a reduction's grid runs (``partial_kernel`` in
     seg_reduce.cuh): 0 one-block SEG, 1 segment-range SEG, 2 one-block
-    HIST, 3 segment-range HIST."""
-    return lay.mode + 2 * (sh.kind == "hist")
+    HIST, 3 segment-range HIST, 4 sorted-path SEG, 5 sorted-path HIST."""
+    return (0, 1, 4)[lay.mode] + (1 if lay.mode == 2 else 2) * (sh.kind == "hist")
 
 
 def row_cost(sh: Shape, lay: SegLayout) -> float:
@@ -347,51 +424,102 @@ def launch_layout(n: int, shapes: Sequence[Shape],
     reductions of a kernel side by side in one grid, which hides each
     one's latency behind the others'); each grid's wave of blocks,
     ``wave(kernel, smem_bytes)`` (the occupancy query on the card, times
-    the SMs), shared among its items by :func:`item_chunks`.  Sources are
-    numbered reduction by reduction: its codes, then its parts."""
+    the SMs), shared among its items by :func:`item_chunks`.  A range-mode
+    reduction of enough ranges (:func:`reduction_mode`) takes the sorted path
+    in a grid of its own after the others, its partials within the scan
+    path's (:func:`sorted_chunks`: its items chunked as if every range-mode
+    reduction of the launch shared the scan path's grid), then its sort
+    area in scratch, which lists a row by its int32 index: such a launch
+    takes fewer than 2^31 rows.  Sources are numbered reduction by
+    reduction: its codes, then its parts."""
     for sh in shapes:
         check_shape(sh)
-    layouts = tuple(shape_layout(sh) for sh in shapes)
-    kernels = [kernel_of(sh, lay) for sh, lay in zip(shapes, layouts)]
+    layouts = tuple(dataclasses.replace(lay, mode=2)
+                    if lay.mode == 1 and lay.n_ranges >= SORTED_MIN_RANGES else lay
+                    for lay in map(shape_layout, shapes))
+    if n >= 1 << 31 and any(lay.mode == 2 for lay in layouts):
+        raise ValueError(f"{n} rows: the sorted path lists a row by its int32 index, "
+                         "so a launch takes fewer than 2^31")
+    # the partial kernel of each reduction on the scan path
+    scan_kernels = [min(lay.mode, 1) + 2 * (sh.kind == "hist")
+                    for sh, lay in zip(shapes, layouts)]
     first_src = [0]
     for sh in shapes:
         first_src.append(first_src[-1] + 1 + len(sh.parts))
     out_off = [0]
     for sh in shapes:
         out_off.append(out_off[-1] + sh.n_segments * sh.width)
-    grids, rows, scratch = [], [], 0
-    for k in sorted(set(kernels)):
-        mine = [i for i, kk in enumerate(kernels) if kk == k]
+
+    def item(i, s0, ns, c0, t, scratch_off, n_chunks, chunk_rows, part_stride,
+             copies, sort=(-1, 0, 0, 0, 0)):
+        sh, lay = shapes[i], layouts[i]
+        return (s0, ns, c0, t, scratch_off, KINDS[sh.kind], sh.width, out_off[i],
+                first_src[i], first_src[i] + 1, len(sh.parts),
+                sh.parts[0] if sh.kind == "hist" else 0, lay.stage_rows, n_chunks,
+                chunk_rows, part_stride, copies, *sort)
+
+    def chunked(mine, k):
+        """The grid of kernel ``k`` over reductions ``mine``: its shared
+        memory, its wave, and each item's (chunk_rows, n_chunks)."""
         smem = max(layouts[i].smem_bytes for i in mine)
         blocks = wave(k, smem)
-        per_item = iter(item_chunks(
+        return smem, blocks, item_chunks(
             n, [row_cost(shapes[i], layouts[i]) for i in mine for _ in layouts[i].items],
-            blocks))
+            blocks)
+
+    grids, rows, scratch = [], [], 0
+    for k in sorted({kk for kk, lay in zip(scan_kernels, layouts) if lay.mode < 2}):
+        mine = [i for i, kk in enumerate(scan_kernels) if kk == k and layouts[i].mode < 2]
+        smem, blocks, per_item = chunked(mine, k)
+        per_item = iter(per_item)
         most, longest, n_items = 0, 0, 0
         for i in mine:
-            sh, lay = shapes[i], layouts[i]
+            lay = layouts[i]
             for s0, ns, c0, t, _ in lay.items:
                 chunk_rows, n_chunks = next(per_item)
                 if n_chunks > 65535:
                     raise ValueError(f"{n} rows need {n_chunks} chunks, more than "
                                      "one launch takes (65535)")
-                rows.append((
-                    s0, ns, c0, t, scratch, KINDS[sh.kind], sh.width, out_off[i],
-                    first_src[i], first_src[i] + 1, len(sh.parts),
-                    sh.parts[0] if sh.kind == "hist" else 0,
-                    lay.stage_rows, n_chunks, chunk_rows, lay.part_stride, lay.copies))
+                rows.append(item(i, s0, ns, c0, t, scratch, n_chunks, chunk_rows,
+                                 lay.part_stride, lay.copies))
                 scratch += n_chunks * lay.part_stride
                 most, longest, n_items = max(most, n_chunks), max(longest, chunk_rows), n_items + 1
-        grids.append(Grid(k, n_items, most, longest, smem, blocks))
+        grids.append(Grid(k, n_items, most, longest, smem, blocks, (n_items, most)))
+    to_sort = sorted((i for i, lay in enumerate(layouts) if lay.mode == 2),
+                     key=lambda i: kernel_of(shapes[i], layouts[i]))
+    for i in to_sort:
+        sh, lay = shapes[i], layouts[i]
+        # the scan path's grid of every range-mode reduction of its kind
+        mine = [j for j, kk in enumerate(scan_kernels)
+                if kk == scan_kernels[i] and layouts[j].mode > 0]
+        _, blocks, per_item = chunked(mine, scan_kernels[i])
+        scan_chunks = per_item[sum(len(layouts[j].items) for j in mine[:mine.index(i)])][1]
+        n_ranges = lay.n_ranges
+        n_tiles = len(lay.items) // n_ranges
+        chunk, slots = sorted_chunks(n, n_ranges, scan_chunks)
+        partials, sort_off = scratch, scratch + slots * n_tiles * lay.part_stride
+        for j, (s0, ns, c0, t, _) in enumerate(lay.items):
+            rows.append(item(i, s0, ns, c0, t, partials + j % n_tiles * lay.part_stride,
+                             -(-n // chunk), chunk, n_tiles * lay.part_stride, 1,
+                             (sort_off, j // n_tiles, n_ranges, n_tiles, sh.n_segments)))
+        scratch = sort_off + sort_words(n, n_ranges, slots)
+        grids.append(Grid(kernel_of(sh, lay), len(lay.items), -(-n // chunk), chunk,
+                          lay.smem_bytes, blocks, (slots, n_tiles), sort_off))
     # the combine kernel's blocks: COMBINE_THREADS partial words each, or a
     # COMBINE_GROUPS-th of that for an item of COMBINE_SPLIT chunks or more
-    combine = max(-(-it[1] * it[3] * (COMBINE_GROUPS if it[13] >= COMBINE_SPLIT else 1)
-                    // COMBINE_THREADS) for it in rows)
+    # (a sorted-path item: counted as one chunk, which most have)
+    combine = max(-(-it[1] * it[3] * (COMBINE_GROUPS if it[13] >= COMBINE_SPLIT
+                                      and it[17] < 0 else 1) // COMBINE_THREADS)
+                  for it in rows)
+    out_numel = out_off[-1]
+    modes = [lay.mode for lay in layouts]
     return Layout(shapes=tuple(shapes), layouts=layouts, grids=tuple(grids),
                   items=tuple(rows), scratch_numel=scratch,
                   combine_blocks=min(combine, COMBINE_BLOCKS),
                   outputs=tuple((out_off[i], sh.n_segments, sh.width)
-                                for i, sh in enumerate(shapes)))
+                                for i, sh in enumerate(shapes)),
+                  out_numel=out_numel, scratch_base=-(-out_numel // 4) * 4,
+                  range_paths=(modes.count(1), modes.count(2)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,7 +529,7 @@ class Plan:
 
     launch: Layout
     items: torch.Tensor          # (n_items, N_FIELDS) int64 on the device
-    grid_args: ctypes.Array      # (kernel, items, chunks, shared memory) a grid
+    grid_args: ctypes.Array      # GRID_INTS int64 a grid (``run`` in seg_reduce.cuh)
 
 
 @functools.lru_cache(maxsize=256)
@@ -432,9 +560,9 @@ def launch_plan(n: int, shapes: Tuple[Shape, ...], device: torch.device,
     return Plan(launch=lay,
                 items=torch.tensor(lay.items, dtype=torch.int64).pin_memory().to(
                     device, non_blocking=True),
-                grid_args=(ctypes.c_int * (4 * len(lay.grids)))(*[
+                grid_args=(ctypes.c_int64 * (GRID_INTS * len(lay.grids)))(*[
                     v for g in lay.grids
-                    for v in (g.kernel, g.n_items, g.n_chunks, g.smem_bytes)]))
+                    for v in (g.kernel, g.n_items, *g.blocks, g.smem_bytes, g.sort_off)]))
 
 
 def seg_plan(n: int, n_segments: int, width: int, device: torch.device,
@@ -452,6 +580,11 @@ def source(t: torch.Tensor, col0: int = 0, ocol: int = 0,
     cs, w = (t.stride(1), t.shape[1]) if t.dim() == 2 else (0, 1)
     return (t.data_ptr(), t.stride(0), cs, col0, w, ocol, ostride)
 
+
+#: range-mode reductions the card has run, by path: ``scan`` (each range
+#: reads every code of its chunk) or ``sorted`` (rows counting-sorted by
+#: range first); a plain counter, as ``ops.LAUNCHES``
+RANGE_REDUCTIONS = {"scan": 0, "sorted": 0}
 
 #: source tables kept on the card, by content: a launch whose tensors lie
 #: where an earlier one's did (a loop over row blocks of one shape, whose
@@ -485,16 +618,17 @@ def run(entry, plan: Plan, sources: Sequence[Tuple[int, ...]], n: int,
     ``sources`` table (:func:`source_table`), and split the output per
     reduction.  ``zero``: some output column is named by no part and must
     read 0.  The output and the scratch are one allocation, the outputs
-    views of its head."""
+    views of its head.  Counts the launch's range-mode reductions in
+    :data:`RANGE_REDUCTIONS`."""
     lay = plan.launch
-    buf = torch.empty(lay.out_numel + lay.scratch_numel, dtype=torch.float32,
+    buf = torch.empty(lay.scratch_base + lay.scratch_numel, dtype=torch.float32,
                       device=device)
     if zero:
         buf[:lay.out_numel].zero_()
     table = source_table(sources, device)
     ptr = buf.data_ptr()
     args = (plan.items.data_ptr(), table.data_ptr(), n, plan.grid_args,
-            len(lay.grids), lay.combine_blocks, ptr + 4 * lay.out_numel, ptr,
+            len(lay.grids), lay.combine_blocks, ptr + 4 * lay.scratch_base, ptr,
             # the raw handle: no Stream object built (a short launch's time
             # is mostly its wrapper's host time)
             torch._C._cuda_getCurrentRawStream(device.index))
@@ -507,6 +641,9 @@ def run(entry, plan: Plan, sources: Sequence[Tuple[int, ...]], n: int,
         raise RuntimeError(
             f"{entry.__name__} launch failed with CUDA error {err} (n={n}, "
             f"shapes={lay.shapes}, grids={lay.grids})")
+    scan, srt = lay.range_paths
+    RANGE_REDUCTIONS["scan"] += scan
+    RANGE_REDUCTIONS["sorted"] += srt
     return tuple(buf.as_strided((s, w), (w, 1), o) for o, s, w in lay.outputs)
 
 

@@ -180,6 +180,160 @@ def test_wide_reductions_split_into_segment_ranges(cuda_device, n_segments):
     torch.testing.assert_close(out, ref.seg_aggregate_ref(seg, pay, n_segments), **TOL)
 
 
+def _sorted_codes(kind, S, n, rng):
+    """Codes over ``S`` segments: uniform, zipf-skewed (a heavy head, many
+    rows of one range), or uniform with about 4% out of range, 2% on each
+    side."""
+    if kind == "zipf":
+        c = np.minimum(rng.zipf(1.2, n), S) - 1
+    elif kind == "spill":
+        spill = S // 50
+        c = rng.integers(-spill, S + spill, n)
+    else:
+        c = rng.integers(0, S, n)
+    return c.astype(np.int32)
+
+
+@pytest.mark.parametrize("codes", ["uniform", "zipf", "spill"])
+def test_sorted_path_matches_plain(cuda_device, codes):
+    """Thousands of segment ranges take the sorted path (2,000 ranges at
+    99 columns; 2^20 + 3 rows): each range reads only its
+    rows from the pre-pass's list, on uniform codes, on zipf-skewed ones
+    (one range holding most rows, cut into chunks) and with codes out of
+    range; within 1e-4 of the plain version's Σ|terms|, and counted as a
+    sorted-path reduction."""
+    rng = np.random.default_rng(21)
+    n, width = (1 << 20) + 3, 99
+    S = kseg.range_segments(width) * 2000
+    assert kseg.reduction_mode("seg", S, width) == 2
+    seg = torch.from_numpy(_sorted_codes(codes, S, n, rng)).to(cuda_device)
+    pay = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(cuda_device)
+    ops.reset_launches()
+    got = ops.seg_aggregate(seg, pay, S)
+    assert ops.RANGE_REDUCTIONS == {"scan": 0, "sorted": 1}
+    want = ref.seg_aggregate_ref(seg, pay, S)
+    assert _scaled_err(got, want, ref.seg_aggregate_ref(seg, pay.abs(), S)) <= 1e-4
+
+
+def test_sorted_path_integer_sums_are_exact(cuda_device):
+    """Every row on one segment, 20,000,003 rows (more than MAX_CHUNK_ROWS
+    many times): the sorted path cuts that range into chunks of listed rows,
+    no partial past MAX_CHUNK_ROWS, so COUNT-like parts and a histogram's
+    Σcond come out exact past 2^24, in every run."""
+    n = 20_000_003
+    code = torch.full((n,), 5, dtype=torch.int32, device=cuda_device)
+    ones = torch.ones(1, 1, device=cuda_device).expand(n, 600)
+    y = torch.zeros(n, device=cuda_device)
+    S, B = kseg.range_segments(600) * 300, kseg.range_segments(192) * 300
+    assert kseg.reduction_mode("seg", S, 600) == 2
+    assert kseg.reduction_mode("hist", B, 192) == 2
+    for _ in range(2):
+        ops.reset_launches()
+        seg, hist = ops.fused_scan_parts([
+            ops.Parts("seg", code, (ops.Part(ones, 0),), S),
+            ops.Parts("hist", code, (ones[:, :64], y), B)])
+        assert ops.RANGE_REDUCTIONS["sorted"] == 2
+        assert seg[5].cpu().numpy().tolist() == [float(np.float32(n))] * 600
+        assert float(seg.abs().sum() - seg[5].sum()) == 0.0
+        h = hist[5].view(64, 3)
+        assert h[:, 0].cpu().numpy().tolist() == [float(np.float32(n))] * 64
+        assert float(h[:, 1:].abs().sum()) == 0.0 and float(hist.sum() - hist[5].sum()) == 0.0
+
+
+@pytest.mark.parametrize("n_nodes", [16, 64])
+def test_sorted_path_histograms_match_plain(cuda_device, n_nodes):
+    """HIST on the sorted path: ``tree_hist_batched`` over 300,000 buckets
+    (322 ranges at 16 nodes, 1,294 at 64) on 0/1 masks, codes out of range
+    on both sides, against the plain version."""
+    rng = np.random.default_rng(22 + n_nodes)
+    n, S = 1_000_003, 300_000
+    assert kseg.reduction_mode("hist", S, 3 * n_nodes) == 2
+    codes = torch.from_numpy(_sorted_codes("spill", S, n, rng)).to(cuda_device)
+    y = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda_device)
+    cond = torch.from_numpy((rng.random((n, n_nodes)) < 0.5).astype(np.float32)).to(cuda_device)
+    got = ops.tree_hist_batched(codes, y, cond, S)
+    want = ref.tree_hist_batched_ref(codes, y, cond, S)
+    assert _scaled_err(got, want, ref.tree_hist_batched_ref(codes, y.abs(), cond, S)) <= 1e-4
+
+
+def test_sorted_path_reads_parts_where_they_lie(cuda_device):
+    """The parts form on the sorted path: seg parts that are strided column
+    slices, a (n,) column at an output stride, an expanded scalar (row
+    stride 0) and an output column no part names, over 2,000,000 segments
+    (313 ranges); a histogram over a transposed (N, n) node mask with y
+    formed on the card over 300,000 buckets (322 ranges); beside them one
+    with a packed yk read at a column stride, 61 ranges on the scan path;
+    one launch, against the plain version."""
+    rng = np.random.default_rng(23)
+    n, S, B = 300_007, 2_000_000, 300_000
+    big = torch.from_numpy(rng.normal(size=(n, 20)).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy((rng.random((16, n)) < 0.3).astype(np.float32)).to(cuda_device)
+    code = torch.from_numpy(_sorted_codes("spill", S, n, rng)).to(cuda_device)
+    hcode = torch.from_numpy(_sorted_codes("spill", B, n, rng)).to(cuda_device)
+
+    def reds(f):
+        return [ops.Parts("seg", code, (ops.Part(f(big[:, 2:7]), 0, 2),
+                                        ops.Part(f(big[:, 10]), 1, 3),
+                                        ops.Part(torch.full((1,), 2.5, device=cuda_device)
+                                                 .expand(n), 13)), S, 15),
+                ops.Parts("hist", hcode, (mask.t(), f(big[:, 11])), B),
+                ops.Parts("hist", hcode, (mask.t()[:, :3], f(big[:, 12:18:2])), B)]
+    assert [kseg.reduction_mode("seg", S, 7), kseg.reduction_mode("hist", B, 48),
+            kseg.reduction_mode("hist", B, 9)] == [2, 2, 1]
+    ops.reset_launches()
+    got = ops.fused_scan_parts(reds(lambda t: t))
+    assert ops.LAUNCHES["fused_scan_block"] == 1
+    assert ops.RANGE_REDUCTIONS == {"scan": 1, "sorted": 2}
+    assert _within(got, ref.fused_scan_parts_ref(reds(lambda t: t)),
+                   ref.fused_scan_parts_ref(reds(torch.abs)))
+    assert not bool(got[0][:, 3].any()) and not bool(got[0][:, 12].any())
+
+
+@pytest.fixture
+def sorted_min_ranges():
+    """Sets ``SORTED_MIN_RANGES`` for the plans made inside, and restores it
+    and the plan cache after."""
+    keep = kseg.SORTED_MIN_RANGES
+
+    def set_to(value):
+        kseg.SORTED_MIN_RANGES = value
+        kseg.launch_plan.cache_clear()
+    yield set_to
+    set_to(keep)
+
+
+@pytest.mark.parametrize("side", [-1, 0])
+def test_paths_agree_across_the_crossover(cuda_device, side, sorted_min_ranges):
+    """A shape one range below the crossover (scan path) and one at it
+    (sorted path), each run on both paths on the same inputs, skewed codes
+    out of range included: the two paths agree with each other and with
+    the plain version, and an integer-valued column exactly."""
+    ranges = kseg.SORTED_MIN_RANGES + side
+    n, width = 1_000_003, 99
+    S = kseg.range_segments(width) * ranges
+    assert kseg.range_count(S, width) == ranges
+    assert kseg.reduction_mode("seg", S, width) == (1 if side < 0 else 2)
+    rng = np.random.default_rng(24 + ranges)
+    c = _sorted_codes("spill", S, n, rng)
+    heavy = rng.random(n) < 0.25
+    c[heavy] = rng.integers(0, 124, int(heavy.sum())) * (S // 124)
+    seg = torch.from_numpy(c).to(cuda_device)
+    pay = torch.from_numpy(rng.normal(size=(n, width)).astype(np.float32)).to(cuda_device)
+    pay[:, 0] = 1.0
+    want = ref.seg_aggregate_ref(seg, pay, S)
+    scale = ref.seg_aggregate_ref(seg, pay.abs(), S)
+    outs = {}
+    for path, crossover in (("scan", 1 << 30), ("sorted", 1)):
+        sorted_min_ranges(crossover)
+        ops.reset_launches()
+        outs[path] = ops.seg_aggregate(seg, pay, S)
+        assert ops.RANGE_REDUCTIONS[path] == 1
+        assert _scaled_err(outs[path], want, scale) <= 1e-4
+    assert _scaled_err(outs["sorted"], outs["scan"], scale) <= 1e-4
+    assert torch.equal(outs["sorted"][:, 0], outs["scan"][:, 0])
+    assert torch.equal(outs["sorted"][:, 0], want[:, 0])
+
+
 def test_integer_sums_are_exact_past_2_24(cuda_device):
     """Counts like the covar's root COUNT (4,960 rows of up to 2·10^5 each,
     summing past 2^24) come out as the exact sum rounded once to float32,
@@ -232,7 +386,8 @@ def test_seg_aggregate_fact_bucket_plan(cuda_device):
     least one, and agrees with the plain version."""
     plan = kseg.seg_plan(1_000_003, 4960, 99, cuda_device)
     (grid,) = plan.launch.grids
-    assert plan.launch.layouts[0].mode == 1 and grid.wave_blocks >= 1
+    assert plan.launch.layouts[0].mode == kseg.reduction_mode("seg", 4960, 99) >= 1
+    assert grid.wave_blocks >= 1
     assert grid.n_chunks * grid.chunk_rows >= 1_000_003
     rng = np.random.default_rng(3)
     seg = torch.from_numpy(rng.integers(-200, 5160, 1_000_003).astype(np.int32)).to(cuda_device)

@@ -222,7 +222,8 @@ def _seg(S, *parts, width=None):
 #: it, one part per aggregate column; the tree fact step too),
 #: tree_hist_batched at 1, 16 and 200 nodes, a single-root Chow-Liu
 #: view of 120,000 segments (packed, and in parts), a width past
-#: MAX_TILE_B, polyreg's one-segment 540 columns, and a 30-row scan
+#: MAX_TILE_B, polyreg's one-segment 540 columns, reductions of both range
+#: paths and kinds (three sorted, one of two column tiles), and a 30-row scan
 LAUNCHES = {
     "covar_fact": ([_seg(4960, 99), _seg(40, 4), _seg(480, 20)], 1_000_003),
     "covar_fact_parts": ([_seg(4960, *([1] * 45), 5, 6, 10, 25, 8),
@@ -241,6 +242,8 @@ LAUNCHES = {
                         1_000_003),
     "wide": ([_seg(4960, 700, 800, width=1600), _seg(13, 1)], 84_000_000),
     "polyreg": ([_seg(1, *([1] * 540))], 1 << 20),
+    "sorted_mixed": ([_hist(90_000, 64), _seg(20_000, 700, 900, width=1600),
+                      _seg(2_000_000, 3, 4), _seg(60_000, 3, 4)], 1_000_003),
     "short": ([_seg(1, 55)] + [_seg(s, w) for s, w in [(2, 64), (4, 1), (4, 1),
                                                        (2, 64), (4, 1), (2, 64)]],
               30),
@@ -251,50 +254,191 @@ LAUNCHES = {
 @pytest.mark.parametrize("case", sorted(LAUNCHES))
 def test_launch_layout_covers_every_cell_once(case, per_sm):
     """Every (reduction, segment, accumulator column) cell in exactly one
-    work item; a grid a partial kernel, its blocks within the shared-memory
-    budget; each item's chunks covering the rows, none past MAX_CHUNK_ROWS;
-    disjoint partials in scratch; the items grid by grid, each reduction in
-    the mode its shape fits."""
+    work item; the grids taking the items in order, a partial kernel each,
+    their blocks within the shared-memory budget; each scan item's chunks
+    covering the rows, none past MAX_CHUNK_ROWS; a sorted-path reduction in
+    a grid of its own, its chunks of listed rows none past MAX_CHUNK_ROWS;
+    disjoint partials and sort areas in scratch; each reduction in the mode
+    its shape fits."""
     shapes, n = LAUNCHES[case]
     lay = kseg.launch_layout(n, shapes, lambda kernel, smem: per_sm * 132)
     assert len(lay.layouts) == len(shapes)
-    grids = {g.kernel: g for g in lay.grids}
-    assert len(grids) == len(lay.grids)
-    cells = [np.zeros((sh.n_segments, sh.acc_width), np.int64) for sh in shapes]
+    grid_of = [g for g in lay.grids for _ in range(g.n_items)]
+    assert len(grid_of) == len(lay.items)
+    cells = [np.zeros((sh.n_segments, sh.acc_width), np.int8) for sh in shapes]
     by_out = {off: i for i, (off, _, _) in enumerate(lay.outputs)}
-    order, spans = [], []
-    for it in lay.items:
+    order, spans, regions = [], [], {}
+    for it, g in zip(lay.items, grid_of):
         (s0, ns, c0, t, soff, kind, width, out, code, src0, nsrc, ncond,
-         srows, nch, crows, pst, copies) = it
+         srows, nch, crows, pst, copies, sort, rng, n_ranges, n_tiles, n_segs) = it
         i = by_out[out]
         sh, sub = shapes[i], lay.layouts[i]
-        g = grids[kseg.kernel_of(sh, sub)]
+        assert g.kernel == kseg.kernel_of(sh, sub)
         assert kind == kseg.KINDS[sh.kind] and width == sh.width
         assert nsrc == len(sh.parts) and src0 == code + 1
         assert ncond == (sh.parts[0] if sh.kind == "hist" else 0)
         cells[i][s0:s0 + ns, c0:c0 + t] += 1
         unit = 3 if sh.kind == "hist" else 1
-        assert ns * t <= pst and c0 % unit == 0 and t % unit == 0
+        assert ns * t <= sub.part_stride and c0 % unit == 0 and t % unit == 0
         assert copies == sub.copies >= 1
-        assert nch <= g.n_chunks <= 65535 and 0 < crows <= min(g.chunk_rows, kseg.MAX_CHUNK_ROWS)
-        assert (nch - 1) * crows < n <= nch * crows
+        assert 0 < crows <= min(g.chunk_rows, kseg.MAX_CHUNK_ROWS)
+        assert (nch - 1) * crows < n <= nch * crows and nch <= g.n_chunks
         assert sub.smem_bytes <= g.smem_bytes <= kseg.SMEM_BYTES
+        if sort < 0:
+            assert nch <= 65535 and g.blocks == (g.n_items, g.n_chunks)
+            assert pst == sub.part_stride
+            spans.append((soff, soff + nch * pst))
+        else:
+            assert sub.mode == 2 and g.sort_off == sort and g.n_items == len(sub.items)
+            assert (n_ranges, n_tiles, n_segs) == (sub.n_ranges, g.blocks[1], sh.n_segments)
+            assert sub.items.index((s0, ns, c0, t, 0)) // n_tiles == rng
+            assert pst == n_tiles * sub.part_stride and crows == g.chunk_rows
+            regions.setdefault(i, (g, []))[1].append(soff)
         order.append(g.kernel)
-        spans.append((soff, soff + nch * pst))
+    for i, (g, offs) in regions.items():
+        sub = lay.layouts[i]
+        spans.append((min(offs), min(offs) + g.blocks[0] * g.blocks[1] * sub.part_stride))
+        spans.append((g.sort_off, g.sort_off + kseg.sort_words(n, sub.n_ranges,
+                                                                 g.blocks[0])))
+        assert g.sort_off % 4 == 0
     assert all((c == 1).all() for c in cells)
     assert order == sorted(order)
-    assert all(g.n_items == order.count(g.kernel) for g in lay.grids)
     spans.sort()
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
     assert spans[-1][1] == lay.scratch_numel
+    assert lay.scratch_base % 4 == 0 and lay.scratch_base >= lay.out_numel
     assert 0 < lay.combine_blocks <= kseg.COMBINE_BLOCKS
     for sh, sub in zip(shapes, lay.layouts):
         fits = (kseg.fits_one_block(sh.n_segments, sh.acc_width) if sh.kind == "seg"
                 else sh.parts[0] <= kseg.THREADS
                 and 4 * sh.n_segments * sh.width <= kseg.SMEM_BYTES)
-        assert sub.mode == (0 if fits else 1)
+        assert sub.mode == (0 if fits else 2 if sub.n_ranges >= kseg.SORTED_MIN_RANGES else 1)
+        assert sub.mode == kseg.reduction_mode(sh.kind, sh.n_segments, sh.acc_width)
+    assert lay.range_paths == tuple(sum(sub.mode == m for sub in lay.layouts) for m in (1, 2))
     srcs = sum(1 + len(sh.parts) for sh in shapes)
     assert max(it[8] for it in lay.items) < srcs
+
+
+#: range-mode reductions as the cells' plans launch them, their rows, and
+#: the path each takes: the covar fact (Inventory) step's three
+#: reductions on Retailer (the (dateid, locn) view 489 columns wide in
+#: 13,170 ranges; (ksn) 42 wide; (locn)), Favorita's Sales step's
+#: (date, store_nbr) and (date) buckets, a tree level's (date, store)
+#: histograms, and the maintained ridge's delta step (one segment, 3,817
+#: columns in four tiles of one range)
+PATH_CASES = {
+    "retailer_fact_dateid_locn": ("seg", 1_158_960, 489, 1 << 20, 2),
+    "retailer_fact_ksn": ("seg", 5_618, 42, 1 << 20, 1),
+    "retailer_fact_locn": ("seg", 1_317, 6, 1 << 20, 0),
+    "favorita_date_store": ("seg", 90_936, 374, 1 << 20, 2),
+    "favorita_date": ("seg", 1_684, 442, 1 << 20, 1),
+    "favorita_tree_date_store_64": ("hist", 90_936, 192, 1 << 20, 2),
+    "ivm_delta": ("seg", 1, 3_817, 840_558, 1),
+    "one_block_hist": ("hist", 480, 48, 1 << 20, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_range_path_follows_the_shape(case):
+    """The sorted path is taken by shape alone (SORTED_MIN_RANGES ranges
+    or more): the covar cells' wide fact buckets
+    take it, the maintained ridge's delta step and one-block shapes do not;
+    the kernel spans' mode string follows the same rule."""
+    kind, S, width, n, mode = PATH_CASES[case]
+    n_cond = width // 3
+    sh = (kseg.Shape("hist", S, (n_cond, 1), width) if kind == "hist"
+          else kseg.Shape("seg", S, (1,) * width, width))
+    assert kseg.reduction_mode(kind, S, width) == mode
+    lay = kseg.launch_layout(n, [sh], lambda kernel, smem: 132)
+    assert lay.layouts[0].mode == mode
+    assert lay.range_paths == ((1, 0) if mode == 1 else (0, 1) if mode == 2 else (0, 0))
+    args = ops._launch_args(n, [], [(kind, S, width, width, 1)])
+    assert args["reductions"][0][0] == kind + ("", ".range", ".sorted")[mode]
+
+
+def test_sorted_path_refuses_rows_past_int32():
+    """The sorted path lists a row by its int32 index: a launch of 2^31
+    rows with a sorted-path reduction fails on the host rather than taking
+    another path, and one row fewer is laid out."""
+    sh = kseg.Shape("seg", 1_158_960, (1,) * 489, 489)
+    with pytest.raises(ValueError, match="int32"):
+        kseg.launch_layout(1 << 31, [sh], lambda kernel, smem: 132)
+    lay = kseg.launch_layout((1 << 31) - 1, [sh], lambda kernel, smem: 132)
+    assert lay.layouts[0].mode == 2
+
+
+def _counts(kind: str, n: int, n_ranges: int, rng) -> np.ndarray:
+    """Rows a range: uniform, zipf-skewed, or every row in one range."""
+    if kind == "one":
+        c = np.zeros(n_ranges, np.int64)
+        c[n_ranges // 2] = n
+        return c
+    if kind == "zipf":
+        return np.bincount(np.minimum(rng.zipf(1.3, n), n_ranges) - 1, minlength=n_ranges)
+    return np.bincount(rng.integers(0, n_ranges, n), minlength=n_ranges)
+
+
+@pytest.mark.parametrize("counts", ["uniform", "zipf", "one"])
+@pytest.mark.parametrize("n,n_ranges,scan_chunks", [
+    (1 << 20, 13_170, 4), (1 << 20, 784, 4), (1 << 20, 8, 4), (1 << 20, 17, 4),
+    (100_000, 50, 1), (262_144, 8, 1), (300_000, 8, 2), (5, 13_170, 1),
+    (84_055_817, 13_170, 321)])
+def test_sorted_chunks_bound_every_partial(n, n_ranges, scan_chunks, counts):
+    """The sorted path's chunks, whatever the skew: no partial adds more
+    than MAX_CHUNK_ROWS rows (so integer payloads stay exact, every row in
+    one segment too), the grid's slots hold every range's chunks, and the
+    partials are no more than the scan path's n_ranges × scan_chunks."""
+    chunk, slots = kseg.sorted_chunks(n, n_ranges, scan_chunks)
+    assert 0 < chunk <= kseg.MAX_CHUNK_ROWS
+    assert 0 < slots <= n_ranges * scan_chunks
+    c = _counts(counts, n, n_ranges, np.random.default_rng(n_ranges))
+    assert c.sum() == n
+    assert int((-(-c // chunk)).sum()) <= slots
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCHES) + sorted(PATH_CASES)[:6])
+def test_sorted_path_scratch_within_the_scan_paths(case, monkeypatch):
+    """A sorted-path reduction's partials are no more than its items take
+    on the scan path, and a launch's no more than on the scan path: only
+    the sort areas (the list, n × 8 bytes, four counts a range and a word a
+    chunk) come on top.  The scan-path reductions beside it are cut as in a
+    launch of them alone."""
+    if case in LAUNCHES:
+        shapes, n = LAUNCHES[case]
+    else:
+        kind, S, width, n, _ = PATH_CASES[case]
+        shapes = [kseg.Shape("hist", S, (width // 3, 1), width) if kind == "hist"
+                  else kseg.Shape("seg", S, (1,) * width, width)]
+    wave = lambda kernel, smem: 132  # noqa: E731
+    lay = kseg.launch_layout(n, shapes, wave)
+    sorted_grids = [g for g in lay.grids if g.sort_off >= 0]
+    sort = sum(kseg.sort_words(n, g.n_items // g.blocks[1], g.blocks[0]) for g in sorted_grids)
+    on_scan = [sh for sh, sub in zip(shapes, lay.layouts) if sub.mode < 2]
+    alone = kseg.launch_layout(n, on_scan, wave) if on_scan else None
+    monkeypatch.setattr(kseg, "SORTED_MIN_RANGES", 1 << 40)
+    scan = kseg.launch_layout(n, shapes, wave)
+    assert all(sub.mode < 2 for sub in scan.layouts)
+    assert lay.scratch_numel - sort <= scan.scratch_numel
+    outs = [o for o, _, _ in lay.outputs]
+    for g in sorted_grids:
+        i = outs.index(next(it for it in lay.items if it[17] == g.sort_off)[7])
+        sub = lay.layouts[i]
+        assert g.blocks[0] * g.blocks[1] * sub.part_stride <= sum(
+            it[13] * it[15] for it in scan.items if it[7] == outs[i])
+    if alone is not None:
+        def cut(it):
+            return it[:4] + it[5:7] + it[10:17]
+        assert [cut(it) for it in lay.items if it[17] < 0] == [cut(it) for it in alone.items]
+
+
+def test_reset_launches_clears_the_range_counter():
+    """``ops.RANGE_REDUCTIONS`` is the counter the card's launches add to,
+    and ``reset_launches`` clears it with the launch counts."""
+    assert ops.RANGE_REDUCTIONS is kseg.RANGE_REDUCTIONS
+    ops.RANGE_REDUCTIONS["sorted"] += 2
+    ops.RANGE_REDUCTIONS["scan"] += 1
+    ops.reset_launches()
+    assert ops.RANGE_REDUCTIONS == {"scan": 0, "sorted": 0}
 
 
 SEG_SHAPES = [(4960, 99), (4800, 1), (480, 20), (40, 4), (1, 1), (13, 1500),

@@ -16,8 +16,9 @@ session, the job, its warm units), then:
 2. **Split**: one window of ``--units`` units with the spans on and the
    profiler's host activity too: each span's milliseconds a unit, the
    unit's wall, the host's time blocked on a full launch queue
-   ("Command Buffer Full"), and the device time of every ``range_kernel`` by the
-   ``scan.step`` span that launched it (the kernel's launch found by its
+   ("Command Buffer Full"), and the device time of every range-mode kernel
+   (``RANGE_KERNELS``: the scan path's ``range_kernel``, the sorted path's
+   ``sorted_kernel`` and pre-pass) by the ``scan.step`` span that launched it (the kernel's launch found by its
    correlation id, the launch inside a step's host annotation, the step's
    arguments from the ``obs`` buffer, in order).
 
@@ -34,6 +35,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the device kernels of range mode, on either path (``seg_reduce.cuh``)
+RANGE_KERNELS = ("range_kernel", "sorted_kernel", "sort_rows_kernel", "sort_scan_kernel")
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 
@@ -94,7 +97,8 @@ def split(job, port, units: int) -> dict:
             host_steps.append((e.start_ns(), e.start_ns() + e.duration_ns()))
         elif not on_device and e.correlation_id():
             launches[e.correlation_id()] = e.start_ns()
-        elif on_device and not e.is_user_annotation() and "range_kernel" in e.name():
+        elif on_device and not e.is_user_annotation() and any(
+                k in e.name() for k in RANGE_KERNELS):
             kernels.append((e.correlation_id(), e.duration_ns() * 1e-6, e.name()))
     host_steps.sort()
     starts = [a for a, _ in host_steps]

@@ -7,6 +7,7 @@ it, in turns, in one process.
     PYTHONPATH=src python3 tools/scan_ablation.py [--reps 20] [--old DIR] [--no-xtx]
     PYTHONPATH=src python3 tools/scan_ablation.py --sites 1400
     PYTHONPATH=src python3 tools/scan_ablation.py --host-profile [--tree-scale 1400]
+    PYTHONPATH=src python3 tools/scan_ablation.py --ranges [--reps 3]
 
 ``--old DIR`` holds the kernel sources of an earlier commit (every file of
 its ``csrc``, e.g. from ``git archive <commit> src/repro_torch/kernels/csrc``
@@ -80,6 +81,20 @@ CUDA events, beside the PyTorch calls that compute the same function
 ``torch.mm``).  One JSON line a variant and case, then the card's name and
 power limit.  Needs a CUDA card and ``nvcc``.
 
+``--ranges`` instead times range mode's two paths on one reduction as the
+covar fact bucket's plan passes it, ``RANGE_WIDTH`` one-column parts over
+``RANGE_ROWS`` rows (codes about 2% outside the domain on each side), at
+each of ``RANGE_COUNTS`` segment ranges (2 to the covar fact bucket's
+13,170): the scan path (each range's blocks read every code of their
+chunk) and the sorted path (rows counting-sorted by range once), each
+forced through ``SORTED_MIN_RANGES`` in a plan cache of its own, checked
+against the plain version and timed in turns, with the device time by
+kernel.  Then the same for HIST at a tree level's histograms: the
+``HIST_BUCKETS`` buckets of Favorita's (date, store_nbr) at each of
+``HIST_NODES`` frontier nodes (0/1 masks, y formed on the card).  A line
+for each kind names the fewest ranges from which the sorted path is the
+faster at every count: where ``SORTED_MIN_RANGES`` belongs.
+
 ``--sites SCALE`` instead profiles one warm fused covar pass over Retailer
 at that scale and attributes the device time of every ``torch.cat`` and
 ``torch.stack`` of the port's lowering to its call site.  ``--host-profile``
@@ -107,6 +122,14 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ROWS = 1_000_003
+#: ``--ranges``: rows and one-column parts of the reduction, and its counts
+#: of segment ranges
+RANGE_ROWS, RANGE_WIDTH = 1 << 20, 489
+RANGE_COUNTS = (2, 4, 8, 16, 32, 64, 96, 128, 160, 192, 256, 384, 512, 784, 2048, 13_170)
+#: ``--ranges``, HIST: the buckets of Favorita's (date, store_nbr) and the
+#: frontier nodes of a tree level's histograms over them (49 to 392 ranges)
+HIST_BUCKETS = 90_936
+HIST_NODES = (8, 16, 24, 32, 40, 48, 64)
 #: variant -> [(text in seg_reduce.cuh, its replacement), ...]
 SCAN_PATCHES = {
     "one_stage": [("constexpr int kStagesA = 4;", "constexpr int kStagesA = 1;")],
@@ -830,6 +853,101 @@ def device_split(fn, reps: int) -> dict:
     return out
 
 
+def range_paths(reps: int) -> None:
+    """``--ranges``: both range-mode paths at each of ``RANGE_COUNTS``
+    (SEG), then at each of ``HIST_NODES`` (HIST); the crossover of each."""
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import fused_scan as kfused
+    from repro_torch.kernels import seg_aggregate as kseg
+
+    so = _build.library()._name
+    # path -> (a library of its own, so a plan cache of its own; the
+    # crossover that forces the path)
+    libs = {path: (bind(ctypes.CDLL(so), "scan", False), crossover)
+            for path, crossover in (("scan", 1 << 30), ("sorted", 1))}
+    keep = kseg.SORTED_MIN_RANGES
+
+    def run(path, reds):
+        lib, crossover = libs[path]
+        kseg.SORTED_MIN_RANGES = crossover
+        try:
+            return kfused.fused_scan_parts_cuda(reds, lib=lib)
+        finally:
+            kseg.SORTED_MIN_RANGES = keep
+
+    def both(case, ranges, n, shape, reds, abs_reds) -> bool:
+        """Checks both paths against the plain version, times them in
+        turns, prints a line; whether the sorted path is the faster."""
+        want = ref.fused_scan_parts_ref(reds)[0]
+        scale = ref.fused_scan_parts_ref(abs_reds)[0]
+        errs = {}
+        for path in libs:
+            got = run(path, reds)[0]
+            errs[path] = float(((got - want).abs() / (scale + 1e-30)).max())
+            del got
+        del want, scale
+        times = {path: [] for path in libs}
+        for path in list(libs) + list(libs)[::-1]:
+            times[path].append(cuda_ms(lambda: run(path, reds), reps))
+        lay = {path: kseg.launch_plan(n, (shape,), reds[0].codes.device, libs[path][0]).launch
+               for path in libs}
+        print(json.dumps({
+            "case": case, "ranges": ranges, "segments": shape.n_segments, "n": n,
+            "width": shape.width, "ms": times, "max_rel_err": errs,
+            "grids": {path: [[g.kernel, g.n_items, *g.blocks, g.chunk_rows] for g in l.grids]
+                      for path, l in lay.items()},
+            "scratch_bytes": {path: 4 * l.scratch_numel for path, l in lay.items()},
+            "device_ms_by_kernel": {path: device_split(lambda: run(path, reds), reps)
+                                    for path in libs}}), flush=True)
+        return min(times["sorted"]) < min(times["scan"])
+
+    def crossover(case, faster):
+        counts = sorted(faster)
+        at = next((r for i, r in enumerate(counts) if all(faster[q] for q in counts[i:])), None)
+        print(json.dumps({"case": case, "sorted_faster": faster, "crossover": at,
+                          "SORTED_MIN_RANGES": keep}), flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    n, width = RANGE_ROWS, RANGE_WIDTH
+    vals = torch.randn((width, n), generator=gen, device="cuda")
+    faster = {}
+    for ranges in RANGE_COUNTS:
+        S = kseg.range_segments(width) * ranges
+        assert kseg.range_count(S, width) == ranges
+        spill = max(1, S // 50)
+        codes = torch.randint(-spill, S + spill, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        parts = lambda f: [kfused.Parts(  # noqa: E731
+            "seg", codes, tuple(kfused.Part(f(vals[j]), j) for j in range(width)), S, width)]
+        faster[ranges] = both("range_paths", ranges, n,
+                              kseg.Shape("seg", S, (1,) * width, width),
+                              parts(lambda v: v), parts(torch.abs))
+        del codes
+    crossover("range_paths", faster)
+    del vals
+
+    # HIST at a tree level's (date, store_nbr) histograms: 0/1 node masks
+    # read transposed from (N, n), y formed on the card
+    S = HIST_BUCKETS
+    y = torch.randn((n,), generator=gen, device="cuda")
+    spill = max(1, S // 50)
+    codes = torch.randint(-spill, S + spill, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    faster = {}
+    for nodes in HIST_NODES:
+        ranges = kseg.range_count(S, max(t for _, t in kseg.column_tiles(3 * nodes, 3)))
+        mask = (torch.rand((nodes, n), generator=gen, device="cuda") < 0.5).float()
+        faster[ranges] = both("hist_range_paths", ranges, n,
+                              kseg.Shape("hist", S, (nodes, 1), 3 * nodes),
+                              [kfused.Parts("hist", codes, (mask.t(), y), S)],
+                              [kfused.Parts("hist", codes, (mask.t(), y.abs()), S)])
+        del mask
+    crossover("hist_range_paths", faster)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="launches a timing")
@@ -843,6 +961,10 @@ def main() -> int:
     ap.add_argument("--host-profile", action="store_true",
                     help="only profile the host side of the scan wrappers "
                          "(and, with --tree-scale, of chip_smoke.py's tree fit)")
+    ap.add_argument("--ranges", action="store_true",
+                    help="only time range mode's scan and sorted paths over "
+                         "2 to 13,170 segment ranges (SEG) and a tree level's "
+                         "histograms (HIST)")
     ap.add_argument("--tree-scale", type=float, default=None, metavar="SCALE",
                     help="with --host-profile: Retailer's scale for the tree "
                          "fits (1400: 84M fact rows)")
@@ -856,6 +978,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.sites is not None:
         site_attribution(args.sites, 1 << 20, 1)
+        return card_line()
+    if args.ranges:
+        range_paths(args.reps)
         return card_line()
     if args.host_profile:
         host_profile(args.reps)
